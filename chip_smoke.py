@@ -4,25 +4,37 @@
 Run from the root of the repository:
 
     python3 chip_smoke.py            # the check; needs one CUDA device
-    python3 chip_smoke.py --profile DIR  # and a torch.profiler breakdown of
-                                         # the fit, its full table in DIR
+    python3 chip_smoke.py --profile DIR  # and torch.profiler breakdowns of the
+                                         # fit and of k-means||, tables in DIR
 
 Phases, one line each (and a few detail lines), any failure exits non-zero:
 
-1. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one nvcc each,
-   in parallel) and print the build seconds;
+1. build the four CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
+   (one nvcc each, in parallel) and print the build seconds;
 2. hold each kernel (B1 assign_top2, B2 fused assign+update, B3 its pruned
-   form) against its plain PyTorch version on the card, in f32 and bf16, at
-   the main path's shapes and at the edges (ragged n, K = 1, K > one tile,
-   zero weights, B3 with no and with every row active);
-3. pruned ≡ dense bit for bit, two B2 runs bit-equal, two ``block_stats``
-   runs over the full dataset bit-equal;
+   form, B4 cluster_sums, B5 the k-means|| min-d² fold) against its plain
+   PyTorch version on the card, in f32 and bf16, at the main paths' shapes
+   and at the edges (ragged n, K = 1, K > one tile, zero weights, B3 with no
+   and with every row active, the k-means|| weighting passes' 561 and 2,001
+   candidates with about half parked far away, empty clusters, invalid
+   candidates, first and later folds);
+3. pruned ≡ dense bit for bit (fused, and two-pass where K·(d+1) > 16,384),
+   two B2, B4 and B5 runs bit-equal, two ``block_stats`` runs over the full
+   dataset bit-equal;
 4. ``repro_torch.BWKM(k=27).fit`` on the SUSY-profile 5,000,000 × 19 array,
    then ``predict`` and ``score`` over all of it and ``transform`` over one
    chunk, with the kernels' launch counts (each must be > 0) and ``score``
-   held against a float64 computation;
+   held against a float64 computation; then k-means|| seeding on the same
+   array — ``kmeans_parallel`` at K = 27 (weighting pass through B2) and
+   K = 100 (2,001 candidates: B1 + B4), each with its B5 launches, its
+   weighting counts, its weighting sums against float64, its weighting
+   labels and d1 against the plain distances over every row, and each of
+   its B5 folds against the plain fold over every row — and
+   ``BWKM(k=27, init="kmeans||").fit`` with its score against float64;
 5. per-kernel times from CUDA events over CUDA-graph replays, beside the
-   plain version, one PyTorch yardstick and the card's bound.
+   plain version, one PyTorch yardstick and the card's bound: each kernel
+   at the shape of most of its launches, then B1, B2 and B5 at the
+   k-means|| runs' own inputs.
 
 Then the card's name and power limit, one JSON line of kernel records, and
 the result line ``{"ok": true, "device": {...}}`` last. Without a CUDA
@@ -42,6 +54,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1e-3, atol=1e-3)}
+BIG = 3.0e38  # the masked-distance sentinel of the kernels
 SUSY_K = 27
 CAPACITY_REPS = 14_528  # BWKMConfig.resolve(5_000_000, 19) capacity at K = 27
 CHUNK = 65_536
@@ -57,7 +70,10 @@ def check(ok: bool, what: str) -> None:
 
 
 # ---------------------------------------------------------------- phase 2
-def _data(torch, n, d, k, dtype, seed, wmode="uniform"):
+def _data(torch, n, d, k, dtype, seed, wmode="uniform", far=None):
+    """Random rows, weights and centroids; with ``far``, about half the
+    centroids (never the first) sit at that value, as k-means|| parks the
+    weighting pass's unfilled candidate slots."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(n, d, generator=g, device="cuda") * 3).to(dtype)
     c = (torch.randn(k, d, generator=g, device="cuda") * 3).to(dtype)
@@ -66,6 +82,10 @@ def _data(torch, n, d, k, dtype, seed, wmode="uniform"):
         w = torch.where(u < 0.5, 0.0, 1.5)
     else:
         w = u * 3.0
+    if far is not None:
+        park = torch.rand(k, generator=g, device="cuda") < 0.5
+        park[0] = False
+        c[park] = far
     return x, w, c
 
 
@@ -104,26 +124,33 @@ def _labels_ok(torch, ref, x, c, a, tol, what, rows=None):
           f"{what}: labels not at the minimum distance")
 
 
-def phase_kernels(torch, ref, da, fau):
+def phase_kernels(torch, ref, da, fau, far):
     # max |kernel − plain| of the per-row distances d1, d2, and the largest
     # relative difference of the statistics (sums, counts, err)
     errs = {(b, dt): 0.0 for b in ("B1", "B2", "B3") for dt in ("float32", "bfloat16")}
     rel = {(b, dt): 0.0 for b in ("B2", "B3") for dt in ("float32", "bfloat16")}
-    cases = [  # (n, d, K, wmode)
-        (CAPACITY_REPS, 19, SUSY_K, "uniform"),  # the partition's representatives
-        (CHUNK, 19, SUSY_K, "uniform"),  # one predict/score chunk
-        (1000, 19, SUSY_K, "uniform"),  # n not a multiple of the 128-row CTA
-        (777, 19, 1, "uniform"),  # K = 1: d2 = +inf
-        (3000, 19, 300, "uniform"),  # K beyond one 32-centroid tile
-        (CAPACITY_REPS, 19, SUSY_K, "zeros-some"),  # half the weights zero
+    cases = [  # (n, d, K, wmode, about half the centroids parked at ``far``)
+        (CAPACITY_REPS, 19, SUSY_K, "uniform", False),  # the partition's representatives
+        (CHUNK, 19, SUSY_K, "uniform", False),  # one predict/score chunk
+        (1000, 19, SUSY_K, "uniform", False),  # n not a multiple of the 128-row CTA
+        (777, 19, 1, "uniform", False),  # K = 1: d2 = +inf
+        (3000, 19, 300, "uniform", False),  # K beyond one 32-centroid tile
+        (CAPACITY_REPS, 19, SUSY_K, "zeros-some", False),  # half the weights zero
+        # the k-means|| weighting passes' candidate sets: K = 27's 561 (B2,
+        # over a chunk of rows and over the representatives) and K = 100's
+        # 2,001 (beyond the fused limit: B1 only here, B4 below)
+        (CHUNK, 19, 561, "uniform", True),
+        (CAPACITY_REPS, 19, 561, "uniform", True),
+        (CHUNK, 19, 2001, "uniform", True),
     ]
-    n_checks = 0
+    n_checks = ties = 0
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
         tol = TOL[dname]
-        for i, (n, d, k, wmode) in enumerate(cases):
-            x, w, c = _data(torch, n, d, k, dtype, seed=100 + i, wmode=wmode)
-            tag = f"{dtype} n={n} K={k} {wmode}"
+        for i, (n, d, k, wmode, parked) in enumerate(cases):
+            x, w, c = _data(torch, n, d, k, dtype, seed=100 + i, wmode=wmode,
+                            far=far if parked else None)
+            tag = f"{dtype} n={n} K={k} {wmode}" + (" half parked" if parked else "")
             # B1
             a, d1, d2 = da.assign_top2_cuda(x, c)
             ra, rd1, rd2 = ref.assign_top2(x, c)
@@ -133,11 +160,20 @@ def phase_kernels(torch, ref, da, fau):
                                     _close(torch, d2, rd2, tol, f"B1 d2 {tag}")[0])
             if k == 1:
                 check(bool(torch.isinf(d2).all()), "B1 K=1: d2 must be +inf")
-            # B2
+            n_checks += 1
+            if not fau.fused_supported(d, k):
+                continue
+            # B2; its statistics against the plain sums under its own labels,
+            # once those are checked at the minimum, so a legal near-tie (a
+            # row the plain version puts in the other of two equally close
+            # clusters) cannot move a row between the two sides
             out = fau.fused_assign_update_cuda(x, w, c)
             r = ref.assign_update(x, w, c)
             _labels_ok(torch, ref, x, c, out[0], tol, f"B2 {tag}")
-            scale = (None, None, None) + _abs_sums(torch, ref, x, w, r.assign, k)
+            ties = max(ties, int((out[0] != r.assign).sum()))
+            sums, counts = ref.cluster_sums(x, w, out[0], k)
+            r = r._replace(sums=sums, counts=counts)
+            scale = (None, None, None) + _abs_sums(torch, ref, x, w, out[0], k)
             e = [_close(torch, out[j], r[j], tol, f"B2 {f} {tag}", scale[j])
                  for j, f in ((1, "d1"), (2, "d2"), (3, "sums"), (4, "counts"))]
             e.append(_close(torch, out[5], r.err, dict(rtol=max(tol["rtol"], 1e-5), atol=0.0),
@@ -159,20 +195,94 @@ def phase_kernels(torch, ref, da, fau):
                         errs["B3", dname],
                         *(_close(torch, p[j][act], rp[j][act], tol, f"B3 {mode} {tag}")[0]
                           for j in (1, 2)))
-                scale = (None, None, None) + _abs_sums(torch, ref, x, w, rp.assign, k)
-                e = [_close(torch, p[j], rp[j], tol, f"B3 {mode} {tag} stats", scale[j])
-                     for j in (3, 4)]
+                ties = max(ties, int((p[0] != rp.assign).sum()))
+                stats = ref.cluster_sums(x, w, p[0], k)
+                scale = _abs_sums(torch, ref, x, w, p[0], k)
+                e = [_close(torch, p[j], stats[j - 3], tol, f"B3 {mode} {tag} stats",
+                            scale[j - 3]) for j in (3, 4)]
                 e.append(_close(torch, p[5], rp.err, dict(rtol=max(tol["rtol"], 1e-5),
                                                           atol=1e-6), f"B3 {mode} {tag} err"))
                 rel["B3", dname] = max(rel["B3", dname], *(r_ for _, r_ in e))
                 n_checks += 1
-            n_checks += 2
+            n_checks += 1
+    torch.cuda.synchronize()
+    return errs, rel, n_checks, ties
+
+
+def _fold_case(torch, n, d, l, dtype, seed, first, from_rows):
+    """B5 inputs: candidates (rows of x, or random) with about 30 % invalid
+    (the first always valid), and ``mind2`` = BIG on a first fold."""
+    x, w, cand = _data(torch, n, d, l, dtype, seed=seed, wmode="zeros-some")
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    if from_rows:
+        cand = x[torch.randint(0, n, (l,), generator=g, device="cuda")]
+    cvalid = (torch.rand(l, generator=g, device="cuda") > 0.3).float()
+    cvalid[0] = 1.0
+    mind2 = (torch.full((n,), BIG, device="cuda") if first
+             else torch.rand(n, generator=g, device="cuda") * 300)
+    return x, w, cand, cvalid, mind2
+
+
+def phase_kernels_b45(torch, ref, cu, msu):
+    """B4 and B5 against their plain versions (n <= 65,536: the plain
+    cluster_sums is a dense [n, K] one-hot). Returns the largest absolute
+    errors of B5's min-d² and B4's sums and the largest relative errors of
+    B5's cost and B4's sums/counts (to Σ|terms|)."""
+    errs = {(b, dt): 0.0 for b in ("B4", "B5") for dt in ("float32", "bfloat16")}
+    rel = dict(errs)
+    folds = [  # (n, d, L, first fold, candidates from the rows of x)
+        (CHUNK, 19, 112, True, True),  # a round's batch, first fold
+        (CHUNK - 51, 19, 400, False, True),  # K = 100's batch, a later fold, ragged n
+        (1000, 19, 1, True, True),  # the seed fold
+        (5000, 19, 112, False, False),
+        (3000, 40, 70, True, False),  # d over one 32-feature chunk, L not a tile multiple
+    ]
+    sums_cases = [  # (n, d, K, wmode)
+        (CHUNK, 19, 2001, "uniform"),  # the K = 100 weighting pass's width
+        (CHUNK - 51, 19, 27, "zeros-some"),
+        (777, 19, 1, "uniform"),
+        (1000, 19, 2001, "zeros-some"),  # most clusters empty
+        (3000, 40, 70, "uniform"),
+        (20_000, 19, 4000, "uniform"),  # K·(d+1) over one shared partial
+    ]
+    n_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[1]
+        tol = TOL[dname]
+        for i, (n, d, l, first, from_rows) in enumerate(folds):
+            x, w, cand, cvalid, mind2 = _fold_case(torch, n, d, l, dtype, 200 + i, first, from_rows)
+            tag = f"B5 {dtype} n={n} L={l} first={first} rows={from_rows}"
+            new, cost = msu.min_sqdist_update_cuda(x, w, cand, cvalid, mind2)
+            r = ref.min_sqdist_update(x, w, cand, cvalid, mind2)
+            # f32 rounding of ‖x‖² − 2x·c + ‖c‖² scales with ‖x‖² + ‖c‖²
+            scale = (x.float() ** 2).sum(1) + (cand.float() ** 2).sum(1).max()
+            errs["B5", dname] = max(errs["B5", dname],
+                                    _close(torch, new, r.mind2, tol, tag, scale)[0])
+            rel["B5", dname] = max(rel["B5", dname], _close(
+                torch, cost, r.cost, dict(rtol=max(tol["rtol"], 1e-5), atol=0.0), f"{tag} cost")[1])
+            check(bool((new <= mind2).all()), f"{tag}: the fold raised a min-d²")
+            n_checks += 1
+        for i, (n, d, k, wmode) in enumerate(sums_cases):
+            x, w, _ = _data(torch, n, d, 1, dtype, seed=300 + i, wmode=wmode)
+            g = torch.Generator(device="cuda").manual_seed(300 + i)
+            a = torch.randint(0, k, (n,), generator=g, device="cuda", dtype=torch.int32)
+            tag = f"B4 {dtype} n={n} K={k} {wmode}"
+            sums, counts = cu.cluster_sums_cuda(x, w, a, k)
+            rs, rc = ref.cluster_sums(x, w, a, k)
+            ss, sc = _abs_sums(torch, ref, x, w, a, k)
+            e = _close(torch, sums, rs, tol, f"{tag} sums", ss)
+            errs["B4", dname] = max(errs["B4", dname], e[0])
+            rel["B4", dname] = max(rel["B4", dname], e[1],
+                                   _close(torch, counts, rc, tol, f"{tag} counts", sc)[1])
+            check(bool((counts[torch.bincount(a.long(), minlength=k) == 0] == 0).all()),
+                  f"{tag}: an empty cluster has a count")
+            n_checks += 1
     torch.cuda.synchronize()
     return errs, rel, n_checks
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_determinism(torch, fau, partition, x_full):
+def phase_determinism(torch, ops, fau, cu, msu, partition, x_full):
     x, w, c = _data(torch, CAPACITY_REPS, 19, SUSY_K, torch.float32, seed=3)
     dense = fau.fused_assign_update_cuda(x, w, c)
     again = fau.fused_assign_update_cuda(x, w, c)
@@ -184,6 +294,28 @@ def phase_determinism(torch, fau, partition, x_full):
         check(torch.equal(p[0], dense[0]), f"pruned ids differ (active {frac})")
         check(torch.equal(p[3], dense[3]) and torch.equal(p[4], dense[4]),
               f"pruned statistics not bit-equal to dense (active {frac})")
+    # the two-pass regime: K·(d+1) = 18,000 > 16,384, so B1 + B4 on both seams
+    c2 = _data(torch, 900, 19, 1, torch.float32, seed=4)[0]  # 900 centroids
+    dense = ops.assign_update(x, w, c2)
+    for frac in (0.0, 0.1, 1.0):
+        act = torch.rand(x.shape[0], generator=g, device="cuda") < frac
+        p = ops.assign_update_pruned(x, w, c2, dense.assign, act)
+        check(torch.equal(p.assign, dense.assign), f"two-pass pruned ids differ (active {frac})")
+        check(torch.equal(p.sums, dense.sums) and torch.equal(p.counts, dense.counts),
+              f"two-pass pruned statistics not bit-equal to dense (active {frac})")
+    # B4 and B5 at the k-means|| path's full width
+    n = x_full.shape[0]
+    ones = torch.ones(n, device="cuda")
+    a = torch.randint(0, 2001, (n,), generator=g, device="cuda", dtype=torch.int32)
+    s1, s2 = cu.cluster_sums_cuda(x_full, ones, a, 2001), cu.cluster_sums_cuda(x_full, ones, a, 2001)
+    check(all(torch.equal(u, v) for u, v in zip(s1, s2)), "two B4 runs differ")
+    check(float(s1[1].double().sum()) == n, "B4 counts do not add up to n")
+    cand = x_full[torch.randint(0, n, (112,), generator=g, device="cuda")]
+    cv = torch.ones(112, device="cuda")
+    m0 = torch.full((n,), BIG, device="cuda")
+    f1, f2 = msu.min_sqdist_update_cuda(x_full, ones, cand, cv, m0), \
+        msu.min_sqdist_update_cuda(x_full, ones, cand, cv, m0)
+    check(all(torch.equal(u, v) for u, v in zip(f1, f2)), "two B5 runs differ")
     n = x_full.shape[0]
     bids = {
         "one block": torch.zeros(n, dtype=torch.int32, device="cuda"),
@@ -270,6 +402,153 @@ def phase_fit(torch, repro_torch, da, fau, x):
     return launches
 
 
+def _weighting_sums_vs_f64(torch, x, au):
+    """The weighting pass's sums against float64 sums under the same
+    assignment, relative to Σ|w·x| per element (w = 1 here)."""
+    a = au.assign.long()
+    k = au.sums.shape[0]
+    s64 = torch.zeros(k, x.shape[1], dtype=torch.float64, device=x.device)
+    abs64 = torch.zeros_like(s64)
+    for i in range(0, x.shape[0], 1_000_000):
+        xc = x[i : i + 1_000_000].double()
+        s64.index_add_(0, a[i : i + 1_000_000], xc)
+        abs64.index_add_(0, a[i : i + 1_000_000], xc.abs())
+    worst = float(((au.sums.double() - s64).abs() / abs64.clamp(min=1e-30)).max())
+    check(worst <= 1e-5, f"weighting sums off float64 by {worst:.3e} of Σ|w·x|")
+    return worst
+
+
+def _weighting_assign_vs_plain(torch, ref, x, c, au, far):
+    """The weighting pass's labels and d1 against the plain distances, in row
+    chunks (the [n, K] matrix does not fit at once): each label's plain
+    distance is the row's plain minimum, and d1 is that distance, both within
+    1e-5 of 1 + ‖x‖² + ‖c‖² (the f32 rounding scale of the decomposition).
+    No row may go to a parked candidate. Returns the two largest gaps."""
+    parked = (c == far).all(1)
+    check(bool((au.counts[parked] == 0).all()), "a parked candidate drew weight")
+    cn = (c.double() ** 2).sum(1)
+    gap = d1_err = 0.0
+    for i in range(0, x.shape[0], CHUNK):
+        xc = x[i : i + CHUNK]
+        dd = ref.pairwise_sqdist(xc, c)
+        a = au.assign[i : i + CHUNK].long()
+        check(int(a.min()) >= 0 and int(a.max()) < c.shape[0], "weighting label out of range")
+        got = dd.gather(1, a[:, None])[:, 0].double()
+        scale = 1.0 + (xc.double() ** 2).sum(1) + cn[a]
+        gap = max(gap, float(((got - dd.min(1).values.double()) / scale).max()))
+        d1_err = max(d1_err, float(((au.d1[i : i + CHUNK].double() - got).abs() / scale).max()))
+    check(gap <= 1e-5, f"a weighting label is {gap:.3e} of ‖x‖² + ‖c‖² off the plain minimum")
+    check(d1_err <= 1e-5, f"weighting d1 is {d1_err:.3e} of ‖x‖² + ‖c‖² off the plain distance")
+    return gap, d1_err
+
+
+def _folds_vs_plain(torch, ref, folds):
+    """Each B5 fold of a run against the plain fold on the same inputs, over
+    every row: min-d² within 1e-5 of ‖x‖² + max‖c‖² (f32 rounding of the
+    decomposition), the cost φ within 1e-5 relative. Returns the largest
+    absolute min-d² difference and the largest relative cost difference."""
+    worst_m = worst_c = 0.0
+    for args, out in folds:
+        x, w, cand, cvalid, mind2 = args
+        r = ref.min_sqdist_update(x, w, cand, cvalid, mind2)
+        scale = (x.float() ** 2).sum(1) + (cand.float() ** 2).sum(1).max()
+        tag = f"B5 fold n={x.shape[0]} L={cand.shape[0]}"
+        worst_m = max(worst_m, _close(torch, out.mind2, r.mind2, TOL["float32"], tag, scale)[0])
+        worst_c = max(worst_c, _close(torch, out.cost, r.cost, dict(rtol=1e-5, atol=0.0),
+                                      f"{tag} cost")[1])
+        del r
+    return worst_m, worst_c
+
+
+def phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops, ref, counters, x):
+    """k-means|| on the full array at K = 27 and K = 100, then a BWKM fit
+    seeded by it. Each run's weighting pass and B5 folds are recorded and,
+    after the run, held against their plain versions over every row. Returns
+    each kernel's launches summed over the three runs (counts set to 0 just
+    before each run and read just after) and each K's weighting-pass inputs
+    and last fold, the shapes phase 5 times."""
+    n = x.shape[0]
+    total = dict.fromkeys(counters, 0)
+    seen = {}
+    plain = {"assign_update": ops.assign_update, "min_sqdist_update": ops.min_sqdist_update}
+
+    def spy(name):
+        def inner(*a, **kw):
+            out = plain[name](*a, **kw)
+            seen[name].append((a, out))
+            return out
+        return inner
+
+    for k in (27, 100):
+        seen.update(assign_update=[], min_sqdist_update=[])
+        for f in counters.values():
+            f.launches = 0
+        for name in plain:
+            setattr(ops, name, spy(name))
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = kmeans_ll.kmeans_parallel(rnd.key(0), x, None, k, return_info=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for name, fn in plain.items():
+                setattr(ops, name, fn)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {b: f.launches for b, f in counters.items()}
+        for b in total:
+            total[b] += launches[b]
+        (wx, _, wc), au = seen["assign_update"][-1]
+        folds = seen["min_sqdist_update"]
+        n_cap = au.counts.shape[0]
+        check(tuple(out.centroids.shape) == (k, x.shape[1])
+              and bool(torch.isfinite(out.centroids).all()), f"K={k}: seeds not finite [{k}, 19]")
+        check(launches["B5"] == 6, f"K={k}: B5 launched {launches['B5']} times, not 6")
+        check(float(au.counts.double().sum()) == n,
+              f"K={k}: weighting counts add up to {float(au.counts.double().sum())}, not {n}")
+        worst = _weighting_sums_vs_f64(torch, x, au)
+        if k == 100:
+            check(n_cap == 2001 and launches["B1"] > 0 and launches["B4"] > 0,
+                  "K=100: the 2,001-candidate weighting pass did not take B1 + B4")
+        else:
+            check(n_cap == 561 and launches["B2"] > 0, "K=27: the weighting pass did not take B2")
+        gap, d1_err = _weighting_assign_vs_plain(torch, ref, wx, wc, au, kmeans_ll._FAR)
+        fold_m, fold_c = _folds_vs_plain(torch, ref, folds)
+        print(f"[kmeans||] K={k}: wall_s={wall:.3f} candidates={float(out.n_candidates):.0f} "
+              f"of {n_cap} distances={float(out.distances):.0f} passes={out.passes} "
+              f"peak_mem_GiB={peak / 2**30:.3f} launches={launches} "
+              f"weighting sums vs float64 {worst:.3e} of Σ|w·x|")
+        print(f"[kmeans||] K={k}: weighting labels vs plain: largest gap {gap:.3e}, d1 "
+              f"{d1_err:.3e} of 1 + ‖x‖² + ‖c‖²; {len(folds)} folds at L = "
+              f"{[int(a[2].shape[0]) for a, _ in folds]} vs plain over all {n} rows: "
+              f"min-d² max abs err {fold_m:.3g}, cost max rel err {fold_c:.3g}")
+        seen[k] = (wc, folds[-1][0])
+        del folds, au
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = repro_torch.BWKM(k=SUSY_K, init="kmeans||").fit(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {b: f.launches for b, f in counters.items()}
+    for b in total:
+        total[b] += launches[b]
+    check(launches["B5"] == 6, f"BWKM(init='kmeans||'): B5 launched {launches['B5']} times")
+    res, c = model.result_, model.centroids_
+    score = model.score(x)
+    ref_score = _score_f64(torch, x, c)
+    check(bool(torch.isfinite(c).all()), "BWKM(init='kmeans||'): centroids not finite")
+    check(abs(score - ref_score) <= 1e-4 * abs(ref_score),
+          f"BWKM(init='kmeans||'): score {score} vs float64 {ref_score}")
+    print(f"[kmeans||] BWKM(k={SUSY_K}, init='kmeans||').fit: wall_s={wall:.3f} "
+          f"stop_reason={res.stop_reason} iterations={res.iterations} "
+          f"distances={res.distances:.0f} blocks={res.metadata['n_blocks'][-1]} score={score!r} "
+          f"(float64 rel diff {abs(score - ref_score) / ref_score:.3e}) launches={launches}")
+    return total, {k: seen[k] for k in (27, 100)}
+
+
 # ---------------------------------------------------------------- phase 5
 def _time_graph(torch, fn, reps=20):
     """Milliseconds per call of ``fn`` replayed from a CUDA graph (so the
@@ -301,7 +580,13 @@ def _bound(nbytes, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def phase_times(torch, ref, da, fau):
+def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
+    """Each kernel at the shape that carries most of its launches (the
+    records of the JSON line), then B1, B2 and B5 at the k-means|| path's
+    own inputs from phase 4 (``path``: K -> weighting candidates, last
+    fold). Where a plain version or a library call does not fit at full n
+    (an [n, K] matrix), it is timed on the first 65,536 rows beside the
+    kernel on the same rows."""
     d, k = 19, SUSY_K
     out = {}
     # B1 at the predict/score chunk, the shape that carries most of its launches
@@ -339,81 +624,200 @@ def phase_times(torch, ref, da, fau):
     cached = fau.fused_assign_update_cuda(x, w, c)[0]
     act = torch.rand(n, generator=g, device="cuda") < 0.1
     n_act = int(act.sum())
+
+    def lib3():
+        dist, idx = torch.topk(torch.cdist(x, c) ** 2, 2, dim=1, largest=False)
+        a = torch.where(act, idx[:, 0], cached.long())
+        sums = torch.zeros(k, d, device="cuda").index_add_(0, a, x * w[:, None])
+        counts = torch.zeros(k, device="cuda").index_add_(0, a, w)
+        return sums, counts, torch.where(act, w * dist[:, 0], 0.0).sum()
+
     out["B3"] = dict(
         shape=f"x[{n},{d}] c[{k},{d}] f32, {n_act} rows active",
         ms=_time_graph(torch, lambda: fau.fused_assign_update_pruned_cuda(x, w, c, cached, act)),
         plain_ms=_time_graph(torch, lambda: ref.assign_update_pruned(x, w, c, cached, act)),
-        library_ms=None,
+        library_ms=_time_graph(torch, lib3),
         bound=_bound(io2 + 5 * n, n_act * k * (2 * d + 3) + 2 * n * d),
+    )
+    # B4 at the K = 100 weighting pass: every row, 2,001 candidates; its plain
+    # version (a dense [n, K] one-hot) is timed on the first 65,536 rows
+    n, k = x_full.shape[0], 2001
+    ones = torch.ones(n, device="cuda")
+    a = torch.randint(0, k, (n,), generator=g, device="cuda", dtype=torch.int32)
+    a_long = a.long()
+
+    def lib4():
+        sums = torch.zeros(k, d, device="cuda").index_add_(0, a_long, x_full)
+        return sums, torch.zeros(k, device="cuda").index_add_(0, a_long, ones)
+
+    out["B4"] = dict(
+        shape=f"x[{n},{d}] f32, K={k} (plain on the first {CHUNK} rows)",
+        ms=_time_graph(torch, lambda: cu.cluster_sums_cuda(x_full, ones, a, k), reps=10),
+        plain_ms=_time_graph(torch, lambda: ref.cluster_sums(
+            x_full[:CHUNK], ones[:CHUNK], a[:CHUNK], k), reps=10),
+        library_ms=_time_graph(torch, lib4, reps=10),
+        bound=_bound(4 * n * d + 8 * n + 4 * k * (d + 1), 2 * n * (d + 1)),
+    )
+    print(f"[time] B4 on the same {CHUNK} rows as its plain version: kernel "
+          f"{_time_graph(torch, lambda: cu.cluster_sums_cuda(x_full[:CHUNK], ones[:CHUNK], a[:CHUNK], k)):.4f} ms")
+    # B5 at a k-means|| round over every row: 112 candidates, all valid
+    l = 112
+    cand = x_full[torch.randint(0, n, (l,), generator=g, device="cuda")]
+    cv = torch.ones(l, device="cuda")
+    mind2 = msu.min_sqdist_update_cuda(x_full, ones, x_full[:1], cv[:1],
+                                       torch.full((n,), BIG, device="cuda"))[0]
+
+    def lib5():
+        dd = torch.cdist(x_full, cand) ** 2
+        new = torch.minimum(mind2, dd.masked_fill(cv[None, :] == 0, BIG).amin(1))
+        return new, (ones * new).sum()
+
+    out["B5"] = dict(
+        shape=f"x[{n},{d}] f32, L={l}",
+        ms=_time_graph(torch, lambda: msu.min_sqdist_update_cuda(x_full, ones, cand, cv, mind2),
+                       reps=10),
+        plain_ms=_time_graph(torch, lambda: ref.min_sqdist_update(x_full, ones, cand, cv, mind2),
+                             reps=10),
+        library_ms=_time_graph(torch, lib5, reps=10),
+        bound=_bound(4 * n * d + 12 * n + 4 * l * (d + 1) + 4, n * int(cv.sum()) * (2 * d + 3)),
+    )
+    n = x_full.shape[0]
+    xc, oc = x_full[:CHUNK], ones[:CHUNK]
+    # B1 over the K = 100 weighting pass's 2,001 candidates (half parked)
+    c = path[100][0]
+    k = c.shape[0]
+    out["B1@2001"] = dict(
+        shape=f"x[{n},{d}] c[{k},{d}] f32 (plain, library and 'kernel on the chunk' on "
+              f"the first {CHUNK} rows)",
+        ms=_time_graph(torch, lambda: da.assign_top2_cuda(x_full, c), reps=2),
+        chunk_ms=_time_graph(torch, lambda: da.assign_top2_cuda(xc, c), reps=5),
+        plain_ms=_time_graph(torch, lambda: ref.assign_top2(xc, c), reps=5),
+        library_ms=_time_graph(
+            torch, lambda: torch.topk(torch.cdist(xc, c) ** 2, 2, dim=1, largest=False), reps=5),
+        bound=_bound(4 * n * d + 4 * k * d + 12 * n, n * k * (2 * d + 3)),
+    )
+    # B2 over the K = 27 weighting pass's 561 candidates, unit weights
+
+    def lib_b2(xx, ww, cc):
+        kk = cc.shape[0]
+        dist, idx = torch.topk(torch.cdist(xx, cc) ** 2, 2, dim=1, largest=False)
+        a = idx[:, 0]
+        sums = torch.zeros(kk, d, device="cuda").index_add_(0, a, xx * ww[:, None])
+        counts = torch.zeros(kk, device="cuda").index_add_(0, a, ww)
+        return sums, counts, (ww * dist[:, 0]).sum()
+
+    c = path[27][0]
+    k = c.shape[0]
+    out["B2@561"] = dict(
+        shape=f"x[{n},{d}] c[{k},{d}] f32 (plain, library and 'kernel on the chunk' on "
+              f"the first {CHUNK} rows)",
+        ms=_time_graph(torch, lambda: fau.fused_assign_update_cuda(x_full, ones, c), reps=2),
+        chunk_ms=_time_graph(torch, lambda: fau.fused_assign_update_cuda(xc, oc, c), reps=5),
+        plain_ms=_time_graph(torch, lambda: ref.assign_update(xc, oc, c), reps=5),
+        library_ms=_time_graph(torch, lambda: lib_b2(xc, oc, c), reps=5),
+        bound=_bound(4 * n * d + 4 * n + 4 * k * d + 12 * n + 4 * k * (d + 1) + 4,
+                     n * k * (2 * d + 3) + 2 * n * d),
+    )
+    # B5 at the K = 100 run's last fold: 400 slots, some invalid, finite min-d²
+    fx, fw, fc, fv, fm = path[100][1]
+    l, n_valid = fc.shape[0], int(fv.sum())
+
+    def lib5b():
+        dd = torch.cdist(fx, fc) ** 2
+        new = torch.minimum(fm, dd.masked_fill(fv[None, :] == 0, BIG).amin(1))
+        return new, (fw * new).sum()
+
+    out["B5@400"] = dict(
+        shape=f"x[{n},{d}] f32, L={l}, {n_valid} valid",
+        ms=_time_graph(torch, lambda: msu.min_sqdist_update_cuda(fx, fw, fc, fv, fm), reps=10),
+        plain_ms=_time_graph(torch, lambda: ref.min_sqdist_update(fx, fw, fc, fv, fm), reps=2),
+        library_ms=_time_graph(torch, lib5b, reps=2),
+        bound=_bound(4 * n * d + 12 * n + 4 * l * (d + 1) + 4, n * n_valid * (2 * d + 3)),
     )
     for name, r in out.items():
         lib_s = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {lib_s} ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})")
+        chunk_s = f" (on the chunk {r['chunk_ms']:.4f} ms)" if "chunk_ms" in r else ""
+        print(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f} ms{chunk_s}, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]})")
     return out
 
 
 # ---------------------------------------------------------------- profile
-def phase_profile(torch, repro_torch, x, out_dir: pathlib.Path):
-    """One profiled SUSY fit with spans around the driver's steps."""
+def _profile_run(torch, label, fn, spans, out_file: pathlib.Path):
+    """Run ``fn`` once under ``torch.profiler`` with ``record_function``
+    spans around the ``(owner, attribute)`` callables of ``spans``; print
+    the wall, the device's busy and idle shares, the spans, the host syncs
+    and the largest kernels, and write the full table to ``out_file``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from repro_torch.core import init_partition, lloyd, partition
-
-    spans = {
-        (partition, "block_stats"): "span:block_stats",
-        (partition, "route_split"): "span:route_split",
-        (init_partition, "cutting_probabilities_alg4"): "span:algorithm4",
-        (init_partition, "starting_partition"): "span:algorithm3",
-        (lloyd, "weighted_lloyd"): "span:lloyd_over_reps",
-    }
-    saved = {}
-
-    def wrap(fn, label):
+    def wrap(fn_, name):
         def inner(*a, **kw):
-            with record_function(label):
-                return fn(*a, **kw)
+            with record_function(name):
+                return fn_(*a, **kw)
         return inner
 
-    for (mod, name), label in spans.items():
-        saved[(mod, name)] = getattr(mod, name)
-        setattr(mod, name, wrap(saved[(mod, name)], label))
+    saved = {}
+    for (owner, attr), name in spans.items():
+        saved[(owner, attr)] = getattr(owner, attr)
+        setattr(owner, attr, wrap(saved[(owner, attr)], name))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            with record_function("span:fit"):
-                repro_torch.BWKM(k=SUSY_K).fit(x)
+            with record_function(f"span:{label}"):
+                fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        for (mod, name), fn in saved.items():
-            setattr(mod, name, fn)
-    from torch.autograd import DeviceType
-
+        for (owner, attr), fn_ in saved.items():
+            setattr(owner, attr, fn_)
     avg = prof.key_averages()
     kernels = [e for e in avg if e.device_type == DeviceType.CUDA and not e.key.startswith("span:")]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"[profile] fit wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms, "
+    tag = f"[profile {label}]"
+    print(f"{tag} wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms, "
           f"device idle {100 * (1 - busy / (wall * 1e3)):.1f}% of the wall")
     host = {e.key: e for e in avg if e.key.startswith("span:") and e.cpu_time_total > 0}
     dev = {e.key: e for e in avg if e.key.startswith("span:") and e.device_type == DeviceType.CUDA}
     for key, e in sorted(host.items(), key=lambda kv: -kv[1].cpu_time_total):
         d = dev.get(key)
         d_ms = "n/a" if d is None else f"{d.device_time_total / 1e3:.1f} ms"
-        print(f"[profile] {key[5:]}: calls {e.count}, host {e.cpu_time_total / 1e3:.1f} ms, "
+        print(f"{tag} {key[5:]}: calls {e.count}, host {e.cpu_time_total / 1e3:.1f} ms, "
               f"device range {d_ms}")
     for e in avg:
         if e.key in ("aten::_local_scalar_dense", "cudaStreamSynchronize", "aten::nonzero"):
-            print(f"[profile] host sync {e.key}: calls {e.count}, "
-                  f"host {e.cpu_time_total / 1e3:.1f} ms")
+            print(f"{tag} host sync {e.key}: calls {e.count}, host {e.cpu_time_total / 1e3:.1f} ms")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"[profile] kernel {e.key[:60]}: calls {e.count}, "
-              f"{e.self_device_time_total / 1e3:.2f} ms")
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "susy_fit_profile.txt").write_text(
-        avg.table(sort_by="self_device_time_total", row_limit=60)
-    )
+        print(f"{tag} kernel {e.key[:60]}: calls {e.count}, {e.self_device_time_total / 1e3:.2f} ms")
+    out_file.parent.mkdir(parents=True, exist_ok=True)
+    out_file.write_text(avg.table(sort_by="self_device_time_total", row_limit=60))
+
+
+def phase_profile(torch, repro_torch, rnd, x, out_dir: pathlib.Path):
+    """One profiled SUSY fit with spans around the driver's steps, and one
+    profiled k-means|| run at K = 27 and at K = 100 with spans around the
+    folds, the round's packing, the weighting pass and the reduction."""
+    from repro_torch.core import init_partition, kmeans_ll, kmeanspp, lloyd, partition
+    from repro_torch.engine import incore
+    from repro_torch.kernels import ops
+
+    _profile_run(torch, "fit", lambda: repro_torch.BWKM(k=SUSY_K).fit(x), {
+        (partition, "block_stats"): "span:block_stats",
+        (partition, "route_split"): "span:route_split",
+        (init_partition, "cutting_probabilities_alg4"): "span:algorithm4",
+        (init_partition, "starting_partition"): "span:algorithm3",
+        (lloyd, "weighted_lloyd"): "span:lloyd_over_reps",
+    }, out_dir / "susy_fit_profile.txt")
+    for k in (27, 100):
+        _profile_run(torch, f"kmeans|| K={k}",
+                     lambda: kmeans_ll.kmeans_parallel(rnd.key(0), x, None, k), {
+                         (ops, "min_sqdist_update"): "span:fold (B5)",
+                         (incore.InCoreLLSession, "select"): "span:draw and pack",
+                         (ops, "assign_update"): "span:weighting pass",
+                         (kmeanspp, "weighted_kmeanspp"): "span:kmeans++ reduction",
+                     }, out_dir / f"kmeans_ll_k{k}_profile.txt")
 
 
 # ---------------------------------------------------------------- main
@@ -429,11 +833,14 @@ def main(argv) -> int:
         return 2
     sys.path.insert(0, str(src))
     import repro_torch
-    from repro_torch.core import partition
+    from repro_torch import random as rnd
+    from repro_torch.core import kmeans_ll, partition
     from repro_torch.data.synthetic import paper_dataset
-    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import cluster_update as cu
     from repro_torch.kernels import distance_assign as da
     from repro_torch.kernels import fused_assign_update as fau
+    from repro_torch.kernels import min_sqdist_update as msu
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -446,26 +853,42 @@ def main(argv) -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     # phase 2
-    errs, rel, n_checks = phase_kernels(torch, ref, da, fau)
+    errs, rel, n_checks, ties = phase_kernels(torch, ref, da, fau, kmeans_ll._FAR)
     print(f"[kernels] B1-B3 match their plain versions in {n_checks} cases "
           "(f32 tol 1e-5, bf16 tol 1e-3); max abs err of d1/d2: "
           + ", ".join(f"{b} {dt} {v:.3g}" for (b, dt), v in errs.items())
           + "; max rel err of sums/counts/err: "
-          + ", ".join(f"{b} {dt} {v:.3g}" for (b, dt), v in rel.items()))
-    # phase 4's data, used by phase 3's block_stats check as well
+          + ", ".join(f"{b} {dt} {v:.3g}" for (b, dt), v in rel.items())
+          + f"; at most {ties} rows in one case labelled otherwise than by the plain version "
+          "(near-ties, each at the minimum within tolerance)")
+    errs45, rel45, n_checks = phase_kernels_b45(torch, ref, cu, msu)
+    errs.update(errs45)
+    print(f"[kernels] B4-B5 match their plain versions in {n_checks} cases "
+          "(f32 tol 1e-5, bf16 tol 1e-3; B5's min-d² relative to ‖x‖² + ‖c‖², sums to Σ|terms|); "
+          "max abs err of B5 min-d² and B4 sums: "
+          + ", ".join(f"{b} {dt} {v:.3g}" for (b, dt), v in errs45.items())
+          + "; max rel err of B5 cost and B4 sums/counts: "
+          + ", ".join(f"{b} {dt} {v:.3g}" for (b, dt), v in rel45.items()))
+    # phase 4's data, used by phase 3's full-width checks as well
     t0 = time.perf_counter()
     x = torch.from_numpy(paper_dataset("SUSY", seed=0)).cuda()
     print(f"[data] SUSY profile {tuple(x.shape)} on the card in {time.perf_counter() - t0:.1f} s")
     # phase 3
-    phase_determinism(torch, fau, partition, x)
-    print("[determinism] pruned == dense bit for bit; two B2 runs and two full-n "
-          "block_stats runs bit-equal")
+    phase_determinism(torch, ops, fau, cu, msu, partition, x)
+    print("[determinism] pruned == dense bit for bit (fused, and two-pass at K·(d+1) = 18,000); "
+          "two B2 runs, two full-n B4 and B5 runs and two full-n block_stats runs bit-equal")
     # phase 4
     launches = phase_fit(torch, repro_torch, da, fau, x)
+    counters = {"B1": da.assign_top2_cuda, "B2": fau.fused_assign_update_cuda,
+                "B3": fau.fused_assign_update_pruned_cuda, "B4": cu.cluster_sums_cuda,
+                "B5": msu.min_sqdist_update_cuda}
+    ll_launches, ll_path = phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops, ref,
+                                           counters, x)
+    launches.update(B4=ll_launches["B4"], B5=ll_launches["B5"])
     # phase 5
-    times = phase_times(torch, ref, da, fau)
+    times = phase_times(torch, ref, da, fau, cu, msu, x, ll_path)
     if "--profile" in argv:
-        phase_profile(torch, repro_torch, x, pathlib.Path(argv[argv.index("--profile") + 1]))
+        phase_profile(torch, repro_torch, rnd, x, pathlib.Path(argv[argv.index("--profile") + 1]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -478,6 +901,10 @@ def main(argv) -> int:
                "src/repro/kernels/fused_assign_update.py:136"),
         "B3": ("fused_assign_update_pruned", "src/repro_torch/kernels/csrc/fused_assign_update.cu",
                "src/repro/kernels/fused_assign_update.py:307"),
+        "B4": ("cluster_sums", "src/repro_torch/kernels/csrc/cluster_sums.cu",
+               "src/repro/kernels/cluster_update.py:51"),
+        "B5": ("min_sqdist_update", "src/repro_torch/kernels/csrc/min_sqdist_update.cu",
+               "src/repro/kernels/min_sqdist_update.py:92"),
     }
     records = []
     for key, (name, source, replaces) in sources.items():

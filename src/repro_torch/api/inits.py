@@ -1,8 +1,8 @@
 """Name-based registry of seeding strategies. Counterpart of ``repro.api.inits``.
 
-The port has ``kmeans++`` (the default, paper Algorithm 5 Step 1) and
-``forgy``. The reference's other strategies are named here so that asking
-for one says which ROADMAP item brings it.
+The port has ``kmeans++`` (the default, paper Algorithm 5 Step 1),
+``kmeans||`` and ``forgy``. The reference's other strategies are named here
+so that asking for one says which ROADMAP item brings it.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
-from repro_torch.core import kmeanspp
+from repro_torch.core import kmeans_ll, kmeanspp
 
 __all__ = ["InitStrategy", "resolve_init"]
 
@@ -32,20 +32,29 @@ _REGISTRY = {
             kmeanspp.weighted_kmeanspp,
         ),
         InitStrategy(
+            "kmeans||",
+            "k-means|| oversampling (Bahmani et al. 2012): a few Bernoulli "
+            "rounds through the min-d² fold kernel, then weighted K-means++ over "
+            "the O(ℓ·rounds) candidates — rounds + 2 data passes instead of K",
+            kmeans_ll.kmeans_parallel,
+        ),
+        InitStrategy(
             "forgy",
             "K rows drawn weight-proportionally without replacement (the paper's FKM seeding)",
             lambda key, x, w, k: kmeanspp.forgy(key, x, k, w),
         ),
     )
 }
-_ALIASES = {"kmeanspp": "kmeans++", "km++": "kmeans++"}
+_ALIASES = {
+    "kmeanspp": "kmeans++",
+    "km++": "kmeans++",
+    "kmeansll": "kmeans||",
+    "kmeans-parallel": "kmeans||",
+    "scalable-kmeans++": "kmeans||",
+}
 
 #: the reference's other strategies -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "kmeans||": "queue A item 9 (k-means||, needs kernel B5)",
-    "kmeansll": "queue A item 9 (k-means||, needs kernel B5)",
-    "kmeans-parallel": "queue A item 9 (k-means||, needs kernel B5)",
-    "scalable-kmeans++": "queue A item 9 (k-means||, needs kernel B5)",
     "afkmc2": "queue A item 10 (baselines)",
     "kmc2": "queue A item 10 (baselines)",
     "reservoir": "queue A item 11 (streaming)",

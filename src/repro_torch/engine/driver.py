@@ -1,14 +1,18 @@
-"""The BWKM driver: paper Algorithm 5 over a data plane.
+"""The BWKM driver: paper Algorithm 5 over a data plane, and the k-means||
+round loop over a seeding session.
 
-Counterpart of ``repro.engine.driver.fit_plane``: weighted Lloyd over the
-partition representatives alternating with ε-proportional boundary
+Counterpart of ``repro.engine.driver``'s ``fit_plane`` — weighted Lloyd over
+the partition representatives alternating with ε-proportional boundary
 splitting, with the six stop criteria of Section 2.4.2 in the reference's
-order.
+order — and of its ``plane_kmeans_parallel``, ``ll_bernoulli`` and
+``resolve_ll_params``.
 """
 
 from __future__ import annotations
 
 from typing import Any
+
+import torch
 
 from repro_torch import random as rnd
 from repro_torch.core import bounds, lloyd as lloyd_mod
@@ -16,7 +20,7 @@ from repro_torch.core import bwkm as core_bwkm
 from repro_torch.core import misassignment as mis
 from repro_torch.core import partition as part_mod
 
-__all__ = ["fit_plane"]
+__all__ = ["fit_plane", "ll_bernoulli", "plane_kmeans_parallel", "resolve_ll_params"]
 
 
 def fit_plane(key, plane: Any, config: "core_bwkm.BWKMConfig", *, trace_centroids: bool = False):
@@ -113,3 +117,42 @@ def fit_plane(key, plane: Any, config: "core_bwkm.BWKMConfig", *, trace_centroid
         stop_reason=stop_reason,
         trace=trace,
     )
+
+
+# --------------------------------------------------- k-means|| (Bahmani 2012)
+def resolve_ll_params(
+    k: int, oversampling: int | None, rounds: int | None
+) -> tuple[int, int, int]:
+    """``(ℓ, rounds, cap_round)``. ``cap_round`` is the fixed per-round
+    candidate capacity (``2ℓ`` rounded up to a multiple of 8): the number of
+    accepted rows is random, so each round packs them into a fixed batch
+    with a validity mask, truncating the rare overflow in acceptance order."""
+    from repro_torch.core import kmeans_ll as core_ll
+
+    l = int(oversampling) if oversampling is not None else core_ll.default_oversampling(k)  # noqa: E741
+    r = int(rounds) if rounds is not None else 5
+    if l < 1 or r < 1:
+        raise ValueError(f"oversampling and rounds must be >= 1, got {l}, {r}")
+    return l, r, max(8, -(-2 * l // 8) * 8)
+
+
+def ll_bernoulli(u, w, mind2, l, phi):  # noqa: E741
+    """The k-means|| oversampling draw: accept each row independently with
+    probability ``min(1, ℓ·w·d²(x, C)/φ)``, in the reference's f32 order;
+    zero-weight rows are never accepted."""
+    p = torch.clamp(l * w * mind2 / torch.clamp(phi, min=1e-30), max=1.0)
+    return (u < p) & (w > 0)
+
+
+def plane_kmeans_parallel(sess: Any, *, rounds: int) -> dict:
+    """The oversampling loop over an :class:`~repro_torch.engine.plane.LLSession`:
+    per round, fold the pending batch so ``φ`` is exact, draw the round's
+    acceptances, pack them as the next pending batch; then ``finish`` runs
+    the weighting pass and the weighted K-means++ reduction."""
+    sess.seed()
+    normalisers: list[float] = []
+    for r in range(1, rounds + 1):
+        u, w, mind2, phi = sess.begin_round(r)
+        normalisers.append(float(phi))
+        sess.select(r, u, ll_bernoulli(u, w, mind2, sess.l, phi))
+    return sess.finish(tuple(normalisers))

@@ -26,6 +26,8 @@ _BUILD = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "distance_assign": "distance_assign.cu",
     "fused_assign_update": "fused_assign_update.cu",
+    "min_sqdist_update": "min_sqdist_update.cu",
+    "cluster_sums": "cluster_sums.cu",
 }
 
 _NVCC_FLAGS = [

@@ -1,0 +1,79 @@
+"""B4: weighted per-cluster sums and counts for a given assignment, bound for
+CUDA tensors.
+
+Replaces ``repro/kernels/cluster_update.py:cluster_sums_pallas``. The CUDA
+source is ``csrc/cluster_sums.cu``: a fixed grid of at most 128 CTAs along
+the rows, each keeping a ``[K-tile, d + 1]`` partial in shared memory and
+adding its rows in row order (one warp per cluster residue, one lane per
+feature), then a second kernel that sums the partials in CTA order —
+deterministic, no float atomics, and scratch that does not grow with n. Its
+plain version is :func:`repro_torch.kernels.ref.cluster_sums`.
+
+It is the second pass of ``ops.assign_update`` / ``assign_update_pruned``
+wherever the fused kernels' partial does not fit (``K·(d + 1) > 16,384``),
+such as the k-means|| weighting pass over 2,001 candidates. There it is
+bound by memory: about 0.125 ms on an H100 for x [5,000,000, 19].
+``cluster_sums_cuda.launches`` counts launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.distance_assign import DTYPE_CODES, check_operand, stream_of
+
+__all__ = ["MAX_D", "cluster_sums_cuda"]
+
+#: rows per staged tile and the most CTAs along the rows, as in the source
+_TILE, _MAX_CTAS = 256, 128
+#: the largest d: one cluster's d + 1 values must fit the shared partial
+MAX_D = 40_959
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _fn():
+    f = _build.library("cluster_sums").bwkm_cluster_sums
+    f.argtypes = [_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P]
+    f.restype = ctypes.c_int
+    return f
+
+
+def cluster_sums_cuda(
+    x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor, num_clusters: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(sums f32[K, d], counts f32[K])`` of ``x [n, d]`` (f32 or bf16)
+    weighted by ``w [n]`` (f32) under ``assign [n]`` (i32); rows with
+    ``w == 0`` or an id outside ``[0, K)`` add nothing."""
+    if x.device.type != "cuda":
+        raise ValueError(f"cluster_sums_cuda takes CUDA tensors, got {x.device}")
+    dev = x.device
+    check_operand("x", x, dev, DTYPE_CODES, 2)
+    check_operand("w", w, dev, (torch.float32,), 1)
+    check_operand("assign", assign, dev, (torch.int32,), 1)
+    n, d = x.shape
+    k = int(num_clusters)
+    if w.shape[0] != n or assign.shape[0] != n:
+        raise ValueError("w and assign must have one entry per row of x")
+    if k < 1 or not 1 <= d <= MAX_D:
+        raise ValueError(f"cluster_sums_cuda takes K >= 1 and 1 <= d <= {MAX_D}, got {k}, {d}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    sums, counts = torch.empty(k, d, **f32), torch.empty(k, **f32)
+    ctas = min(_MAX_CTAS, -(-n // _TILE))
+    part = torch.empty(max(ctas, 1) * k * (d + 1), **f32)
+    fn = _fn()
+    with torch.cuda.device(dev):
+        rc = fn(
+            x.data_ptr(), DTYPE_CODES[x.dtype], w.data_ptr(), assign.data_ptr(), n, d, k,
+            sums.data_ptr(), counts.data_ptr(), part.data_ptr(), stream_of(dev),
+        )
+    if rc != 0:
+        raise RuntimeError(f"cluster_sums kernel launch failed: cudaError_t {rc}")
+    cluster_sums_cuda.launches += 1
+    return sums, counts
+
+
+cluster_sums_cuda.launches = 0

@@ -53,7 +53,7 @@ def check_fused(d: int, k: int) -> None:
     if not fused_supported(d, k):
         raise ValueError(
             f"K·(d+1) = {k * (d + 1)} exceeds the fused kernels' limit {FUSED_MAX_KD1}; "
-            "that shape needs the two-pass path (B4 cluster_sums kernel), not ported yet"
+            "ops.assign_update takes the two-pass path (B1, then B4 cluster_sums) there"
         )
 
 

@@ -18,12 +18,15 @@ import torch
 
 __all__ = [
     "AssignUpdate",
+    "MinSqDistUpdate",
     "PrunedAssignUpdate",
     "pairwise_sqdist",
     "assign_top2",
     "cluster_sums",
     "assign_update",
     "assign_update_pruned",
+    "min_sqdist_update",
+    "two_pass",
     "weighted_error",
 ]
 
@@ -54,6 +57,16 @@ class PrunedAssignUpdate(NamedTuple):
     counts: torch.Tensor
     err: torch.Tensor  # Σ_active w·d1
     n_dist: torch.Tensor | None = None
+
+
+class MinSqDistUpdate(NamedTuple):
+    """One k-means|| fold: the running per-row minimum squared distance to
+    the candidates folded so far, updated with one batch, and the weighted
+    cost ``φ = Σ w·min-d²`` of the updated state."""
+
+    mind2: torch.Tensor  # [n] f32
+    cost: torch.Tensor  # scalar f32
+    n_dist: torch.Tensor | None = None  # scalar f32, filled by the ops layer
 
 
 def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -94,13 +107,29 @@ def cluster_sums(
     return onehot.T @ x.float(), onehot.sum(0)
 
 
+def two_pass(top2, sums_fn, x, w, c, cached=None, active=None):
+    """``(assign, d1, d2, sums, counts, err)`` of one Lloyd pass in two
+    passes: ``top2(x, c)``, then ``sums_fn`` under the assignment — argmin
+    where ``active``, ``cached`` elsewhere (argmin everywhere when ``active``
+    is None). ``err`` covers the active rows. One body for the dense and
+    pruned passes, so their statistics are bit-equal whenever the
+    assignments agree; ``ops`` runs it with the kernels' seams."""
+    a_new, d1, d2 = top2(x, c)
+    wd1 = w.float() * d1
+    if active is None:
+        a, err = a_new, wd1.sum()
+    else:
+        active = active.bool()
+        a = torch.where(active, a_new, cached.to(torch.int32))
+        err = torch.where(active, wd1, torch.zeros_like(wd1)).sum()
+    sums, counts = sums_fn(x, w, a, c.shape[0])
+    return a, d1, d2, sums, counts, err
+
+
 def assign_update(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> AssignUpdate:
     """Two-pass reference for the fused kernel: top-2 then statistics over the
     same centroids. Zero-weight rows get an assignment but add nothing."""
-    assign, d1, d2 = assign_top2(x, c)
-    sums, counts = cluster_sums(x, w, assign, c.shape[0])
-    err = (w.float() * d1).sum()
-    return AssignUpdate(assign, d1, d2, sums, counts, err)
+    return AssignUpdate(*two_pass(assign_top2, cluster_sums, x, w, c))
 
 
 def assign_update_pruned(
@@ -111,13 +140,23 @@ def assign_update_pruned(
     active: torch.Tensor,
 ) -> PrunedAssignUpdate:
     """Semantics of the pruned pass, computed densely."""
-    w = w.float()
-    active = active.bool()
-    a_new, d1, d2 = assign_top2(x, c)
-    a = torch.where(active, a_new, assign.to(torch.int32))
-    sums, counts = cluster_sums(x, w, a, c.shape[0])
-    err = torch.where(active, w * d1, torch.zeros_like(d1)).sum()
-    return PrunedAssignUpdate(a, d1, d2, sums, counts, err)
+    return PrunedAssignUpdate(*two_pass(assign_top2, cluster_sums, x, w, c, assign, active))
+
+
+def min_sqdist_update(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    cand: torch.Tensor,
+    cvalid: torch.Tensor,
+    mind2: torch.Tensor,
+) -> MinSqDistUpdate:
+    """Fold the batch ``cand [L, d]`` (rows with ``cvalid == 0`` masked to
+    ``_BIG``, so they never win) into ``mind2 [n]``, which may be ``_BIG`` on
+    the first fold. Zero-weight rows update ``mind2`` but add nothing."""
+    d2 = pairwise_sqdist(x, cand)
+    d2 = torch.where(cvalid.bool()[None, :], d2, _BIG)
+    new = torch.minimum(mind2.float(), d2.min(dim=-1).values)
+    return MinSqDistUpdate(new, (w.float() * new).sum())
 
 
 def weighted_error(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -210,8 +210,9 @@ def test_entry_point_raises_without_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_unported_options_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        repro_torch.BWKM(k=2, device="cpu", init="kmeans||")
+    assert repro_torch.BWKM(k=2, device="cpu", init="kmeans||").config.init == "kmeans||"
+    with pytest.raises(NotImplementedError, match="item 10"):
+        repro_torch.BWKM(k=2, device="cpu", init="afkmc2")
     with pytest.raises(NotImplementedError, match="item 11"):
         repro_torch.BWKM(k=2, device="cpu", engine="streaming")
     with pytest.raises(ValueError, match="unknown init"):

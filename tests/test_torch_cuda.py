@@ -1,4 +1,4 @@
-"""The CUDA kernels B1–B3 against their plain versions, on the card.
+"""The CUDA kernels B1–B5 against their plain versions, on the card.
 
 Marked ``cuda``: each test skips without an NVIDIA GPU, since a CUDA kernel
 has no CPU mode. The file imports neither JAX nor the reference package, so
@@ -60,6 +60,30 @@ def test_kernels_match_plain_versions(cuda, n, d, k, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [561, 2001])
+def test_assign_with_parked_candidates_matches_plain_version(cuda, k, dtype):
+    """The k-means|| weighting pass's widths, with about half the candidates
+    parked at 1e15 as its unfilled slots are: no row goes to a parked one."""
+    da, fau = cuda
+    x, w, c = _data(3000, 19, k, dtype, seed=k)
+    parked = torch.from_numpy(np.random.RandomState(k).rand(k) < 0.5).cuda()
+    parked[0] = False
+    c[parked] = 1.0e15
+    tol = TOL[dtype]
+    a, d1, d2 = da.assign_top2_cuda(x, c)
+    _, rd1, rd2 = ref.assign_top2(x, c)
+    assert not bool(parked[a.long()].any())
+    torch.testing.assert_close(d1, rd1, **tol)
+    torch.testing.assert_close(d2, rd2, **tol)
+    if fau.fused_supported(19, k):
+        out = fau.fused_assign_update_cuda(x, w, c)
+        assert not bool(parked[out[0].long()].any())
+        torch.testing.assert_close(out[1], rd1, **tol)
+        assert float(out[4][parked].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
 def test_pruned_statistics_are_bit_identical_to_dense(cuda):
     _, fau = cuda
     x, w, c = _data(5000, 19, 27, torch.float32, seed=1)
@@ -71,3 +95,61 @@ def test_pruned_statistics_are_bit_identical_to_dense(cuda):
         assert torch.equal(p[3], dense[3]) and torch.equal(p[4], dense[4])
     again = fau.fused_assign_update_cuda(x, w, c)
     assert all(torch.equal(a, b) for a, b in zip(dense, again))
+
+
+@pytest.fixture
+def cuda_b45():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from repro_torch.kernels import cluster_update, min_sqdist_update
+
+    return cluster_update, min_sqdist_update
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,l,first", [(1000, 19, 1, True), (777, 19, 112, False),
+                                          (300, 40, 70, True)])
+def test_min_sqdist_update_matches_plain_version(cuda_b45, n, d, l, first, dtype):
+    _, msu = cuda_b45
+    x, w, cand = _data(n, d, l, dtype, seed=n + l)
+    rng = np.random.RandomState(l)
+    cvalid = torch.from_numpy((rng.rand(l) > 0.3).astype(np.float32)).cuda()
+    cvalid[0] = 1.0
+    mind2 = (torch.full((n,), 3.0e38) if first else torch.rand(n) * 60).cuda()
+    tol = TOL[dtype]
+    new, cost = msu.min_sqdist_update_cuda(x, w, cand, cvalid, mind2)
+    r = ref.min_sqdist_update(x, w, cand, cvalid, mind2)
+    torch.testing.assert_close(new, r.mind2, **tol)
+    torch.testing.assert_close(cost, r.cost, rtol=tol["rtol"], atol=0.0)
+    again = msu.min_sqdist_update_cuda(x, w, cand, cvalid, mind2)
+    assert torch.equal(again[0], new) and torch.equal(again[1], cost)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,k", [(777, 19, 1), (1000, 19, 27), (3000, 19, 2001), (300, 40, 70)])
+def test_cluster_sums_matches_plain_version(cuda_b45, n, d, k, dtype):
+    cu, _ = cuda_b45
+    x, w, _ = _data(n, d, 1, dtype, seed=n + k)
+    assign = torch.randint(0, k, (n,), device="cuda", dtype=torch.int32)
+    sums, counts = cu.cluster_sums_cuda(x, w, assign, k)
+    rs, rc = ref.cluster_sums(x, w, assign, k)
+    scale, _ = ref.cluster_sums(x.float().abs(), w, assign, k)  # Σ|w·x|: the rounding's scale
+    assert bool(((sums - rs).abs() <= TOL[dtype]["atol"] + TOL[dtype]["rtol"] * scale).all())
+    torch.testing.assert_close(counts, rc, **TOL[dtype])
+    again = cu.cluster_sums_cuda(x, w, assign, k)
+    assert torch.equal(again[0], sums) and torch.equal(again[1], counts)
+
+
+@pytest.mark.cuda
+def test_two_pass_pruned_statistics_are_bit_identical_to_dense(cuda_b45):
+    from repro_torch.kernels import ops
+
+    x, w, c = _data(5000, 19, 900, torch.float32, seed=2)  # K·(d+1) = 18,000: two-pass
+    dense = ops.assign_update(x, w, c)
+    for frac in (0.0, 0.1, 1.0):
+        act = torch.rand(5000, device="cuda") < frac
+        p = ops.assign_update_pruned(x, w, c, dense.assign, act)
+        assert torch.equal(p.assign, dense.assign)
+        assert torch.equal(p.sums, dense.sums) and torch.equal(p.counts, dense.counts)

@@ -174,6 +174,138 @@ def test_interpret_mode_pallas_kernels_agree_with_the_port():
     np.testing.assert_allclose(_np(got.d1)[active], np.asarray(r[1])[active], **tol)
 
 
+MSD_CASES = [  # (n, d, L, first fold, wmode): L == 1, L over several 32-wide tiles
+    # and not a multiple of one, invalid candidates, half the weights zero, n % 128 != 0
+    (70, 10, 1, True, "uniform"),
+    (150, 19, 112, True, "zeros-some"),
+    (33, 7, 40, False, "zeros-some"),
+]
+
+
+def _fold_inputs(n, d, l, first, seed):
+    rng = np.random.RandomState(seed)
+    cand = (rng.randn(l, d) * 3).astype(np.float32)
+    cvalid = (rng.rand(l) > 0.3).astype(np.float32)
+    cvalid[0] = 1.0
+    mind2 = np.full(n, 3.0e38, np.float32) if first else (rng.rand(n) * 60).astype(np.float32)
+    return cand, cvalid, mind2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,l,first,wmode", MSD_CASES)
+def test_min_sqdist_update_matches_reference(n, d, l, first, wmode, dtype):
+    x, w, _ = _data(n, d, 1, seed=n + l, wmode=wmode)
+    cand, cvalid, mind2 = _fold_inputs(n, d, l, first, seed=l)
+    jx, tx = _pair(x, dtype)
+    jcand, tcand = _pair(cand, dtype)
+    tol = TOL[dtype]
+    r = jops.min_sqdist_update(jx, jnp.asarray(w), jcand, jnp.asarray(cvalid),
+                               jnp.asarray(mind2), impl="ref")
+    out = ops.min_sqdist_update(tx, torch.from_numpy(w), tcand, torch.from_numpy(cvalid),
+                                torch.from_numpy(mind2))
+    np.testing.assert_allclose(_np(out.mind2), np.asarray(r.mind2), **tol)
+    np.testing.assert_allclose(float(out.cost), float(r.cost), rtol=max(tol["rtol"], 1e-5))
+    assert float(out.n_dist) == float(r.n_dist) == float((w > 0).sum() * (cvalid > 0).sum())
+    # the fold only lowers the state, and zero-weight rows update it too
+    assert bool((out.mind2 <= torch.from_numpy(mind2)).all())
+    assert bool((out.mind2[torch.from_numpy(w) == 0] < 3.0e38).all())
+
+
+def test_min_sqdist_update_chunk_padding_is_inert():
+    x, w, _ = _data(45, 6, 1, seed=5, wmode="uniform")
+    cand, cvalid, mind2 = _fold_inputs(45, 6, 9, False, seed=6)
+    args = [torch.from_numpy(a) for a in (x, w, cand, cvalid, mind2)]
+    full = ops.min_sqdist_update(*args)
+    chunk = ops.min_sqdist_update_chunk(*args, chunk_size=64)
+    assert chunk.mind2.shape == (45,)
+    assert torch.equal(chunk.mind2, full.mind2)
+    torch.testing.assert_close(chunk.cost, full.cost, rtol=1e-6, atol=0.0)
+    assert float(chunk.n_dist) == float(full.n_dist)
+    r = jops.min_sqdist_update_chunk(*map(jnp.asarray, (x, w, cand, cvalid, mind2)),
+                                     chunk_size=64, impl="ref")
+    np.testing.assert_allclose(_np(chunk.mind2), np.asarray(r.mind2), **TOL["float32"])
+    np.testing.assert_allclose(float(chunk.cost), float(r.cost), rtol=1e-5)
+    assert float(chunk.n_dist) == float(r.n_dist)
+    with pytest.raises(ValueError, match="exceeds chunk_size"):
+        ops.min_sqdist_update_chunk(*args, chunk_size=16)
+
+
+CS_CASES = [  # (n, d, K, wmode): K == 1, empty clusters (K > n), zero weights, ragged n
+    (64, 5, 1, "ones"),
+    (70, 19, 27, "zeros-some"),
+    (300, 19, 900, "uniform"),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,d,k,wmode", CS_CASES)
+def test_cluster_sums_matches_reference(n, d, k, wmode, dtype):
+    x, w, _ = _data(n, d, 1, seed=n + k, wmode=wmode)
+    assign = np.random.RandomState(k).randint(0, k, n).astype(np.int32)
+    jx, tx = _pair(x, dtype)
+    tol = TOL[dtype]
+    rs, rc = jops.cluster_sums(jx, jnp.asarray(w), jnp.asarray(assign), k, impl="ref")
+    sums, counts = ops.cluster_sums(tx, torch.from_numpy(w), torch.from_numpy(assign), k)
+    assert sums.shape == (k, d) and counts.shape == (k,)
+    np.testing.assert_allclose(_np(sums), np.asarray(rs), **tol)
+    np.testing.assert_allclose(_np(counts), np.asarray(rc), **tol)
+
+
+def test_two_pass_regime_matches_reference_and_pruned_equals_dense():
+    """K·(d+1) = 18,000 > 16,384: B1, then B4, on the CPU through the plain
+    versions, as the reference's two-pass fallback."""
+    from repro_torch.kernels.fused_assign_update import fused_supported
+
+    n, d, k = 300, 19, 900
+    assert not fused_supported(d, k)
+    x, w, c = _data(n, d, k, seed=9, wmode="zeros-some")
+    jx, jw, jc = map(jnp.asarray, (x, w, c))
+    tx, tw, tc = map(torch.from_numpy, (x, w, c))
+    tol = TOL["float32"]
+    r = jops.assign_update(jx, jw, jc, impl="ref")
+    dense = ops.assign_update(tx, tw, tc)
+    _assert_labels(x, c, _np(dense.assign), tol)
+    for f in ("d1", "d2", "sums", "counts"):
+        np.testing.assert_allclose(_np(getattr(dense, f)), np.asarray(getattr(r, f)), **tol)
+    np.testing.assert_allclose(float(dense.err), float(r.err), rtol=1e-5)
+    assert float(dense.n_dist) == float(r.n_dist)
+    rng = np.random.RandomState(4)
+    cached = rng.randint(0, k, n).astype(np.int32)
+    for frac in (0.0, 0.1, 1.0):
+        active = rng.rand(n) < frac
+        rp = jops.assign_update_pruned(jx, jw, jc, jnp.asarray(cached), jnp.asarray(active),
+                                       impl="ref")
+        p = ops.assign_update_pruned(tx, tw, tc, torch.from_numpy(cached), torch.from_numpy(active))
+        np.testing.assert_array_equal(_np(p.assign)[~active], cached[~active])
+        for f in ("sums", "counts"):
+            np.testing.assert_allclose(_np(getattr(p, f)), np.asarray(getattr(rp, f)), **tol)
+        np.testing.assert_allclose(float(p.err), float(rp.err), rtol=1e-5, atol=1e-6)
+        assert float(p.n_dist) == float(rp.n_dist)
+        # pruned ≡ dense bit for bit when the assignments agree
+        same = ops.assign_update_pruned(tx, tw, tc, dense.assign, torch.from_numpy(active))
+        assert torch.equal(same.assign, dense.assign)
+        assert torch.equal(same.sums, dense.sums) and torch.equal(same.counts, dense.counts)
+
+
+def test_interpret_mode_b4_b5_kernels_agree_with_the_port():
+    """One small case each against the reference's Pallas kernels."""
+    from repro.kernels.cluster_update import cluster_sums_pallas
+
+    tol = TOL["float32"]
+    x, w, _ = _data(40, 5, 1, seed=22, wmode="zeros-some")
+    cand, cvalid, mind2 = _fold_inputs(40, 5, 9, True, seed=23)
+    out = ops.min_sqdist_update(*map(torch.from_numpy, (x, w, cand, cvalid, mind2)))
+    r = jops.min_sqdist_update(*map(jnp.asarray, (x, w, cand, cvalid, mind2)), impl="pallas")
+    np.testing.assert_allclose(_np(out.mind2), np.asarray(r.mind2), **tol)
+    np.testing.assert_allclose(float(out.cost), float(r.cost), rtol=1e-5)
+    assign = np.random.RandomState(24).randint(0, 6, 40).astype(np.int32)
+    got = ops.cluster_sums(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(assign), 6)
+    want = cluster_sums_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(assign), 6,
+                               interpret=True)
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(_np(g), np.asarray(r), **tol)
+
+
 def test_fused_limit_names_the_missing_two_pass_kernel():
     from repro_torch.kernels import fused_assign_update as fau
 
@@ -185,12 +317,17 @@ def test_fused_limit_names_the_missing_two_pass_kernel():
 
 
 def test_seams_take_the_plain_path_only_for_cpu_tensors():
-    from repro_torch.kernels import distance_assign, fused_assign_update as fau
+    from repro_torch.kernels import cluster_update, distance_assign, fused_assign_update as fau
+    from repro_torch.kernels import min_sqdist_update as msu
 
     x = torch.zeros(4, 3)
     with pytest.raises(ValueError, match="CUDA"):
         distance_assign.assign_top2_cuda(x, x[:2])
     with pytest.raises(ValueError, match="CUDA"):
         fau.fused_assign_update_cuda(x, torch.ones(4), x[:2])
+    with pytest.raises(ValueError, match="CUDA"):
+        cluster_update.cluster_sums_cuda(x, torch.ones(4), torch.zeros(4, dtype=torch.int32), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        msu.min_sqdist_update_cuda(x, torch.ones(4), x[:2], torch.ones(2), torch.ones(4))
     with pytest.raises(ValueError, match="operands on"):
         ops.assign_top2(x, x[:2].to("meta"))
