@@ -18,8 +18,11 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    and with every row active, the k-means|| weighting passes' 561 and 2,001
    candidates with about half parked far away, empty clusters, invalid
    candidates, first and later folds);
-3. pruned ≡ dense bit for bit (fused, and two-pass where K·(d+1) > 16,384),
-   two B2, B4 and B5 runs bit-equal, two ``block_stats`` runs over the full
+3. pruned ≡ dense bit for bit at 0 / 10 / 100 % active (fused at the
+   representatives and over all 5,000,000 rows at the K = 27 weighting
+   pass's 561 candidates and at K = 800, the widest the fused seam takes;
+   two-pass where K·(d+1) > 16,384), two B2 runs bit-equal at each of those
+   shapes, two B4 and B5 runs and two ``block_stats`` runs over the full
    dataset bit-equal;
 4. ``repro_torch.BWKM(k=27).fit`` on the SUSY-profile 5,000,000 × 19 array,
    then ``predict`` and ``score`` over all of it and ``transform`` over one
@@ -34,7 +37,8 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
 5. per-kernel times from CUDA events over CUDA-graph replays, beside the
    plain version, one PyTorch yardstick and the card's bound: each kernel
    at the shape of most of its launches, then B1, B2 and B5 at the
-   k-means|| runs' own inputs.
+   k-means|| runs' own inputs, with the two-pass route (B1 + B4) beside B2
+   at 561 candidates and B2's scratch bytes there.
 
 Then the card's name and power limit, one JSON line of kernel records, and
 the result line ``{"ok": true, "device": {...}}`` last. Without a CUDA
@@ -282,18 +286,40 @@ def phase_kernels_b45(torch, ref, cu, msu):
 
 
 # ---------------------------------------------------------------- phase 3
-def phase_determinism(torch, ops, fau, cu, msu, partition, x_full):
-    x, w, c = _data(torch, CAPACITY_REPS, 19, SUSY_K, torch.float32, seed=3)
+def _fused_bit_checks(torch, fau, x, w, c, g, what):
+    """Two B2 runs bit-equal, and B3 at 0 / 10 / 100 % active, given the
+    dense ids as its cached ids, bit-equal to the dense statistics."""
     dense = fau.fused_assign_update_cuda(x, w, c)
     again = fau.fused_assign_update_cuda(x, w, c)
-    check(all(torch.equal(a, b) for a, b in zip(dense, again)), "two B2 runs differ")
-    g = torch.Generator(device="cuda").manual_seed(5)
+    check(all(torch.equal(a, b) for a, b in zip(dense, again)), f"two B2 runs differ ({what})")
+    del again
     for frac in (0.0, 0.1, 1.0):
         act = torch.rand(x.shape[0], generator=g, device="cuda") < frac
         p = fau.fused_assign_update_pruned_cuda(x, w, c, dense[0], act)
-        check(torch.equal(p[0], dense[0]), f"pruned ids differ (active {frac})")
+        check(torch.equal(p[0], dense[0]), f"pruned ids differ ({what}, active {frac})")
         check(torch.equal(p[3], dense[3]) and torch.equal(p[4], dense[4]),
-              f"pruned statistics not bit-equal to dense (active {frac})")
+              f"pruned statistics not bit-equal to dense ({what}, active {frac})")
+        del p
+
+
+def phase_determinism(torch, ops, fau, cu, msu, partition, x_full, far):
+    x, w, c = _data(torch, CAPACITY_REPS, 19, SUSY_K, torch.float32, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    _fused_bit_checks(torch, fau, x, w, c, g, "representatives, K = 27")
+    # the fused pass over every row: the K = 27 weighting pass's 561
+    # candidates (rows of x, about half parked as k-means|| parks its unfilled
+    # slots), and the widest K the fused seam takes at d = 19 (K·(d+1) =
+    # 16,000, a 64 KB shared partial), unit weights as the weighting pass has
+    n = x_full.shape[0]
+    ones = torch.ones(n, device="cuda")
+    for k, parked in ((561, True), (800, False)):
+        check(fau.fused_supported(19, k), f"K = {k} is beyond the fused limit")
+        c = x_full[torch.randint(0, n, (k,), generator=g, device="cuda")].clone()
+        if parked:
+            park = torch.rand(k, generator=g, device="cuda") < 0.5
+            park[0] = False
+            c[park] = far
+        _fused_bit_checks(torch, fau, x_full, ones, c, g, f"all {n} rows, K = {k}")
     # the two-pass regime: K·(d+1) = 18,000 > 16,384, so B1 + B4 on both seams
     c2 = _data(torch, 900, 19, 1, torch.float32, seed=4)[0]  # 900 centroids
     dense = ops.assign_update(x, w, c2)
@@ -718,6 +744,19 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
         bound=_bound(4 * n * d + 4 * n + 4 * k * d + 12 * n + 4 * k * (d + 1) + 4,
                      n * k * (2 * d + 3) + 2 * n * d),
     )
+    # the two-pass route at the same shape, B1 then B4 (what ops.assign_update
+    # runs beyond the fused limit), and the fused pass's scratch there
+    two_ms = _time_graph(torch, lambda: cu.cluster_sums_cuda(
+        x_full, ones, da.assign_top2_cuda(x_full, c)[0], k), reps=2)
+    a561 = da.assign_top2_cuda(x_full, c)[0]
+    b1_ms = _time_graph(torch, lambda: da.assign_top2_cuda(x_full, c), reps=2)
+    b4_ms = _time_graph(torch, lambda: cu.cluster_sums_cuda(x_full, ones, a561, k), reps=5)
+    print(f"[time] two-pass route B1 + B4 at x[{n},{d}] c[{k},{d}] f32: {two_ms:.4f} ms "
+          f"(B1 alone {b1_ms:.4f} ms, B4 alone under its ids {b4_ms:.4f} ms; B2 there "
+          f"{out['B2@561']['ms']:.4f} ms)")
+    scratch = 4 * fau.fused_scratch_floats(n, d, k)
+    print(f"[scratch] B2 at x[{n},{d}] c[{k},{d}]: {scratch} bytes ({scratch / 1e6:.3f} MB) "
+          f"of fold partials, min(128, ceil(n/256))·(K·(d+1)+1) floats")
     # B5 at the K = 100 run's last fold: 400 slots, some invalid, finite min-d²
     fx, fw, fc, fv, fm = path[100][1]
     l, n_valid = fc.shape[0], int(fv.sum())
@@ -874,9 +913,11 @@ def main(argv) -> int:
     x = torch.from_numpy(paper_dataset("SUSY", seed=0)).cuda()
     print(f"[data] SUSY profile {tuple(x.shape)} on the card in {time.perf_counter() - t0:.1f} s")
     # phase 3
-    phase_determinism(torch, ops, fau, cu, msu, partition, x)
-    print("[determinism] pruned == dense bit for bit (fused, and two-pass at K·(d+1) = 18,000); "
-          "two B2 runs, two full-n B4 and B5 runs and two full-n block_stats runs bit-equal")
+    phase_determinism(torch, ops, fau, cu, msu, partition, x, kmeans_ll._FAR)
+    print("[determinism] pruned == dense bit for bit at 0/10/100 % active (fused at the "
+          "representatives and over all rows at K = 561 and K = 800, two-pass at K·(d+1) = "
+          "18,000); two B2 runs at each of those shapes, two full-n B4 and B5 runs and two "
+          "full-n block_stats runs bit-equal")
     # phase 4
     launches = phase_fit(torch, repro_torch, da, fau, x)
     counters = {"B1": da.assign_top2_cuda, "B2": fau.fused_assign_update_cuda,

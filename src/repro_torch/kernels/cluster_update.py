@@ -2,10 +2,11 @@
 CUDA tensors.
 
 Replaces ``repro/kernels/cluster_update.py:cluster_sums_pallas``. The CUDA
-source is ``csrc/cluster_sums.cu``: a fixed grid of at most 128 CTAs along
-the rows, each keeping a ``[K-tile, d + 1]`` partial in shared memory and
-adding its rows in row order (one warp per cluster residue, one lane per
-feature), then a second kernel that sums the partials in CTA order —
+source is ``csrc/cluster_sums.cu`` over the fold of ``csrc/cluster_fold.cuh``,
+which B2/B3 share: a fixed grid of at most 128 CTAs along the rows, each
+keeping a ``[K-tile, d + 1]`` partial in shared memory and adding its rows
+in row order (one warp per cluster residue, one lane per feature), then a
+second kernel that sums the partials in CTA order —
 deterministic, no float atomics, and scratch that does not grow with n. Its
 plain version is :func:`repro_torch.kernels.ref.cluster_sums`.
 
@@ -25,14 +26,21 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.distance_assign import DTYPE_CODES, check_operand, stream_of
 
-__all__ = ["MAX_D", "cluster_sums_cuda"]
+__all__ = ["MAX_D", "cluster_sums_cuda", "fold_ctas"]
 
-#: rows per staged tile and the most CTAs along the rows, as in the source
+#: rows per staged tile and the most CTAs along the rows, as in
+#: ``csrc/cluster_fold.cuh``
 _TILE, _MAX_CTAS = 256, 128
 #: the largest d: one cluster's d + 1 values must fit the shared partial
 MAX_D = 40_959
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def fold_ctas(n: int) -> int:
+    """CTAs along the rows of the shared fold over ``n`` rows: one partial
+    each, at most 128 whatever n is."""
+    return min(_MAX_CTAS, -(-n // _TILE))
 
 
 def _fn():
@@ -62,8 +70,7 @@ def cluster_sums_cuda(
         raise ValueError(f"cluster_sums_cuda takes K >= 1 and 1 <= d <= {MAX_D}, got {k}, {d}")
     f32 = dict(dtype=torch.float32, device=dev)
     sums, counts = torch.empty(k, d, **f32), torch.empty(k, **f32)
-    ctas = min(_MAX_CTAS, -(-n // _TILE))
-    part = torch.empty(max(ctas, 1) * k * (d + 1), **f32)
+    part = torch.empty(max(fold_ctas(n), 1) * k * (d + 1), **f32)
     fn = _fn()
     with torch.cuda.device(dev):
         rc = fn(

@@ -4,44 +4,49 @@
 // (its _kernel, B2) and fused_assign_update_pruned_pallas (its
 // _pruned_kernel, B3). The TPU kernels keep the [K, d] statistics in VMEM
 // across a sequential grid; CTAs on Hopper run in no order and share no
-// memory, so the statistics take the deterministic split-K form instead:
+// memory, so the pass is three launches:
 //
-//   pass 1 (assign_update_kernel): each CTA owns 128 rows, runs the top-2
-//     scan of top2.cuh, then writes a partial [K, d + 1] (sums and the
-//     count column) and a partial error, summing its rows in row order.
-//   pass 2 (reduce_partials): one thread per output sums the partials over
-//     CTAs in CTA order.
+//   1. scan (assign_kernel): one 128-row CTA per row block runs the top-2
+//      scan of top2.cuh and writes assign, d1 and d2, nothing else.
+//   2. fold (cluster_fold.cuh, the code B4 runs): a fixed grid of at most
+//      128 CTAs along the rows, each adding its contiguous run of 256-row
+//      tiles in row order into a [K, d + 1] partial in shared memory, and
+//      the error Σ w·d1 over the active rows as one more column.
+//   3. reduce: one thread per output adds the ≤ 128 partials in CTA order.
 //
-// No float atomics anywhere, so two runs are bit-equal. The pruned form is
-// the same kernel with a cached assignment and an active mask: a CTA whose
-// rows are all inactive (its any-active flag, __syncthreads_or) skips the
-// distance scan and keeps the cached ids; every CTA then folds statistics
-// under the composed assignment through the same instructions and the same
-// row-to-CTA mapping, so pruned statistics are bit-identical to dense ones
-// whenever the assignments agree. The error covers active rows only.
+// Scratch is min(128, ceil(n/256))·(K·(d + 1) + 1) floats whatever n is
+// (5.7 MB at the k-means|| weighting pass, K = 561, d = 19). No float
+// atomics anywhere, so two runs are bit-equal.
 //
-// What bounds it on an H100: at the partition's shapes (≤ 14,528 rows,
-// d = 19, K = 27) x is about 1 MB, so the pass is bound by launch latency
-// and by the serial per-CTA loops, not by HBM or FLOPs; 2·K·d FLOP per row
-// for the distances plus K·(d + 1) compares per row for the statistics.
-#include "top2.cuh"
+// The pruned form is the same three launches given a cached assignment and
+// an active mask: a scan CTA whose rows are all inactive (its any-active
+// flag, __syncthreads_or) skips the distance scan and writes the cached
+// ids; the scan writes the composed assignment either way. The fold then
+// reads that composed assignment through the same instructions and the same
+// row-to-CTA mapping for dense and pruned, so pruned sums and counts are bit
+// for bit the dense ones whenever the assignments agree. The error covers
+// active rows only.
+//
+// What bounds it on an H100: the scan does 2·K·d FLOP per row against
+// 4·d + 16 bytes, so at the weighting pass (x [5,000,000, 19], K = 561) it
+// is bound by operations (1.7 ms at the f32 peak), and at the partition's
+// shapes (≤ 14,528 rows, K = 27) by launch latency. The fold is bound by
+// memory. Scan and fold stay apart rather than one persistent kernel: the
+// fold's 1,024-thread CTAs and their shared partial would cut the scan's
+// occupancy, while reading x a second time costs about 0.13 ms of HBM at
+// 5,000,000 × 19 f32, against the statistics loop over K·(d + 1) outputs ×
+// 128 rows per CTA (about 27 ms there) that the fold replaces.
+#include "cluster_fold.cuh"
 
 using namespace bwkm;
 
 template <typename TX, typename TC>
 __global__ void __launch_bounds__(ROWS)
-assign_update_kernel(const TX* __restrict__ x, const float* __restrict__ w,
-                     const TC* __restrict__ c, const int* __restrict__ cached,
-                     const unsigned char* __restrict__ active, long long n, int d, int K,
-                     int* __restrict__ assign, float* __restrict__ d1o,
-                     float* __restrict__ d2o, float* __restrict__ part,
-                     float* __restrict__ errpart) {
-  __shared__ int as[ROWS];
-  __shared__ float ws[ROWS];
-  __shared__ float es[ROWS];
-  const int t = threadIdx.x;
+assign_kernel(const TX* __restrict__ x, const TC* __restrict__ c, const int* __restrict__ cached,
+              const unsigned char* __restrict__ active, long long n, int d, int K,
+              int* __restrict__ assign, float* __restrict__ d1o, float* __restrict__ d2o) {
   const long long row0 = (long long)blockIdx.x * ROWS;
-  const long long row = row0 + t;
+  const long long row = row0 + threadIdx.x;
   const bool valid = row < n;
   const bool pruned = cached != nullptr;
   const bool act = valid && (!pruned || active[row] != 0);
@@ -49,100 +54,49 @@ assign_update_kernel(const TX* __restrict__ x, const float* __restrict__ w,
 
   Top2 r{0, BIG, BIG};
   if (any_active) r = row_top2(x, c, n, d, K, row0);  // uniform over the CTA
-  int a = r.a;
-  if (pruned && !act) a = valid ? cached[row] : 0;
   if (valid) {
-    assign[row] = a;
+    assign[row] = (pruned && !act) ? cached[row] : r.a;
     d1o[row] = r.d1;
     d2o[row] = r.d2 >= BIG ? __int_as_float(0x7f800000) : r.d2;
-  }
-  as[t] = valid ? a : -1;
-  ws[t] = valid ? w[row] : 0.f;
-  es[t] = act ? r.d1 : 0.f;
-  __syncthreads();
-
-  // Per-CTA statistics, each output summed over the CTA's rows in row order.
-  const int D1 = d + 1;
-  const int KD = K * D1;
-  float* __restrict__ p = part + (long long)blockIdx.x * KD;
-  for (int o = t; o < KD; o += ROWS) {
-    const int k = o / D1, j = o - k * D1;
-    float acc = 0.f;
-    for (int rr = 0; rr < ROWS; ++rr) {
-      const float wr = ws[rr];
-      if (as[rr] == k && wr != 0.f) {
-        acc = j < d ? fmaf(wr, to_f(x[(row0 + rr) * d + j]), acc) : acc + wr;
-      }
-    }
-    p[o] = acc;
-  }
-  if (t == 0) {
-    float acc = 0.f;
-    for (int rr = 0; rr < ROWS; ++rr) {
-      if (ws[rr] != 0.f) acc = fmaf(ws[rr], es[rr], acc);
-    }
-    errpart[blockIdx.x] = acc;
-  }
-}
-
-__global__ void reduce_partials(const float* __restrict__ part,
-                                const float* __restrict__ errpart, long long nb, int K,
-                                int d, float* __restrict__ sums, float* __restrict__ counts,
-                                float* __restrict__ err) {
-  const int D1 = d + 1;
-  const int KD = K * D1;
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o < KD) {
-    float acc = 0.f;
-    for (long long b = 0; b < nb; ++b) acc += part[b * KD + o];
-    const int k = o / D1, j = o - k * D1;
-    if (j < d) sums[k * d + j] = acc;
-    else counts[k] = acc;
-  } else if (o == KD) {
-    float acc = 0.f;
-    for (long long b = 0; b < nb; ++b) acc += errpart[b];
-    *err = acc;
   }
 }
 
 template <typename TX, typename TC>
-static void launch(const void* x, const float* w, const void* c, const int* cached,
-                   const unsigned char* active, long long n, int d, int K, int* assign,
-                   float* d1, float* d2, float* part, float* errpart, cudaStream_t s) {
+static int launch(const void* x, const float* w, const void* c, const int* cached,
+                  const unsigned char* active, long long n, int d, int K, int* assign,
+                  float* d1, float* d2, float* sums, float* counts, float* err, float* part,
+                  cudaStream_t s) {
+  const TX* xt = static_cast<const TX*>(x);
   const long long nb = (n + ROWS - 1) / ROWS;
   if (nb > 0) {
-    assign_update_kernel<TX, TC><<<(unsigned)nb, ROWS, 0, s>>>(
-        static_cast<const TX*>(x), w, static_cast<const TC*>(c), cached, active, n, d, K,
-        assign, d1, d2, part, errpart);
+    assign_kernel<TX, TC><<<(unsigned)nb, ROWS, 0, s>>>(xt, static_cast<const TC*>(c), cached,
+                                                        active, n, d, K, assign, d1, d2);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
   }
+  return fold::fold_and_reduce(xt, w, assign, d1, active, n, d, K, sums, counts, err, part, s);
 }
 
 // One dense (cached == active == nullptr) or pruned pass. `part` holds
-// ceil(n/128)·K·(d+1) floats and `errpart` ceil(n/128) floats of scratch.
-// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// min(128, ceil(n/256))·(K·(d + 1) + 1) floats of scratch; d + 1 must be at
+// most 40,960. dtype codes: 0 = float32, 1 = bfloat16. Returns a
+// cudaError_t.
 extern "C" int bwkm_assign_update(const void* x, int x_dtype, const float* w, const void* c,
                                   int c_dtype, const int* cached,
                                   const unsigned char* active, long long n, int d, int K,
                                   int* assign, float* d1, float* d2, float* sums,
-                                  float* counts, float* err, float* part, float* errpart,
-                                  void* stream) {
+                                  float* counts, float* err, float* part, void* stream) {
+  if (K < 1 || d < 1 || d + 1 > fold::PART_FLOATS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && c_dtype == 0)
-    launch<float, float>(x, w, c, cached, active, n, d, K, assign, d1, d2, part, errpart, s);
-  else if (x_dtype == 0)
-    launch<float, __nv_bfloat16>(x, w, c, cached, active, n, d, K, assign, d1, d2, part,
-                                 errpart, s);
-  else if (c_dtype == 0)
-    launch<__nv_bfloat16, float>(x, w, c, cached, active, n, d, K, assign, d1, d2, part,
-                                 errpart, s);
-  else
-    launch<__nv_bfloat16, __nv_bfloat16>(x, w, c, cached, active, n, d, K, assign, d1, d2,
-                                         part, errpart, s);
-  int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  const long long nb = (n + ROWS - 1) / ROWS;
-  const int outs = K * (d + 1) + 1;
-  reduce_partials<<<(outs + 255) / 256, 256, 0, s>>>(part, errpart, nb, K, d, sums, counts,
-                                                     err);
-  return (int)cudaGetLastError();
+    return launch<float, float>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums, counts,
+                                err, part, s);
+  if (x_dtype == 0)
+    return launch<float, __nv_bfloat16>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums,
+                                        counts, err, part, s);
+  if (c_dtype == 0)
+    return launch<__nv_bfloat16, float>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums,
+                                        counts, err, part, s);
+  return launch<__nv_bfloat16, __nv_bfloat16>(x, w, c, cached, active, n, d, K, assign, d1, d2,
+                                              sums, counts, err, part, s);
 }

@@ -2,17 +2,21 @@
 
 Replace ``repro/kernels/fused_assign_update.py:fused_assign_update_pallas``
 (B2) and ``fused_assign_update_pruned_pallas`` (B3). The CUDA source is
-``csrc/fused_assign_update.cu``: a top-2 scan per row, per-CTA statistics
-partials summed in row order, and a second kernel that reduces the partials
-over CTAs in CTA order — deterministic, no float atomics. B3 is the same
-kernel given a cached assignment and an active mask, so pruned statistics
-are bit-identical to dense ones whenever the assignments agree. The plain
-versions are :func:`repro_torch.kernels.ref.assign_update` and
+``csrc/fused_assign_update.cu``: three launches, a top-2 scan per row that
+writes the (composed) assignment and the distances, then B4's fold
+(``csrc/cluster_fold.cuh``: at most 128 CTAs, each summing its rows in row
+order into a shared-memory partial, with the error as one more column), then
+a reduction of the partials in CTA order — deterministic, no float atomics,
+and scratch that does not grow with n (:func:`fused_scratch_floats`). B3 is
+the same launches given a cached assignment and an active mask, so pruned
+statistics are bit-identical to dense ones whenever the assignments agree.
+The plain versions are :func:`repro_torch.kernels.ref.assign_update` and
 :func:`~repro_torch.kernels.ref.assign_update_pruned`.
 
 At the main path's shapes (≤ 14,528 representatives, d = 19, K = 27) the
-pass moves about 1 MB and is bound by launch latency and the serial
-per-CTA loops. ``fused_assign_update_cuda.launches`` and
+pass moves about 1 MB and is bound by launch latency; at the k-means||
+weighting pass (every row, 561 candidates) by the scan's operations.
+``fused_assign_update_cuda.launches`` and
 ``fused_assign_update_pruned_cuda.launches`` count launches.
 """
 
@@ -23,6 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.cluster_update import fold_ctas
 from repro_torch.kernels.distance_assign import DTYPE_CODES, check_operand, stream_of
 
 __all__ = [
@@ -31,13 +36,13 @@ __all__ = [
     "check_fused",
     "fused_assign_update_cuda",
     "fused_assign_update_pruned_cuda",
+    "fused_scratch_floats",
     "fused_supported",
 ]
 
-#: rows per CTA in ``csrc/top2.cuh``; one statistics partial per CTA
+#: rows per CTA of the scan in ``csrc/top2.cuh``
 ROWS_PER_CTA = 128
-#: largest K·(d + 1) a per-CTA partial may hold (64 KB of f32): bounds the
-#: split-K scratch at half a kilobyte per row
+#: largest K·(d + 1) the fused kernels take (a 64 KB shared partial)
 FUSED_MAX_KD1 = 16_384
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -46,6 +51,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def fused_supported(d: int, k: int) -> bool:
     """Whether ``[K, d]`` fits the fused kernels' per-CTA partial."""
     return k * (d + 1) <= FUSED_MAX_KD1
+
+
+def fused_scratch_floats(n: int, d: int, k: int) -> int:
+    """Floats of scratch one pass takes: one ``K·(d + 1) + 1`` partial (the
+    statistics and the error) per fold CTA, at most 128 whatever n is."""
+    return fold_ctas(n) * (k * (d + 1) + 1)
 
 
 def check_fused(d: int, k: int) -> None:
@@ -59,7 +70,7 @@ def check_fused(d: int, k: int) -> None:
 
 def _fn():
     f = _build.library("fused_assign_update").bwkm_assign_update
-    f.argtypes = [_P, _I, _P, _P, _I, _P, _P, _L, _I, _I] + [_P] * 9
+    f.argtypes = [_P, _I, _P, _P, _I, _P, _P, _L, _I, _I] + [_P] * 8
     f.restype = ctypes.c_int
     return f
 
@@ -83,12 +94,11 @@ def _launch(x, w, c, cached, active):
         check_operand("active", active, dev, (torch.bool,), 1)
         if cached.shape[0] != n or active.shape[0] != n:
             raise ValueError("assign and active must have one entry per row of x")
-    nb = -(-n // ROWS_PER_CTA)
     f32 = dict(dtype=torch.float32, device=dev)
     assign = torch.empty(n, dtype=torch.int32, device=dev)
     d1, d2 = torch.empty(n, **f32), torch.empty(n, **f32)
     sums, counts, err = torch.empty(k, d, **f32), torch.empty(k, **f32), torch.empty((), **f32)
-    part, errpart = torch.empty(max(nb, 1) * k * (d + 1), **f32), torch.empty(max(nb, 1), **f32)
+    part = torch.empty(max(fused_scratch_floats(n, d, k), 1), **f32)
     fn = _fn()
     with torch.cuda.device(dev):
         rc = fn(
@@ -97,8 +107,7 @@ def _launch(x, w, c, cached, active):
             None if cached is None else cached.data_ptr(),
             None if active is None else active.data_ptr(),
             n, d, k, assign.data_ptr(), d1.data_ptr(), d2.data_ptr(), sums.data_ptr(),
-            counts.data_ptr(), err.data_ptr(), part.data_ptr(), errpart.data_ptr(),
-            stream_of(dev),
+            counts.data_ptr(), err.data_ptr(), part.data_ptr(), stream_of(dev),
         )
     if rc != 0:
         raise RuntimeError(f"fused assign+update kernel launch failed: cudaError_t {rc}")

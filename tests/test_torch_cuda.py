@@ -97,6 +97,37 @@ def test_pruned_statistics_are_bit_identical_to_dense(cuda):
     assert all(torch.equal(a, b) for a, b in zip(dense, again))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [561, 800])
+def test_fused_pass_over_many_fold_tiles_matches_plain_version(cuda, k):
+    """The k-means|| weighting pass's width (561) and the widest K the fused
+    seam takes at d = 19 (800: K·(d+1) = 16,000), over more than 128·256
+    rows, so every fold CTA adds two or more 256-row tiles."""
+    _, fau = cuda
+    n = 70_001
+    x, w, c = _data(n, 19, k, torch.float32, seed=k + 1)
+    tol = TOL[torch.float32]
+    out = fau.fused_assign_update_cuda(x, w, c)
+    dd = ref.pairwise_sqdist(x, c)
+    torch.testing.assert_close(dd.gather(1, out[0].long()[:, None])[:, 0], dd.min(1).values, **tol)
+    r = ref.assign_update(x, w, c)
+    torch.testing.assert_close(out[1], r.d1, **tol)
+    # statistics under the kernel's own labels, within TOL of Σ|terms|
+    sums, counts = ref.cluster_sums(x, w, out[0], k)
+    scale, cscale = ref.cluster_sums(x.abs(), w, out[0], k)
+    assert bool(((out[3] - sums).abs() <= tol["atol"] + tol["rtol"] * scale).all())
+    assert bool(((out[4] - counts).abs() <= tol["atol"] + tol["rtol"] * cscale).all())
+    torch.testing.assert_close(out[5], (w * out[1]).sum(), rtol=tol["rtol"], atol=0.0)
+    again = fau.fused_assign_update_cuda(x, w, c)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    for frac in (0.0, 0.1, 1.0):
+        act = torch.from_numpy(np.random.RandomState(3).rand(n) < frac).cuda()
+        p = fau.fused_assign_update_pruned_cuda(x, w, c, out[0], act)
+        assert torch.equal(p[0], out[0])
+        assert torch.equal(p[3], out[3]) and torch.equal(p[4], out[4])
+        torch.testing.assert_close(p[5], (w * out[1])[act].sum(), rtol=tol["rtol"], atol=1e-6)
+
+
 @pytest.fixture
 def cuda_b45():
     if not torch.cuda.is_available():

@@ -316,6 +316,21 @@ def test_fused_limit_names_the_missing_two_pass_kernel():
         fau.check_fused(8191, 3)
 
 
+def test_fused_scratch_does_not_grow_with_n():
+    """B2/B3's scratch is one ``K·(d+1) + 1`` partial per fold CTA, at most
+    128 CTAs of 256-row tiles, whatever n is."""
+    from repro_torch.kernels.fused_assign_update import fused_scratch_floats
+
+    per_cta = 561 * 20 + 1
+    assert fused_scratch_floats(5_000_000, 19, 561) == 128 * per_cta
+    assert fused_scratch_floats(128 * 256, 19, 561) == 128 * per_cta
+    assert fused_scratch_floats(50_000_000, 19, 561) == 128 * per_cta
+    assert fused_scratch_floats(127 * 256, 19, 561) == 127 * per_cta
+    assert fused_scratch_floats(1, 19, 27) == 27 * 20 + 1
+    assert fused_scratch_floats(0, 19, 27) == 0
+    assert 4 * fused_scratch_floats(5_000_000, 19, 561) < 6e6  # 5.7 MB, from 1.75 GB
+
+
 def test_seams_take_the_plain_path_only_for_cpu_tensors():
     from repro_torch.kernels import cluster_update, distance_assign, fused_assign_update as fau
     from repro_torch.kernels import min_sqdist_update as msu
