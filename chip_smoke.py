@@ -6,11 +6,19 @@ Run from the root of the repository:
     python3 chip_smoke.py            # the check; needs one CUDA device
     python3 chip_smoke.py --profile DIR  # and torch.profiler breakdowns of the
                                          # fit and of k-means||, tables in DIR
+    python3 chip_smoke.py --parent DIR   # and phase 5 times the kernels built from
+                                         # DIR/src/repro_torch/kernels/csrc (an
+                                         # earlier commit, same C interface) in
+                                         # turns with these: parent, this, this,
+                                         # parent; then the fit's and k-means||'s
+                                         # walls with DIR's package and this one,
+                                         # a process each, in the same turns
 
 Phases, one line each (and a few detail lines), any failure exits non-zero:
 
 1. build the four CUDA kernel libraries from ``src/repro_torch/kernels/csrc``
-   (one nvcc each, in parallel) and print the build seconds;
+   (one nvcc each, in parallel; with ``--parent``, the parent's four as well)
+   and print the build seconds and each kernel's registers and spills;
 2. hold each kernel (B1 assign_top2, B2 fused assign+update, B3 its pruned
    form, B4 cluster_sums, B5 the k-means|| min-d² fold) against its plain
    PyTorch version on the card, in f32 and bf16, at the main paths' shapes
@@ -22,8 +30,9 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    representatives and over all 5,000,000 rows at the K = 27 weighting
    pass's 561 candidates and at K = 800, the widest the fused seam takes;
    two-pass where K·(d+1) > 16,384), two B2 runs bit-equal at each of those
-   shapes, two B4 and B5 runs and two ``block_stats`` runs over the full
-   dataset bit-equal;
+   shapes, two B1, B4 and B5 runs and two ``block_stats`` runs over the full
+   dataset bit-equal, and B5 over 400 slots of which about half are valid
+   bit-equal to B5 over the valid ones alone;
 4. ``repro_torch.BWKM(k=27).fit`` on the SUSY-profile 5,000,000 × 19 array,
    then ``predict`` and ``score`` over all of it and ``transform`` over one
    chunk, with the kernels' launch counts (each must be > 0) and ``score``
@@ -33,12 +42,26 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    weighting counts, its weighting sums against float64, its weighting
    labels and d1 against the plain distances over every row, and each of
    its B5 folds against the plain fold over every row — and
-   ``BWKM(k=27, init="kmeans||").fit`` with its score against float64;
+   ``BWKM(k=27, init="kmeans||").fit`` with its score against float64 and
+   its six B5 folds over the representatives (min-d² against the plain
+   fold; the kernel's and the plain fold's costs against the float64 fold,
+   and the kernel's against the weighted sum of its own min-d²); each score
+   is printed beside the plain version's on the same centroids (and the
+   first, with ``--parent``, beside the parent's kernel's);
 5. per-kernel times from CUDA events over CUDA-graph replays, beside the
    plain version, one PyTorch yardstick and the card's bound: each kernel
    at the shape of most of its launches, then B1, B2 and B5 at the
    k-means|| runs' own inputs, with the two-pass route (B1 + B4) beside B2
-   at 561 candidates and B2's scratch bytes there.
+   at 561 candidates and B2's scratch bytes there, then B5's other eight
+   launches of phase 4 (the two seed folds at L = 1 over every row and the
+   six folds over the 14,528 representatives), each with its bound and its
+   library time, and the SM clock and power draw that ``nvidia-smi`` reads
+   while B1 at 2,001 candidates and B5 at 112 run back to back. With
+   ``--parent``, every row but B4's also times the parent's kernel on the
+   same inputs, in turns, and the walls of the SUSY fit and of k-means|| at
+   K = 27 and K = 100 are taken with the parent's package and with this
+   one, each in a process of its own (parent, this, this, parent; three
+   timed runs each).
 
 Then the card's name and power limit, one JSON line of kernel records, and
 the result line ``{"ok": true, "device": {...}}`` last. Without a CUDA
@@ -48,6 +71,7 @@ result and exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -302,7 +326,7 @@ def _fused_bit_checks(torch, fau, x, w, c, g, what):
         del p
 
 
-def phase_determinism(torch, ops, fau, cu, msu, partition, x_full, far):
+def phase_determinism(torch, ops, da, fau, cu, msu, partition, x_full, far):
     x, w, c = _data(torch, CAPACITY_REPS, 19, SUSY_K, torch.float32, seed=3)
     g = torch.Generator(device="cuda").manual_seed(5)
     _fused_bit_checks(torch, fau, x, w, c, g, "representatives, K = 27")
@@ -342,6 +366,23 @@ def phase_determinism(torch, ops, fau, cu, msu, partition, x_full, far):
     f1, f2 = msu.min_sqdist_update_cuda(x_full, ones, cand, cv, m0), \
         msu.min_sqdist_update_cuda(x_full, ones, cand, cv, m0)
     check(all(torch.equal(u, v) for u, v in zip(f1, f2)), "two B5 runs differ")
+    c1 = x_full[torch.randint(0, n, (561,), generator=g, device="cuda")]
+    b1 = da.assign_top2_cuda(x_full, c1)
+    check(all(torch.equal(u, v) for u, v in zip(b1, da.assign_top2_cuda(x_full, c1))),
+          "two B1 runs differ")
+    del b1
+    # B5 loads only its valid candidates: 400 slots, about half valid, give
+    # the bits of the fold over the valid ones alone
+    cand = x_full[torch.randint(0, n, (400,), generator=g, device="cuda")]
+    cv = (torch.rand(400, generator=g, device="cuda") < 0.5).float()
+    cv[0] = 1.0
+    sub = cand[cv > 0].contiguous()
+    full = msu.min_sqdist_update_cuda(x_full, ones, cand, cv, f1[0])
+    only = msu.min_sqdist_update_cuda(x_full, ones, sub, torch.ones(sub.shape[0], device="cuda"),
+                                      f1[0])
+    check(all(torch.equal(u, v) for u, v in zip(full, only)),
+          "B5 over valid and invalid slots differs from B5 over the valid ones")
+    del full, only, f1, f2
     n = x_full.shape[0]
     bids = {
         "one block": torch.zeros(n, dtype=torch.int32, device="cuda"),
@@ -367,6 +408,15 @@ def _score_f64(torch, x, c):
     return float(total)
 
 
+def _score_plain(torch, ref, x, c):
+    """``score`` from the plain version's d1 (the f32 decomposition by a
+    matrix product), summed in float64 like ``BWKM.score``."""
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for i in range(0, x.shape[0], CHUNK):
+        total += ref.assign_top2(x[i : i + CHUNK], c)[1].sum(dtype=torch.float64)
+    return float(total)
+
+
 def _labels_vs_f64(torch, x, c, labels):
     c64 = c.double()
     mism, worst = 0, 0.0
@@ -381,7 +431,7 @@ def _labels_vs_f64(torch, x, c, labels):
     return mism, worst
 
 
-def phase_fit(torch, repro_torch, da, fau, x):
+def phase_fit(torch, repro_torch, ref, da, fau, x, parent):
     counters = (da.assign_top2_cuda, fau.fused_assign_update_cuda,
                 fau.fused_assign_update_pruned_cuda)
     for f in counters:
@@ -420,7 +470,14 @@ def phase_fit(torch, repro_torch, da, fau, x):
     check(abs(score - ref_score) <= 1e-4 * abs(ref_score),
           f"score {score} vs float64 {ref_score}")
     mism, worst = _labels_vs_f64(torch, x, c, labels)
-    print(f"[fit] score vs float64 rel diff {abs(score - ref_score) / ref_score:.3e}; "
+    plain_score = _score_plain(torch, ref, x, c)
+    parent_s = ""
+    if parent is not None:
+        with parent.active():
+            parent_score = model.score(x)
+        parent_s = f", the parent's kernel's {(parent_score - ref_score) / ref_score:+.3e}"
+    print(f"[fit] score vs float64 {(score - ref_score) / ref_score:+.3e} (the plain version's "
+          f"{(plain_score - ref_score) / ref_score:+.3e}{parent_s} on the same centroids); "
           f"labels off the float64 argmin: {mism} rows, worst relative gap {worst:.3e}")
     check(worst <= 1e-5, "a label is farther than f32 rounding (1e-5·‖x‖²) from the float64 argmin")
     for name, cnt in launches.items():
@@ -486,13 +543,57 @@ def _folds_vs_plain(torch, ref, folds):
     return worst_m, worst_c
 
 
+def _fold_f64(torch, x, w, cand, cvalid, mind2, rows=2048):
+    """The fold in float64 from float64 distances (differences, not the
+    ‖x‖² − 2·x·c + ‖c‖² decomposition): ``(min-d², cost)``."""
+    c64 = cand.double()[cvalid != 0]
+    new = mind2.double().clone()
+    for i in range(0, x.shape[0], rows):
+        if c64.shape[0]:
+            dd = ((x[i : i + rows].double()[:, None, :] - c64[None]) ** 2).sum(-1)
+            new[i : i + rows] = torch.minimum(new[i : i + rows], dd.min(1).values)
+    return new, float((w.double() * new).sum())
+
+
+def _weighted_folds_vs_f64(torch, ref, folds):
+    """The folds over weighted representatives (the seeded fit's). A
+    representative that is a candidate is at distance 0 only up to the f32
+    rounding of the decomposition, and its block's weight multiplies that,
+    so both the kernel's and the plain fold's costs are held against the
+    float64 fold, within what the per-row tolerance of ``_close`` allows:
+    1e-5 · Σ w·(1 + max(min-d², ‖x‖² + max‖c‖²)). Besides: min-d² against the plain fold
+    (as ``_folds_vs_plain``), and the kernel's cost within 1e-5 relative of
+    the float64 sum of its own min-d² (its reduction). Returns the largest
+    min-d² difference and, per fold, the kernel's and the plain fold's cost
+    relative to the float64 cost and the limit in the same units."""
+    worst_m, rows = 0.0, []
+    for args, out in folds:
+        x, w, cand, cvalid, mind2 = args
+        r = ref.min_sqdist_update(x, w, cand, cvalid, mind2)
+        scale = (x.float() ** 2).sum(1) + (cand.float() ** 2).sum(1).max()
+        tag = f"B5 fold n={x.shape[0]} L={cand.shape[0]}"
+        worst_m = max(worst_m, _close(torch, out.mind2, r.mind2, TOL["float32"], tag, scale)[0])
+        _close(torch, out.cost, (w.double() * out.mind2.double()).sum(),
+               dict(rtol=1e-5, atol=0.0), f"{tag} cost against its own min-d²")
+        new64, c64 = _fold_f64(torch, x, w, cand, cvalid, mind2)
+        limit = 1e-5 * float((w.double() * (1.0 + torch.maximum(new64, scale.double()))).sum())
+        for who, cost in (("kernel", float(out.cost)), ("plain", float(r.cost))):
+            check(abs(cost - c64) <= limit,
+                  f"{tag}: the {who} cost {cost!r} is {abs(cost - c64):.4g} from the float64 "
+                  f"cost {c64!r}, past 1e-5·Σ w·(1 + max(min-d², ‖x‖² + max‖c‖²)) = {limit:.4g}")
+        rows.append(((float(out.cost) - c64) / c64, (float(r.cost) - c64) / c64, limit / c64))
+        del r
+    return worst_m, rows
+
+
 def phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops, ref, counters, x):
     """k-means|| on the full array at K = 27 and K = 100, then a BWKM fit
     seeded by it. Each run's weighting pass and B5 folds are recorded and,
     after the run, held against their plain versions over every row. Returns
     each kernel's launches summed over the three runs (counts set to 0 just
-    before each run and read just after) and each K's weighting-pass inputs
-    and last fold, the shapes phase 5 times."""
+    before each run and read just after), each K's weighting-pass inputs,
+    last fold and seed fold, and the inputs of the seeded fit's folds: the
+    shapes phase 5 times."""
     n = x.shape[0]
     total = dict.fromkeys(counters, 0)
     seen = {}
@@ -549,15 +650,22 @@ def phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops, ref, counters, x):
               f"{d1_err:.3e} of 1 + ‖x‖² + ‖c‖²; {len(folds)} folds at L = "
               f"{[int(a[2].shape[0]) for a, _ in folds]} vs plain over all {n} rows: "
               f"min-d² max abs err {fold_m:.3g}, cost max rel err {fold_c:.3g}")
-        seen[k] = (wc, folds[-1][0])
+        seen[k] = (wc, folds[-1][0], folds[0][0])
         del folds, au
+    seen["min_sqdist_update"] = []
     for f in counters.values():
         f.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = repro_torch.BWKM(k=SUSY_K, init="kmeans||").fit(x)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    ops.min_sqdist_update = spy("min_sqdist_update")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = repro_torch.BWKM(k=SUSY_K, init="kmeans||").fit(x)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        ops.min_sqdist_update = plain["min_sqdist_update"]
+    rep_folds = seen["min_sqdist_update"]
+    check(len(rep_folds) == 6, f"BWKM(init='kmeans||'): {len(rep_folds)} folds recorded, not 6")
     launches = {b: f.launches for b, f in counters.items()}
     for b in total:
         total[b] += launches[b]
@@ -568,11 +676,22 @@ def phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops, ref, counters, x):
     check(bool(torch.isfinite(c).all()), "BWKM(init='kmeans||'): centroids not finite")
     check(abs(score - ref_score) <= 1e-4 * abs(ref_score),
           f"BWKM(init='kmeans||'): score {score} vs float64 {ref_score}")
+    plain_score = _score_plain(torch, ref, x, c)
+    fold_m, fold_rows = _weighted_folds_vs_f64(torch, ref, rep_folds)
     print(f"[kmeans||] BWKM(k={SUSY_K}, init='kmeans||').fit: wall_s={wall:.3f} "
           f"stop_reason={res.stop_reason} iterations={res.iterations} "
           f"distances={res.distances:.0f} blocks={res.metadata['n_blocks'][-1]} score={score!r} "
-          f"(float64 rel diff {abs(score - ref_score) / ref_score:.3e}) launches={launches}")
-    return total, {k: seen[k] for k in (27, 100)}
+          f"(vs float64 {(score - ref_score) / ref_score:+.3e}, the plain version's "
+          f"{(plain_score - ref_score) / ref_score:+.3e} on the same centroids) "
+          f"launches={launches}; its {len(rep_folds)} folds at L = "
+          f"{[int(a[2].shape[0]) for a, _ in rep_folds]}: min-d² vs plain max abs err "
+          f"{fold_m:.3g}")
+    print("[kmeans||] its folds' costs vs the float64 fold (relative; limit "
+          "1e-5·Σ w·(1 + max(min-d², ‖x‖² + max‖c‖²)) in the same units): kernel "
+          + ", ".join(f"{a:+.3e}" for a, _, _ in fold_rows) + "; plain "
+          + ", ".join(f"{b:+.3e}" for _, b, _ in fold_rows) + "; limit "
+          + ", ".join(f"{lim:.3e}" for _, _, lim in fold_rows))
+    return total, {k: seen[k] for k in (27, 100)}, [a for a, _ in rep_folds]
 
 
 # ---------------------------------------------------------------- phase 5
@@ -601,18 +720,122 @@ def _time_graph(torch, fn, reps=20):
     return start.elapsed_time(end) / (5 * reps)
 
 
+def _clock_under_load(torch, what, fn, seconds=2.0):
+    """Print the SM clock and power draw that ``nvidia-smi`` reads every
+    50 ms while ``fn`` runs back to back for about ``seconds``."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "50"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    rows = sorted((float(a), float(b)) for a, b in
+                  (line.split(",") for line in out.splitlines() if line.count(",") == 1))
+    check(len(rows) >= 5, f"nvidia-smi gave {len(rows)} samples under load")
+    mhz = [r[0] for r in rows]
+    watts = sorted(r[1] for r in rows)
+    print(f"[clock] {what} back to back for {seconds:.0f} s: SM clock median {mhz[len(mhz) // 2]:.0f} "
+          f"MHz (min {mhz[0]:.0f}, max {mhz[-1]:.0f}), power draw median "
+          f"{watts[len(watts) // 2]:.1f} W over {len(rows)} samples")
+
+
 def _bound(nbytes, flops):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
+class _Parent:
+    """An earlier commit's kernel libraries, built from its sources with the
+    same flags. The C interface is the same, so while :meth:`active` the
+    port's wrappers launch the parent's kernels."""
+
+    def __init__(self, build, procs):
+        self.build, self.procs, self.libs = build, procs, None
+
+    @classmethod
+    def start(cls, build, tree):
+        csrc = pathlib.Path(tree).resolve() / "src" / "repro_torch" / "kernels" / "csrc"
+        check(csrc.is_dir(), f"--parent: {csrc} not found")
+        out = ROOT / "build" / "parent-kernels"
+        out.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name, src in build.SOURCES.items():
+            lib = out / f"lib{name}.so"
+            procs[name] = (lib, subprocess.Popen(
+                [build._nvcc(), *build._NVCC_FLAGS, "-o", str(lib), str(csrc / src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        return cls(build, procs)
+
+    def finish(self):
+        import ctypes
+
+        self.libs = {}
+        for name, (lib, proc) in self.procs.items():
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"the parent's {name} did not build:\n{log}")
+            self.libs[name] = ctypes.CDLL(str(lib))
+
+    @contextlib.contextmanager
+    def active(self):
+        saved = dict(self.build._loaded)
+        self.build._loaded.update(self.libs)
+        try:
+            yield
+        finally:
+            self.build._loaded.clear()
+            self.build._loaded.update(saved)
+
+
+def _timed(torch, fn, reps, parent):
+    """``fn``'s milliseconds from ``_time_graph``; given the parent's
+    libraries, in turns with them (parent, this, this, parent) on the same
+    inputs."""
+    if parent is None:
+        return {"ms": _time_graph(torch, fn, reps)}
+    with parent.active():
+        p1 = _time_graph(torch, fn, reps)
+    c1, c2 = _time_graph(torch, fn, reps), _time_graph(torch, fn, reps)
+    with parent.active():
+        p2 = _time_graph(torch, fn, reps)
+    return {"ms": c1, "ms_again": c2, "parent_ms": (p1, p2)}
+
+
+def _b5_row(torch, ref, msu, args, what, parent, reps=10, plain_reps=10):
+    """A B5 record on one fold's own inputs ``(x, w, cand, cvalid, mind2)``.
+    Its bound counts the valid candidates' operations."""
+    fx, fw, fc, fv, fm = args
+    n, d = fx.shape
+    l, n_valid = fc.shape[0], int(fv.sum())
+
+    def lib():
+        dd = torch.cdist(fx, fc) ** 2
+        new = torch.minimum(fm, dd.masked_fill(fv[None, :] == 0, BIG).amin(1))
+        return new, (fw * new).sum()
+
+    return dict(
+        shape=f"{what}x[{n},{d}] f32, L={l}, {n_valid} valid",
+        **_timed(torch, lambda: msu.min_sqdist_update_cuda(fx, fw, fc, fv, fm), reps, parent),
+        plain_ms=_time_graph(torch, lambda: ref.min_sqdist_update(fx, fw, fc, fv, fm),
+                             reps=plain_reps),
+        library_ms=_time_graph(torch, lib, reps=plain_reps),
+        bound=_bound(4 * n * d + 12 * n + 4 * l * (d + 1) + 4, n * n_valid * (2 * d + 3)),
+    )
+
+
+def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
     """Each kernel at the shape that carries most of its launches (the
     records of the JSON line), then B1, B2 and B5 at the k-means|| path's
     own inputs from phase 4 (``path``: K -> weighting candidates, last
-    fold). Where a plain version or a library call does not fit at full n
-    (an [n, K] matrix), it is timed on the first 65,536 rows beside the
-    kernel on the same rows."""
+    fold, seed fold) and B5 at the folds over the representatives of the
+    seeded fit (``rep_folds``). Where a plain version or a library call does
+    not fit at full n (an [n, K] matrix), it is timed on the first 65,536
+    rows beside the kernel on the same rows. Given ``parent``, every row but
+    B4's times the parent's kernel too, in turns."""
     d, k = 19, SUSY_K
     out = {}
     # B1 at the predict/score chunk, the shape that carries most of its launches
@@ -622,7 +845,7 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
     fl = n * k * (2 * d + 3)
     out["B1"] = dict(
         shape=f"x[{n},{d}] c[{k},{d}] f32",
-        ms=_time_graph(torch, lambda: da.assign_top2_cuda(x, c)),
+        **_timed(torch, lambda: da.assign_top2_cuda(x, c), 20, parent),
         plain_ms=_time_graph(torch, lambda: ref.assign_top2(x, c)),
         library_ms=_time_graph(torch, lib),
         bound=_bound(4 * n * d + 4 * k * d + 12 * n, fl),
@@ -641,7 +864,7 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
     io2 = 4 * n * d + 4 * n + 4 * k * d + 12 * n + 4 * k * d + 4 * k + 4
     out["B2"] = dict(
         shape=f"x[{n},{d}] c[{k},{d}] f32",
-        ms=_time_graph(torch, lambda: fau.fused_assign_update_cuda(x, w, c)),
+        **_timed(torch, lambda: fau.fused_assign_update_cuda(x, w, c), 20, parent),
         plain_ms=_time_graph(torch, lambda: ref.assign_update(x, w, c)),
         library_ms=_time_graph(torch, lib2),
         bound=_bound(io2, n * k * (2 * d + 3) + 2 * n * d),
@@ -660,7 +883,8 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
 
     out["B3"] = dict(
         shape=f"x[{n},{d}] c[{k},{d}] f32, {n_act} rows active",
-        ms=_time_graph(torch, lambda: fau.fused_assign_update_pruned_cuda(x, w, c, cached, act)),
+        **_timed(torch, lambda: fau.fused_assign_update_pruned_cuda(x, w, c, cached, act), 20,
+                 parent),
         plain_ms=_time_graph(torch, lambda: ref.assign_update_pruned(x, w, c, cached, act)),
         library_ms=_time_graph(torch, lib3),
         bound=_bound(io2 + 5 * n, n_act * k * (2 * d + 3) + 2 * n * d),
@@ -692,22 +916,9 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
     cv = torch.ones(l, device="cuda")
     mind2 = msu.min_sqdist_update_cuda(x_full, ones, x_full[:1], cv[:1],
                                        torch.full((n,), BIG, device="cuda"))[0]
-
-    def lib5():
-        dd = torch.cdist(x_full, cand) ** 2
-        new = torch.minimum(mind2, dd.masked_fill(cv[None, :] == 0, BIG).amin(1))
-        return new, (ones * new).sum()
-
-    out["B5"] = dict(
-        shape=f"x[{n},{d}] f32, L={l}",
-        ms=_time_graph(torch, lambda: msu.min_sqdist_update_cuda(x_full, ones, cand, cv, mind2),
-                       reps=10),
-        plain_ms=_time_graph(torch, lambda: ref.min_sqdist_update(x_full, ones, cand, cv, mind2),
-                             reps=10),
-        library_ms=_time_graph(torch, lib5, reps=10),
-        bound=_bound(4 * n * d + 12 * n + 4 * l * (d + 1) + 4, n * int(cv.sum()) * (2 * d + 3)),
-    )
-    n = x_full.shape[0]
+    out["B5"] = _b5_row(torch, ref, msu, (x_full, ones, cand, cv, mind2), "", parent)
+    _clock_under_load(torch, "B5 at L = 112",
+                      lambda: msu.min_sqdist_update_cuda(x_full, ones, cand, cv, mind2))
     xc, oc = x_full[:CHUNK], ones[:CHUNK]
     # B1 over the K = 100 weighting pass's 2,001 candidates (half parked)
     c = path[100][0]
@@ -715,13 +926,14 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
     out["B1@2001"] = dict(
         shape=f"x[{n},{d}] c[{k},{d}] f32 (plain, library and 'kernel on the chunk' on "
               f"the first {CHUNK} rows)",
-        ms=_time_graph(torch, lambda: da.assign_top2_cuda(x_full, c), reps=2),
+        **_timed(torch, lambda: da.assign_top2_cuda(x_full, c), 2, parent),
         chunk_ms=_time_graph(torch, lambda: da.assign_top2_cuda(xc, c), reps=5),
         plain_ms=_time_graph(torch, lambda: ref.assign_top2(xc, c), reps=5),
         library_ms=_time_graph(
             torch, lambda: torch.topk(torch.cdist(xc, c) ** 2, 2, dim=1, largest=False), reps=5),
         bound=_bound(4 * n * d + 4 * k * d + 12 * n, n * k * (2 * d + 3)),
     )
+    _clock_under_load(torch, "B1@2001", lambda: da.assign_top2_cuda(x_full, c))
     # B2 over the K = 27 weighting pass's 561 candidates, unit weights
 
     def lib_b2(xx, ww, cc):
@@ -737,7 +949,7 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
     out["B2@561"] = dict(
         shape=f"x[{n},{d}] c[{k},{d}] f32 (plain, library and 'kernel on the chunk' on "
               f"the first {CHUNK} rows)",
-        ms=_time_graph(torch, lambda: fau.fused_assign_update_cuda(x_full, ones, c), reps=2),
+        **_timed(torch, lambda: fau.fused_assign_update_cuda(x_full, ones, c), 2, parent),
         chunk_ms=_time_graph(torch, lambda: fau.fused_assign_update_cuda(xc, oc, c), reps=5),
         plain_ms=_time_graph(torch, lambda: ref.assign_update(xc, oc, c), reps=5),
         library_ms=_time_graph(torch, lambda: lib_b2(xc, oc, c), reps=5),
@@ -758,28 +970,79 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path):
     print(f"[scratch] B2 at x[{n},{d}] c[{k},{d}]: {scratch} bytes ({scratch / 1e6:.3f} MB) "
           f"of fold partials, min(128, ceil(n/256))·(K·(d+1)+1) floats")
     # B5 at the K = 100 run's last fold: 400 slots, some invalid, finite min-d²
-    fx, fw, fc, fv, fm = path[100][1]
-    l, n_valid = fc.shape[0], int(fv.sum())
-
-    def lib5b():
-        dd = torch.cdist(fx, fc) ** 2
-        new = torch.minimum(fm, dd.masked_fill(fv[None, :] == 0, BIG).amin(1))
-        return new, (fw * new).sum()
-
-    out["B5@400"] = dict(
-        shape=f"x[{n},{d}] f32, L={l}, {n_valid} valid",
-        ms=_time_graph(torch, lambda: msu.min_sqdist_update_cuda(fx, fw, fc, fv, fm), reps=10),
-        plain_ms=_time_graph(torch, lambda: ref.min_sqdist_update(fx, fw, fc, fv, fm), reps=2),
-        library_ms=_time_graph(torch, lib5b, reps=2),
-        bound=_bound(4 * n * d + 12 * n + 4 * l * (d + 1) + 4, n * n_valid * (2 * d + 3)),
-    )
+    out["B5@400"] = _b5_row(torch, ref, msu, path[100][1], "K = 100's last fold: ", parent,
+                            plain_reps=2)
+    # B5's other eight launches on the path: the two seed folds (L = 1, every
+    # row) and the six folds of the seeded fit over the representatives
+    for kk in (27, 100):
+        out[f"B5 seed K={kk}"] = _b5_row(torch, ref, msu, path[kk][2], f"K = {kk}'s seed fold: ",
+                                         parent, plain_reps=2)
+    for i, args in enumerate(rep_folds):
+        out[f"B5 reps {i}"] = _b5_row(torch, ref, msu, args,
+                                      f"BWKM(init='kmeans||') fold {i} over the representatives: ",
+                                      parent, reps=20, plain_reps=20)
     for name, r in out.items():
         lib_s = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         chunk_s = f" (on the chunk {r['chunk_ms']:.4f} ms)" if "chunk_ms" in r else ""
-        print(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f} ms{chunk_s}, plain "
-              f"{r['plain_ms']:.4f} ms, library {lib_s} ms, bound {r['bound'][0]:.5f} ms "
+        again_s = f" / {r['ms_again']:.4f}" if "ms_again" in r else ""
+        parent_s = (f", parent {r['parent_ms'][0]:.4f} / {r['parent_ms'][1]:.4f} ms"
+                    if "parent_ms" in r else "")
+        print(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f}{again_s} ms{chunk_s}{parent_s}, "
+              f"plain {r['plain_ms']:.4f} ms, library {lib_s} ms, bound {r['bound'][0]:.5f} ms "
               f"({r['bound'][1]})")
     return out
+
+
+# ---------------------------------------------------------------- walls
+def _walls_child(src: str, reps: int) -> int:
+    """``--walls SRC REPS``, run by :func:`phase_walls` in a process of its
+    own: the SUSY fit and k-means|| at K = 27 and K = 100 with the package
+    under SRC (its kernels built first), one untimed round, then ``reps``
+    timed ones; their walls as one JSON line."""
+    import torch
+
+    sys.path.insert(0, src)
+    import repro_torch
+    from repro_torch import random as rnd
+    from repro_torch.core import kmeans_ll
+    from repro_torch.data.synthetic import paper_dataset
+    from repro_torch.kernels import _build
+
+    _build.build_all()
+    x = torch.from_numpy(paper_dataset("SUSY", seed=0)).cuda()
+    runs = {
+        "fit": lambda: repro_torch.BWKM(k=SUSY_K).fit(x),
+        "kmeans|| K=27": lambda: kmeans_ll.kmeans_parallel(rnd.key(0), x, None, 27),
+        "kmeans|| K=100": lambda: kmeans_ll.kmeans_parallel(rnd.key(0), x, None, 100),
+    }
+    walls = {name: [] for name in runs}
+    for i in range(reps + 1):
+        for name, fn in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                walls[name].append(time.perf_counter() - t0)
+    print(json.dumps(walls))
+    return 0
+
+
+def phase_walls(parent_tree, reps=3):
+    """The walls of the SUSY fit and of k-means|| at K = 27 and K = 100
+    with the parent's package (its Python and its kernels) and with this
+    one, each in a process of its own, in turns: parent, this, this,
+    parent, ``reps`` timed runs in each."""
+    parent_src = pathlib.Path(parent_tree).resolve() / "src"
+    for who, src in (("parent", parent_src), ("this", ROOT / "src"), ("this", ROOT / "src"),
+                     ("parent", parent_src)):
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--walls", str(src), str(reps)],
+            capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"the walls of {who} failed:\n{proc.stderr[-3000:]}")
+        walls = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"[walls] {who}: " + "; ".join(
+            f"{name} " + " / ".join(f"{v:.4f}" for v in vs) + " s" for name, vs in walls.items()))
 
 
 # ---------------------------------------------------------------- profile
@@ -866,6 +1129,9 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if "--walls" in argv:
+        i = argv.index("--walls")
+        return _walls_child(argv[i + 1], int(argv[i + 2]))
     src = ROOT / "src"
     if not (src / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -885,12 +1151,20 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
     # phase 1
     t0 = time.perf_counter()
+    parent = (_Parent.start(_build, argv[argv.index("--parent") + 1])
+              if "--parent" in argv else None)
     reports = _build.build_all()
-    print(f"[build] {time.perf_counter() - t0:.1f} s, compiled {sorted(reports)}")
+    if parent is not None:
+        parent.finish()
+    print(f"[build] {time.perf_counter() - t0:.1f} s, compiled {sorted(reports)}"
+          + (" and the parent's four" if parent is not None else ""))
     for name, log in reports.items():
+        kernel = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                print(f"[build] {name} {kernel}: {line.strip()}")
     # phase 2
     errs, rel, n_checks, ties = phase_kernels(torch, ref, da, fau, kmeans_ll._FAR)
     print(f"[kernels] B1-B3 match their plain versions in {n_checks} cases "
@@ -913,21 +1187,23 @@ def main(argv) -> int:
     x = torch.from_numpy(paper_dataset("SUSY", seed=0)).cuda()
     print(f"[data] SUSY profile {tuple(x.shape)} on the card in {time.perf_counter() - t0:.1f} s")
     # phase 3
-    phase_determinism(torch, ops, fau, cu, msu, partition, x, kmeans_ll._FAR)
+    phase_determinism(torch, ops, da, fau, cu, msu, partition, x, kmeans_ll._FAR)
     print("[determinism] pruned == dense bit for bit at 0/10/100 % active (fused at the "
           "representatives and over all rows at K = 561 and K = 800, two-pass at K·(d+1) = "
-          "18,000); two B2 runs at each of those shapes, two full-n B4 and B5 runs and two "
-          "full-n block_stats runs bit-equal")
+          "18,000); two B2 runs at each of those shapes, two full-n B1, B4 and B5 runs and two "
+          "full-n block_stats runs bit-equal; full-n B5 over 400 slots == B5 over its valid ones")
     # phase 4
-    launches = phase_fit(torch, repro_torch, da, fau, x)
+    launches = phase_fit(torch, repro_torch, ref, da, fau, x, parent)
     counters = {"B1": da.assign_top2_cuda, "B2": fau.fused_assign_update_cuda,
                 "B3": fau.fused_assign_update_pruned_cuda, "B4": cu.cluster_sums_cuda,
                 "B5": msu.min_sqdist_update_cuda}
-    ll_launches, ll_path = phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops, ref,
-                                           counters, x)
+    ll_launches, ll_path, rep_folds = phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops,
+                                                      ref, counters, x)
     launches.update(B4=ll_launches["B4"], B5=ll_launches["B5"])
     # phase 5
-    times = phase_times(torch, ref, da, fau, cu, msu, x, ll_path)
+    times = phase_times(torch, ref, da, fau, cu, msu, x, ll_path, rep_folds, parent)
+    if parent is not None:
+        phase_walls(argv[argv.index("--parent") + 1])
     if "--profile" in argv:
         phase_profile(torch, repro_torch, rnd, x, pathlib.Path(argv[argv.index("--profile") + 1]))
     smi = subprocess.run(

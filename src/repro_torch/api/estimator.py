@@ -112,6 +112,10 @@ class BWKM:
     def k(self) -> int:
         return self.config.k
 
+    @property
+    def init(self) -> str:
+        return self.config.init
+
     def _as_tensor(self, data: Any) -> torch.Tensor:
         if isinstance(data, torch.Tensor):
             return data.to(device=self.device, dtype=torch.float32)
@@ -135,6 +139,10 @@ class BWKM:
         self.engine_ = res.engine
         self.n_iter_ = res.iterations
         return self
+
+    def fit_predict(self, data: Any, *, key=None) -> torch.Tensor:
+        """``fit(data)``, then the labels of ``predict(data)``."""
+        return self.fit(data, key=key).predict(data)
 
     # ------------------------------------------------- chunked inference ops
     def _chunks(self, data: Any):

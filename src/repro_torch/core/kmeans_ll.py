@@ -57,9 +57,9 @@ def kmeans_parallel(
     """Weighted k-means|| seeding over a resident point set.
 
     ``key`` is a key of :mod:`repro_torch.random`; ``x [n, d]`` the points
-    (a tensor stays on its device, anything else goes to CUDA); ``w [n]``
-    nonnegative weights (``None``: all ones). Zero-weight rows are never
-    drawn and add nothing to ``φ``. ``oversampling`` is ℓ (default ``2K``),
+    (a tensor stays on its device, anything else goes to CUDA; taken as f32
+    unless it is bf16); ``w [n]`` nonnegative weights (``None``: all ones). Zero-weight rows are never drawn and add
+    nothing to ``φ``. ``oversampling`` is ℓ (default ``2K``),
     ``rounds`` the number of oversampling rounds (default 5). Returns the
     ``[k, d]`` seeds, or a :class:`KMeansLLResult` with ``return_info``.
     """
@@ -67,7 +67,10 @@ def kmeans_parallel(
     from repro_torch.engine.incore import InCoreLLSession
 
     x = torch.as_tensor(x, device=x.device if isinstance(x, torch.Tensor) else "cuda")
-    w = torch.ones(x.shape[0], device=x.device) if w is None else torch.as_tensor(w, device=x.device)
+    if x.dtype != torch.bfloat16:  # the kernels load f32 or bf16 and compute in f32
+        x = x.float()
+    w = torch.ones(x.shape[0], device=x.device) if w is None else torch.as_tensor(
+        w, dtype=torch.float32, device=x.device)
     l, r, cap_round = driver.resolve_ll_params(k, oversampling, rounds)  # noqa: E741
     sess = InCoreLLSession(key, x, w, k=k, l=l, rounds=r, cap_round=cap_round)
     out = driver.plane_kmeans_parallel(sess, rounds=r)

@@ -38,10 +38,17 @@ __all__ = [
 ]
 
 _BIG = 3.0e38
-#: fixed-point magnitude per term: |q| < 2^36, so the running sum over
-#: d·n ≤ 2^26.5 terms stays inside int64 and each term keeps 36 bits of the
+#: fixed-point magnitude per term, at most: |q| ≤ 2^36 keeps 36 bits of the
 #: feature's largest magnitude
 _FIXED_BITS = 36
+
+
+def _fixed_bits(n: int) -> int:
+    """Fixed-point bits of :func:`block_stats` over ``n`` rows. Each
+    feature's running sum covers its ``n`` terms, each of magnitude at most
+    ``2^bits``, so ``n·2^bits ≤ 2^62`` keeps it inside int64: 36 bits up to
+    ``n = 2^26``, one bit fewer for each doubling beyond."""
+    return min(_FIXED_BITS, 62 - (n - 1).bit_length())
 
 
 class Partition(NamedTuple):
@@ -129,16 +136,18 @@ def block_stats(x: torch.Tensor, bid: torch.Tensor, m: int) -> BlockStats:
     vals = _from_orderable(keys & 0xFFFFFFFF)  # [d, n] f32, grouped by block
     lo = torch.where(empty, _BIG, vals[:, starts[:-1].clamp(max=n - 1)].T)
     hi = torch.where(empty, -_BIG, vals[:, (starts[1:] - 1).clamp(min=0)].T)
-    # exact sums in fixed point with a power-of-two scale per feature
+    # exact sums in fixed point with a power-of-two scale per feature, one
+    # running sum per feature (n terms each, _fixed_bits)
     amax = x.abs().amax(0)
     scale = torch.ldexp(
         torch.ones(d, dtype=torch.float64, device=dev),
-        (_FIXED_BITS - torch.frexp(amax).exponent).to(torch.float64),
-    )  # |x| < 2^e  =>  |x·scale| < 2^36
+        (_fixed_bits(n) - torch.frexp(amax).exponent).to(torch.float64),
+    )  # |x| < 2^e  =>  |x·scale| < 2^bits
     q = torch.round(vals.double() * scale[:, None]).to(torch.int64)
-    csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(q.reshape(-1), 0)])
-    base = (torch.arange(d, device=dev, dtype=torch.int64) * n)[:, None]
-    seg = csum[base + starts[None, 1:]] - csum[base + starts[None, :-1]]  # [d, m]
+    csum = torch.zeros(d, n + 1, dtype=torch.int64, device=dev)
+    for j in range(d):  # a 1-D scan each: PyTorch's scan along dim 1 of [d, n] is slow on CUDA
+        torch.cumsum(q[j], 0, out=csum[j, 1:])
+    seg = csum[:, starts[1:]] - csum[:, starts[:-1]]  # [d, m]
     psum = (seg.double() / scale[:, None]).float().T.contiguous()
     return BlockStats(psum, count_i.float(), lo.contiguous(), hi.contiguous())
 

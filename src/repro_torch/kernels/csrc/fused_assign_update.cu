@@ -6,8 +6,9 @@
 // across a sequential grid; CTAs on Hopper run in no order and share no
 // memory, so the pass is three launches:
 //
-//   1. scan (assign_kernel): one 128-row CTA per row block runs the top-2
-//      scan of top2.cuh and writes assign, d1 and d2, nothing else.
+//   1. scan: the persistent top-2 scan of top2.cuh, the one B1 runs
+//      (candidates resident in shared memory, rows blocked in registers),
+//      writing assign, d1 and d2, nothing else.
 //   2. fold (cluster_fold.cuh, the code B4 runs): a fixed grid of at most
 //      128 CTAs along the rows, each adding its contiguous run of 256-row
 //      tiles in row order into a [K, d + 1] partial in shared memory, and
@@ -19,62 +20,37 @@
 // atomics anywhere, so two runs are bit-equal.
 //
 // The pruned form is the same three launches given a cached assignment and
-// an active mask: a scan CTA whose rows are all inactive (its any-active
-// flag, __syncthreads_or) skips the distance scan and writes the cached
-// ids; the scan writes the composed assignment either way. The fold then
-// reads that composed assignment through the same instructions and the same
-// row-to-CTA mapping for dense and pruned, so pruned sums and counts are bit
-// for bit the dense ones whenever the assignments agree. The error covers
-// active rows only.
+// an active mask: a scan row tile whose rows are all inactive (its
+// any-active flag, __syncthreads_or) skips the distance scan and writes the
+// cached ids; the scan writes the composed assignment either way. The fold
+// then reads that composed assignment through the same instructions and the
+// same row-to-CTA mapping for dense and pruned, so pruned sums and counts
+// are bit for bit the dense ones whenever the assignments agree. The error
+// covers active rows only.
 //
 // What bounds it on an H100: the scan does 2·K·d FLOP per row against
 // 4·d + 16 bytes, so at the weighting pass (x [5,000,000, 19], K = 561) it
 // is bound by operations (1.7 ms at the f32 peak), and at the partition's
 // shapes (≤ 14,528 rows, K = 27) by launch latency. The fold is bound by
 // memory. Scan and fold stay apart rather than one persistent kernel: the
-// fold's 1,024-thread CTAs and their shared partial would cut the scan's
-// occupancy, while reading x a second time costs about 0.13 ms of HBM at
-// 5,000,000 × 19 f32, against the statistics loop over K·(d + 1) outputs ×
-// 128 rows per CTA (about 27 ms there) that the fold replaces.
+// fold's 1,024-thread CTAs and their shared partial would take the shared
+// memory the scan keeps its candidates in, while reading x a second time
+// costs about 0.13 ms of HBM at 5,000,000 × 19 f32.
 #include "cluster_fold.cuh"
 
 using namespace bwkm;
-
-template <typename TX, typename TC>
-__global__ void __launch_bounds__(ROWS)
-assign_kernel(const TX* __restrict__ x, const TC* __restrict__ c, const int* __restrict__ cached,
-              const unsigned char* __restrict__ active, long long n, int d, int K,
-              int* __restrict__ assign, float* __restrict__ d1o, float* __restrict__ d2o) {
-  const long long row0 = (long long)blockIdx.x * ROWS;
-  const long long row = row0 + threadIdx.x;
-  const bool valid = row < n;
-  const bool pruned = cached != nullptr;
-  const bool act = valid && (!pruned || active[row] != 0);
-  const int any_active = pruned ? __syncthreads_or(act) : 1;
-
-  Top2 r{0, BIG, BIG};
-  if (any_active) r = row_top2(x, c, n, d, K, row0);  // uniform over the CTA
-  if (valid) {
-    assign[row] = (pruned && !act) ? cached[row] : r.a;
-    d1o[row] = r.d1;
-    d2o[row] = r.d2 >= BIG ? __int_as_float(0x7f800000) : r.d2;
-  }
-}
 
 template <typename TX, typename TC>
 static int launch(const void* x, const float* w, const void* c, const int* cached,
                   const unsigned char* active, long long n, int d, int K, int* assign,
                   float* d1, float* d2, float* sums, float* counts, float* err, float* part,
                   cudaStream_t s) {
-  const TX* xt = static_cast<const TX*>(x);
-  const long long nb = (n + ROWS - 1) / ROWS;
-  if (nb > 0) {
-    assign_kernel<TX, TC><<<(unsigned)nb, ROWS, 0, s>>>(xt, static_cast<const TC*>(c), cached,
-                                                        active, n, d, K, assign, d1, d2);
-    const int rc = (int)cudaGetLastError();
+  if (n > 0) {
+    const int rc = launch_top2<TX, TC>(x, c, n, d, K, Assign{assign, d1, d2, cached, active}, s);
     if (rc != 0) return rc;
   }
-  return fold::fold_and_reduce(xt, w, assign, d1, active, n, d, K, sums, counts, err, part, s);
+  return fold::fold_and_reduce(static_cast<const TX*>(x), w, assign, d1, active, n, d, K, sums,
+                               counts, err, part, s);
 }
 
 // One dense (cached == active == nullptr) or pruned pass. `part` holds

@@ -1,131 +1,476 @@
-// Shared device code of the distance kernels: the per-row tile scan, and
-// the top-2 reducer of the assignment kernels.
+// Shared device code of the distance kernels B1–B3 and B5: one persistent
+// scan of the rows against a candidate set held in shared memory, feeding a
+// per-row reducer, and the top-2 reducer of the assignment kernels.
 //
-// One CTA owns ROWS consecutive rows, one row per thread. Centroids are
-// scanned in tiles of KT in increasing id; inside a tile the feature axis is
-// walked in chunks of DC, staging the x chunk [ROWS, DC] in shared memory
-// (row stride DC + 1, odd, so a warp reading one column of the x chunk hits
-// 32 different banks; staged once when d fits one chunk) and the centroid
-// chunk transposed, [DC][KT], so the inner loop reads four centroids per
-// 16-byte broadcast load for every four FMAs. Each thread keeps the KT
-// partial dot products of its row in registers, so shared memory stays
-// fixed whatever d is.
+// The scan (scan_rows), designed for the H100:
 //
-// Distance: ‖x‖² − 2·x·c + ‖c‖² in f32 with FMA, clamped at 0, as the plain
-// version in repro_torch/kernels/ref.py computes it. Each tile's distances
-// go, in increasing id, to the caller's per-row reducer: Top2 below for
-// B1–B3, a running min for B5. A centroid whose `cmask` entry is 0 (B5's
-// invalid candidates) gets ‖c‖² = +inf, so its distance is +inf and never
-// wins.
+//   * Persistent CTAs of 128 threads: about as many as fit on the card at
+//     once (occupancy × SMs), each walking row tiles with a grid stride, so
+//     the set-up below is paid once per CTA, not once per row tile.
+//   * The candidates stay resident in shared memory for the whole launch.
+//     Each CTA loads them once (coalesced 16-byte loads when the [K, d]
+//     array is aligned f32), transposes them to groups of four,
+//     [K/4][1 + dxp][4] (the four norms, then feature j at 1 + j, features
+//     zero-padded to dxp: 19 at d = 19), and computes ‖c‖² there once.
+//     K = 2,001 at d = 19 takes 160 KB. Beyond the budget the candidates
+//     are walked in resident chunks of kc, in increasing id, with the
+//     reducers' state in registers across chunks (then each row tile
+//     restages each chunk).
+//   * Given `cvalid` (B5), only the candidates whose entry is nonzero are
+//     loaded: a stable in-CTA compaction, a prefix count in id order. The
+//     invalid ones cost nothing.
+//   * x tiles arrive asynchronously: a tile of `rows` rows is rows·d
+//     contiguous elements, copied with 16-byte cp.async over the enclosing
+//     16-byte-aligned span (so a view whose base is not aligned, such as
+//     x[1:] at d = 19, works: the tile starts `xoff` bytes into the
+//     buffer); the bytes before its first whole 16-byte chunk and after its
+//     last are copied element by element, so nothing outside the tile is
+//     read. Each thread moves its rows into registers, then the
+//     next tile's copy is issued into the same buffer while this one
+//     computes.
+//   * Rows blocked in registers: each thread owns R rows (R = 4 from
+//     131,072 rows on, 1 below so that a predict chunk or the partition's
+//     representatives still spread over the card) with −2·x in registers.
+//     Each warp-broadcast LDS.128 brings one feature of four centroids for
+//     4·R FFMA. Up to d = 19 the feature count is a compile-time constant
+//     (19, features past d zero), so a group of four centroids is one basic
+//     block, unrolled by two.
+//   * A cheaper epilogue: each accumulator starts at ‖c‖² and accumulates
+//     −2·x·c, so the reducer compares p = ‖c‖² − 2·x·c. A row adds ‖x‖² and
+//     clamps at 0 once, at the end: ‖x‖² is constant in a row, so the order
+//     is that of the distances, and rounding moves by a few ulps of
+//     ‖x‖² + ‖c‖² against the plain ‖x‖² − 2·x·c + ‖c‖².
 //
-// The top-2 rule: when dist < d1 the old d1 shifts into d2; else when
-// dist < d2 it becomes d2. Ties therefore go to the smallest id and a
-// duplicate centroid gives d2 == d1. d2 stays at BIG when K == 1; callers
-// store it as +inf.
+// Why f32 stays on the CUDA cores: TF32 keeps about three digits, and
+// ‖x‖² − 2·x·c + ‖c‖² cancels, so near-ties and small distances would be
+// wrong; 3xTF32 costs three products per term at d = 19 padded to 24, and
+// the top-2 epilogue stays on the CUDA cores anyway. bf16 inputs are
+// converted to f32 when they are moved into registers or staged.
+//
+// The contract, whatever the layout: the reducer sees every candidate id
+// in increasing order (B5's compacted candidates in increasing original
+// id); rows past n are discarded. The top-2 rule: when p < d1 the id
+// changes; d2 becomes min(d2, max(d1, p)) and d1 min(d1, p). Ties therefore
+// go to the smallest id, and a duplicate centroid gives d2 == d1. d2 stays
+// at BIG when K == 1; callers store it as +inf.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
+#include <mutex>
+#include <type_traits>
+#include <vector>
 
 namespace bwkm {
 
-constexpr int ROWS = 128;   // rows per CTA = threads per CTA
-constexpr int KT = 32;      // centroids per tile (register dot products)
-constexpr int DC = 32;      // features per staged chunk
-constexpr int XS = DC + 1;  // shared-memory row stride of the x chunk
+constexpr int SCAN_THREADS = 128;
+constexpr int SCAN_WARPS = SCAN_THREADS / 32;
+constexpr int SCAN_SMEM = 232448 - 1024;    // dynamic shared bytes of a CTA, at most
+constexpr int SCAN_XBUF_MAX = 131072 + 32;  // the largest staged x tile
+constexpr long long SCAN_WIDE_N = 131072;   // rows from which a thread owns four rows
 constexpr float BIG = 3.0e38f;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 struct Top2 {
   int a;
   float d1;
   float d2;
 
-  __device__ __forceinline__ void operator()(int k, float dist) {
-    if (dist < d1) {
-      d2 = d1;
-      d1 = dist;
-      a = k;
-    } else if (dist < d2) {
-      d2 = dist;
+  __device__ static Top2 fresh() { return Top2{0, BIG, BIG}; }
+  __device__ __forceinline__ void operator()(int k, float p) {
+    a = p < d1 ? k : a;
+    d2 = fminf(d2, fmaxf(d1, p));
+    d1 = fminf(d1, p);
+  }
+};
+
+// What one launch of the scan covers, fixed on the host by scan_shape.
+struct ScanShape {
+  long long n;      // rows
+  long long tiles;  // row tiles of `rows` rows
+  int d;            // features
+  int K;            // candidate slots (valid or not)
+  int rows;         // rows per tile: SCAN_THREADS · rows per thread
+  int xbytes;       // shared bytes of the staged x tile; 0: x read from global memory
+  int kc;           // candidates per resident chunk, a multiple of 4
+};
+
+// Features per register chunk, padded with zeros: 19 up to d = 19, one
+// chunk; else 32, as many chunks as d needs.
+inline int scan_dx(int d) { return d <= 19 ? 19 : 32; }
+
+// Fills `s` and the dynamic shared bytes for n rows of d features of
+// `xsize` bytes against K candidate slots. False when not even four
+// candidates fit beside the x tile: past d = 14,432 (`SCAN_MAX_D` of
+// distance_assign.py), where four candidates alone fill SCAN_SMEM.
+inline bool scan_shape(long long n, int d, int K, int xsize, ScanShape* s, size_t* smem) {
+  const int dx = scan_dx(d);
+  const int r = (dx < 32 && n >= SCAN_WIDE_N) ? 4 : 1;
+  s->n = n;
+  s->d = d;
+  s->K = K;
+  s->rows = SCAN_THREADS * r;
+  s->tiles = (n + s->rows - 1) / s->rows;
+  const long long xb = ((long long)s->rows * d * xsize + 32 + 15) / 16 * 16;
+  s->xbytes = xb <= SCAN_XBUF_MAX ? (int)xb : 0;
+  const long long per = 4LL * ((d + dx - 1) / dx * dx + 1);  // bytes of one candidate
+  const long long kc = std::min((SCAN_SMEM - s->xbytes) / per / 4 * 4, (K + 3LL) / 4 * 4);
+  if (K < 1 || d < 1 || kc < 4) return false;
+  s->kc = (int)kc;
+  *smem = (size_t)s->xbytes + (size_t)(per * kc);
+  return true;
+}
+
+// CTAs of `fn` resident on the current device at once with `smem` dynamic
+// shared bytes: the opt-in to SCAN_SMEM and the occupancy query are host
+// calls, made once per (kernel, smem, device) and kept. Returns a
+// cudaError_t.
+inline int scan_ctas(const void* fn, size_t smem, long long* ctas) {
+  struct Seen {
+    const void* fn;
+    size_t smem;
+    int dev;
+    long long ctas;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc != 0) return rc;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& e : seen) {
+    if (e.fn == fn && e.smem == smem && e.dev == dev) {
+      *ctas = e.ctas;
+      return (int)cudaSuccess;
+    }
+  }
+  int sms = 0, per_sm = 0;
+  rc = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SCAN_SMEM);
+  if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, SCAN_THREADS, smem);
+  if (rc != 0) return rc;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  seen.push_back(Seen{fn, smem, dev, (long long)sms * per_sm});
+  *ctas = seen.back().ctas;
+  return (int)cudaSuccess;
+}
+
+// Launches `kernel` over min(tiles, the CTAs resident at once) CTAs.
+// Returns a cudaError_t.
+template <typename... P, typename... A>
+inline int launch_scan(void (*kernel)(P...), const ScanShape& s, size_t smem, cudaStream_t stream,
+                       A... args) {
+  if (s.tiles == 0) return (int)cudaSuccess;
+  long long ctas = 0;
+  const int rc = scan_ctas(reinterpret_cast<const void*>(kernel), smem, &ctas);
+  if (rc != 0) return rc;
+  kernel<<<(unsigned)std::min(s.tiles, ctas), SCAN_THREADS, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Issues the copy of row tile `tile` into `xbuf` (every thread calls it)
+// and returns the byte offset of the tile's first element there, its
+// offset from 16-byte alignment. The 16-byte chunks inside the tile go by
+// cp.async; the bytes before the first and after the last (a view whose
+// base is not aligned, a tile that does not end on 16 bytes) are copied
+// element by element by threads 0 and 1, so no byte outside the tile is
+// read.
+template <typename TX>
+__device__ __forceinline__ int load_x_tile(const TX* x, const ScanShape& s, long long tile,
+                                           unsigned char* xbuf) {
+  const long long r0 = tile * s.rows, r1 = min(s.n, r0 + s.rows);
+  const uintptr_t b0 = reinterpret_cast<uintptr_t>(x + r0 * s.d);
+  const uintptr_t b1 = reinterpret_cast<uintptr_t>(x + r1 * s.d);
+  const uintptr_t a0 = b0 & ~uintptr_t(15);
+  const uintptr_t up = (b0 + 15) & ~uintptr_t(15), down = b1 & ~uintptr_t(15);
+  const uintptr_t h = up < b1 ? up : b1;        // the head ends here
+  const uintptr_t e = down > h ? down : h;      // the tail starts here
+  unsigned char* dst = xbuf + (h - a0);
+  const int chunks = (int)((e - h) >> 4);
+  for (int i = threadIdx.x; i < chunks; i += SCAN_THREADS)
+    cp_async16(dst + 16 * i, reinterpret_cast<const void*>(h + 16 * (uintptr_t)i));
+  if (threadIdx.x < 2) {
+    const uintptr_t p0 = threadIdx.x == 0 ? b0 : e, p1 = threadIdx.x == 0 ? h : b1;
+    for (uintptr_t q = p0; q < p1; q += sizeof(TX))
+      *reinterpret_cast<TX*>(xbuf + (q - a0)) = *reinterpret_cast<const TX*>(q);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  return (int)(b0 - a0);
+}
+
+// Stages the candidates of (compacted) positions [s0, s0 + kc) into cs,
+// laid out [kc/4][1 + dxp][4], and returns how many are real. Without
+// `cvalid` position k is candidate k; with it, the candidates whose entry is
+// nonzero in increasing id, and *nvalid gets their number. Pads (features
+// d..dxp-1, slots past the real ones) are 0 with norm +inf, so a pad slot
+// never wins. Every thread calls it; it ends with __syncthreads.
+template <typename TC>
+__device__ int stage_candidates(const TC* __restrict__ c, const float* __restrict__ cvalid,
+                                int K, int d, int dxp, int kc, int s0, float* cs, int* wsum,
+                                int* nvalid) {
+  const int t = threadIdx.x, gs = 4 * (1 + dxp);  // floats per group of four
+  auto put = [&](int k, int j, float v) { cs[(k >> 2) * gs + 4 * (1 + j) + (k & 3)] = v; };
+  int kn;
+  if (cvalid == nullptr) {
+    kn = min(kc, K - s0);
+    const TC* src = c + (long long)s0 * d;
+    const int total = kn * d;
+    int e0 = 0;
+    if constexpr (std::is_same<TC, float>::value) {
+      if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+        const float4* s4 = reinterpret_cast<const float4*>(src);
+        for (int i = t; i < total / 4; i += SCAN_THREADS) {
+          const float4 v = s4[i];
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int e = 4 * i + u, k = e / d;
+            put(k, e - k * d, vs[u]);
+          }
+        }
+        e0 = total / 4 * 4;
+      }
+    }
+    for (int e = e0 + t; e < total; e += SCAN_THREADS) {
+      const int k = e / d;
+      put(k, e - k * d, to_f(src[e]));
+    }
+  } else {
+    // prefix count of the valid ids, THREADS ids at a time
+    const int lane = t & 31, warp = t >> 5;
+    int base = 0;
+    for (int i0 = 0; i0 < K; i0 += SCAN_THREADS) {
+      const int i = i0 + t;
+      const bool v = i < K && cvalid[i] != 0.f;
+      const unsigned m = __ballot_sync(0xffffffffu, v);
+      if (lane == 0) wsum[warp] = __popc(m);
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int q = 0; q < SCAN_WARPS; ++q) {
+        before += q < warp ? wsum[q] : 0;
+        total += wsum[q];
+      }
+      const int pos = base + before + __popc(m & ((1u << lane) - 1u));
+      if (v && pos >= s0 && pos < s0 + kc)
+        for (int j = 0; j < d; ++j) put(pos - s0, j, to_f(c[(long long)i * d + j]));
+      base += total;
+      __syncthreads();  // wsum is rewritten next
+    }
+    *nvalid = base;
+    kn = max(0, min(kc, base - s0));
+  }
+  for (int e = t; e < (kc >> 2) * gs; e += SCAN_THREADS) {
+    const int g = e / gs, rem = e - g * gs, j = (rem >> 2) - 1;
+    if (j >= d || (j >= 0 && 4 * g + (rem & 3) >= kn)) cs[e] = 0.f;
+  }
+  __syncthreads();
+  for (int k = t; k < kc; k += SCAN_THREADS) {
+    float* p = cs + (k >> 2) * gs + (k & 3);
+    float nrm = 0.f;
+    for (int j = 0; j < d; ++j) nrm = fmaf(p[4 * (1 + j)], p[4 * (1 + j)], nrm);
+    p[0] = k < kn ? nrm : inf_f();
+  }
+  __syncthreads();
+  return kn;
+}
+
+// Feeds each row's reducer (Op::Red) p = ‖c‖² − 2·x·c for every candidate,
+// in increasing id, then calls op.finish with the reducers and the rows'
+// ‖x‖². Op also says per row tile whether it needs the scan at all
+// (op.any_active over the tile's rows [row0, row1), block-uniform). Every
+// thread of the CTA calls this.
+template <int DX, int R, typename TX, typename TC, typename Op>
+__device__ __forceinline__ void scan_rows(const TX* __restrict__ x, const TC* __restrict__ c,
+                                          const float* __restrict__ cvalid, const ScanShape& s,
+                                          const Op& op) {
+  extern __shared__ __align__(16) unsigned char scan_smem[];
+  __shared__ int wsum[SCAN_WARPS];
+  using Red = typename Op::Red;
+  const int t = threadIdx.x, d = s.d;
+  // DX < 32 takes d <= DX only, so its one feature chunk is known at compile
+  // time and a centroid group's loads, FFMAs and compares are one basic block
+  const int nfc = DX < 32 ? 1 : (d + DX - 1) / DX, dxp = nfc * DX, gs4 = 1 + dxp;
+  const bool staged = s.xbytes > 0;
+  unsigned char* xbuf = scan_smem;
+  float* cs = reinterpret_cast<float*>(scan_smem + s.xbytes);
+  const float4* cs4 = reinterpret_cast<const float4*>(cs);
+
+  long long tile = blockIdx.x;  // < tiles: the grid is at most the tiles
+  int xoff = staged ? load_x_tile(x, s, tile, xbuf) : 0;
+  int nvalid = s.K;
+  const int kn0 = stage_candidates(c, cvalid, s.K, d, dxp, s.kc, 0, cs, wsum, &nvalid);
+  const bool resident = nvalid <= s.kc;
+
+  for (; tile < s.tiles; tile += gridDim.x) {
+    const long long row0 = tile * s.rows;
+    if (staged) cp_async_wait_all();
+    __syncthreads();
+    const TX* xt = staged ? reinterpret_cast<const TX*>(xbuf + xoff) : x + row0 * d;
+    const bool any = op.any_active(row0, min(s.n, row0 + s.rows));
+    float xn[R], xr[R][DX];
+    Red red[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int lr = t + r * SCAN_THREADS;
+      const bool valid = row0 + lr < s.n;
+      xn[r] = 0.f;
+      red[r] = Red::fresh();
+      if (nfc == 1) {
+#pragma unroll
+        for (int j = 0; j < DX; ++j) {
+          const float v = (valid && j < d) ? to_f(xt[lr * d + j]) : 0.f;
+          xn[r] = fmaf(v, v, xn[r]);
+          xr[r][j] = -2.f * v;
+        }
+      } else {
+        for (int j = 0; j < d; ++j) {
+          const float v = valid ? to_f(xt[lr * d + j]) : 0.f;
+          xn[r] = fmaf(v, v, xn[r]);
+        }
+      }
+    }
+    if (staged && nfc == 1) {
+      __syncthreads();  // every row is in registers: the buffer takes the next tile
+      if (tile + gridDim.x < s.tiles) xoff = load_x_tile(x, s, tile + gridDim.x, xbuf);
+    }
+    if (any) {
+      for (int s0 = 0; s0 < nvalid; s0 += s.kc) {
+        int kn = kn0;
+        if (!resident) {
+          __syncthreads();  // the previous chunk is consumed
+          kn = stage_candidates(c, cvalid, s.K, d, dxp, s.kc, s0, cs, wsum, &nvalid);
+        }
+        const int groups = (kn + 3) >> 2;
+#pragma unroll 2
+        for (int g = 0; g < groups; ++g) {
+          const float4* cg = cs4 + g * gs4;
+          const float4 nv = cg[0];
+          float acc[R][4];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            acc[r][0] = nv.x;
+            acc[r][1] = nv.y;
+            acc[r][2] = nv.z;
+            acc[r][3] = nv.w;
+          }
+          for (int f = 0; f < nfc; ++f) {
+            if (nfc > 1) {
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                const int lr = t + r * SCAN_THREADS;
+                const bool valid = row0 + lr < s.n;
+#pragma unroll
+                for (int j = 0; j < DX; ++j) {
+                  const int jj = f * DX + j;
+                  xr[r][j] = (valid && jj < d) ? -2.f * to_f(xt[lr * d + jj]) : 0.f;
+                }
+              }
+            }
+            const float4* cf = cg + 1 + f * DX;
+#pragma unroll
+            for (int j = 0; j < DX; ++j) {
+              const float4 cv = cf[j];
+#pragma unroll
+              for (int r = 0; r < R; ++r) {
+                acc[r][0] = fmaf(xr[r][j], cv.x, acc[r][0]);
+                acc[r][1] = fmaf(xr[r][j], cv.y, acc[r][1]);
+                acc[r][2] = fmaf(xr[r][j], cv.z, acc[r][2]);
+                acc[r][3] = fmaf(xr[r][j], cv.w, acc[r][3]);
+              }
+            }
+          }
+          const int k0 = s0 + 4 * g;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+#pragma unroll
+            for (int r = 0; r < R; ++r) red[r](k0 + q, acc[r][q]);
+          }
+        }
+      }
+    }
+    op.finish(tile, row0, s.n, red, xn, any);
+    if (staged && nfc > 1) {
+      __syncthreads();  // the tile is consumed
+      if (tile + gridDim.x < s.tiles) xoff = load_x_tile(x, s, tile + gridDim.x, xbuf);
+    }
+  }
+  if (staged) cp_async_wait_all();
+}
+
+// B1–B3's per-row output: the top-2 of every row, written as assign, d1,
+// d2. Given `cached` and `active` (B3), a row tile whose rows are all
+// inactive skips the scan (d1 = BIG, d2 = +inf there), and every inactive
+// row keeps its cached id.
+struct Assign {
+  using Red = Top2;
+  int* assign;
+  float* d1;
+  float* d2;
+  const int* cached;
+  const unsigned char* active;
+
+  __device__ bool any_active(long long row0, long long row1) const {
+    if (cached == nullptr) return true;
+    int any = 0;
+    for (long long row = row0 + threadIdx.x; row < row1; row += SCAN_THREADS)
+      any |= active[row] != 0;
+    return __syncthreads_or(any) != 0;
+  }
+
+  template <int R>
+  __device__ void finish(long long, long long row0, long long n, const Top2 (&red)[R],
+                         const float (&xn)[R], bool computed) const {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const long long row = row0 + threadIdx.x + r * SCAN_THREADS;
+      if (row >= n) continue;
+      const bool act = cached == nullptr || active[row] != 0;
+      assign[row] = act ? red[r].a : cached[row];
+      d1[row] = computed ? fmaxf(xn[r] + red[r].d1, 0.f) : BIG;
+      d2[row] = (!computed || red[r].d2 >= BIG) ? inf_f() : fmaxf(xn[r] + red[r].d2, 0.f);
     }
   }
 };
 
-// Feeds `visit(k, dist)` the row's distance to every centroid k < K, in
-// increasing k. Every thread of the CTA must call this (it synchronises).
-// Rows past n compute on zeros and are discarded by the caller. `cmask`
-// may be null (no centroid masked).
-template <typename TX, typename TC, typename Visit>
-__device__ __forceinline__ void scan_rows(const TX* __restrict__ x, const TC* __restrict__ c,
-                                          const float* __restrict__ cmask, long long n, int d,
-                                          int K, long long row0, Visit& visit) {
-  __shared__ float xs[ROWS * XS];
-  __shared__ __align__(16) float cs[DC * KT];  // cs[jj * KT + kk]
-  __shared__ float cns[KT];
-  const int t = threadIdx.x;
-  float xn = 0.f;
-  for (int k0 = 0; k0 < K; k0 += KT) {
-    float dots[KT];
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) dots[kk] = 0.f;
-    float cn = 0.f;
-    for (int j0 = 0; j0 < d; j0 += DC) {
-      __syncthreads();  // previous chunk fully consumed
-      if (k0 == 0 || d > DC) {
-        for (int e = t; e < ROWS * DC; e += ROWS) {
-          const int rr = e / DC, jj = e % DC;
-          const long long gr = row0 + rr;
-          const int gj = j0 + jj;
-          xs[rr * XS + jj] = (gr < n && gj < d) ? to_f(x[gr * d + gj]) : 0.f;
-        }
-      }
-      // consecutive threads store consecutive words: no bank conflicts
-      for (int e = t; e < KT * DC; e += ROWS) {
-        const int kk = e % KT, jj = e / KT;
-        const int gk = k0 + kk, gj = j0 + jj;
-        cs[e] = (gk < K && gj < d) ? to_f(c[(long long)gk * d + gj]) : 0.f;
-      }
-      __syncthreads();
-      const int jn = min(DC, d - j0);
-      for (int jj = 0; jj < jn; ++jj) {
-        const float xv = xs[t * XS + jj];
-        if (k0 == 0) xn = fmaf(xv, xv, xn);
-        const float4* cr = reinterpret_cast<const float4*>(cs + jj * KT);
-#pragma unroll
-        for (int q = 0; q < KT / 4; ++q) {
-          const float4 cv = cr[q];
-          dots[4 * q + 0] = fmaf(xv, cv.x, dots[4 * q + 0]);
-          dots[4 * q + 1] = fmaf(xv, cv.y, dots[4 * q + 1]);
-          dots[4 * q + 2] = fmaf(xv, cv.z, dots[4 * q + 2]);
-          dots[4 * q + 3] = fmaf(xv, cv.w, dots[4 * q + 3]);
-        }
-      }
-      if (t < KT) {
-        for (int jj = 0; jj < jn; ++jj) cn = fmaf(cs[jj * KT + t], cs[jj * KT + t], cn);
-      }
-    }
-    if (t < KT) {
-      const bool masked = cmask != nullptr && k0 + t < K && cmask[k0 + t] == 0.f;
-      cns[t] = masked ? __int_as_float(0x7f800000) : cn;
-    }
-    __syncthreads();
-    const int kn = min(KT, K - k0);
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      if (kk < kn) visit(k0 + kk, fmaxf(xn - 2.f * dots[kk] + cns[kk], 0.f));
-    }
-  }
+template <int DX, int R, typename TX, typename TC>
+__global__ void __launch_bounds__(SCAN_THREADS, 1)
+top2_kernel(const TX* __restrict__ x, const TC* __restrict__ c, ScanShape s, Assign o) {
+  scan_rows<DX, R>(x, c, static_cast<const float*>(nullptr), s, o);
 }
 
+// The top-2 scan of x [n, d] against c [K, d] into `o`. Returns a
+// cudaError_t.
 template <typename TX, typename TC>
-__device__ __forceinline__ Top2 row_top2(const TX* __restrict__ x, const TC* __restrict__ c,
-                                         long long n, int d, int K, long long row0) {
-  Top2 r{0, BIG, BIG};
-  scan_rows(x, c, nullptr, n, d, K, row0, r);
-  return r;
+inline int launch_top2(const void* x, const void* c, long long n, int d, int K, Assign o,
+                       cudaStream_t stream) {
+  ScanShape s;
+  size_t smem = 0;
+  if (!scan_shape(n, d, K, (int)sizeof(TX), &s, &smem)) return (int)cudaErrorInvalidValue;
+  const TX* xt = static_cast<const TX*>(x);
+  const TC* ct = static_cast<const TC*>(c);
+  const bool wide = s.rows == 4 * SCAN_THREADS;
+  if (scan_dx(d) == 32) return launch_scan(top2_kernel<32, 1, TX, TC>, s, smem, stream, xt, ct, s, o);
+  return wide ? launch_scan(top2_kernel<19, 4, TX, TC>, s, smem, stream, xt, ct, s, o)
+              : launch_scan(top2_kernel<19, 1, TX, TC>, s, smem, stream, xt, ct, s, o);
 }
 
 }  // namespace bwkm

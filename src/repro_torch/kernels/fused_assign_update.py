@@ -2,8 +2,9 @@
 
 Replace ``repro/kernels/fused_assign_update.py:fused_assign_update_pallas``
 (B2) and ``fused_assign_update_pruned_pallas`` (B3). The CUDA source is
-``csrc/fused_assign_update.cu``: three launches, a top-2 scan per row that
-writes the (composed) assignment and the distances, then B4's fold
+``csrc/fused_assign_update.cu``: three launches, the top-2 scan that B1
+runs (``csrc/top2.cuh``), writing the (composed) assignment and the
+distances, then B4's fold
 (``csrc/cluster_fold.cuh``: at most 128 CTAs, each summing its rows in row
 order into a shared-memory partial, with the error as one more column), then
 a reduction of the partials in CTA order — deterministic, no float atomics,
@@ -28,7 +29,9 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.cluster_update import fold_ctas
-from repro_torch.kernels.distance_assign import DTYPE_CODES, check_operand, stream_of
+from repro_torch.kernels.distance_assign import (
+    DTYPE_CODES, check_operand, check_width, stream_of,
+)
 
 __all__ = [
     "FUSED_MAX_KD1",
@@ -40,7 +43,7 @@ __all__ = [
     "fused_supported",
 ]
 
-#: rows per CTA of the scan in ``csrc/top2.cuh``
+#: fewest rows a row tile of the scan in ``csrc/top2.cuh`` holds
 ROWS_PER_CTA = 128
 #: largest K·(d + 1) the fused kernels take (a 64 KB shared partial)
 FUSED_MAX_KD1 = 16_384
@@ -89,6 +92,7 @@ def _launch(x, w, c, cached, active):
             f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, c {tuple(c.shape)} do not match"
         )
     check_fused(d, k)
+    check_width(d)
     if cached is not None:
         check_operand("assign", cached, dev, (torch.int32,), 1)
         check_operand("active", active, dev, (torch.bool,), 1)

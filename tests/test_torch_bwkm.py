@@ -143,6 +143,23 @@ def test_golden_fit_with_the_reference_draws():
     assert res.metadata["n_blocks"] == live.result_.metadata["n_blocks"]
 
 
+def test_fit_predict_gives_the_labels_of_fit_then_predict():
+    x = _golden_data()
+    key = jax.random.PRNGKey(0)
+    want = repro.BWKM(k=4, engine="incore", max_iters=5, chunk_size=512, seed=0).fit_predict(
+        x, key=key
+    )
+    model = repro_torch.BWKM(k=4, device="cpu", max_iters=5)
+    got = model.fit_predict(x, key=JaxKey(key))
+    assert got.dtype == torch.int32 and torch.equal(got, model.predict(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("init", [None, "kmeans++", "kmeans||", "forgy", "kmeans-parallel"])
+def test_init_property_matches_the_reference(init):
+    assert repro_torch.BWKM(k=3, device="cpu", init=init).init == repro.BWKM(k=3, init=init).init
+
+
 def test_production_rng_reaches_the_reference_fixed_point():
     x = np.asarray(gmm(jax.random.PRNGKey(1), 3000, 2, 3, spread=20.0, noise=0.5))
     want = repro.BWKM(k=3, engine="incore", seed=0).fit(x)

@@ -184,3 +184,124 @@ def test_two_pass_pruned_statistics_are_bit_identical_to_dense(cuda_b45):
         p = ops.assign_update_pruned(x, w, c, dense.assign, act)
         assert torch.equal(p.assign, dense.assign)
         assert torch.equal(p.sums, dense.sums) and torch.equal(p.counts, dense.counts)
+
+
+# The shared scan of B1–B3 and B5 (csrc/top2.cuh): candidates resident in
+# shared memory (walked in chunks beyond its budget), rows blocked in
+# registers (four a thread from 131,072 rows on), x tiles copied
+# asynchronously over their enclosing 16-byte-aligned span, and B5 loading
+# only its valid candidates.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,d,k", [(3000, 19, 4000), (150_001, 19, 4000), (2000, 128, 561), (600, 300, 400)]
+)
+def test_scan_walks_candidates_beyond_shared_memory_in_chunks(cuda, cuda_b45, n, d, k):
+    """K past the resident budget, with one row a thread and (n = 150,001)
+    four; at d = 300 the x tile is too wide to stage as well, so rows are
+    read from global memory."""
+    da, _ = cuda
+    _, msu = cuda_b45
+    x, w, c = _data(n, d, k, torch.float32, seed=k)
+    tol = TOL[torch.float32]
+    a, d1, d2 = da.assign_top2_cuda(x, c)
+    dd = ref.pairwise_sqdist(x, c)
+    torch.testing.assert_close(dd.gather(1, a.long()[:, None])[:, 0], dd.min(1).values, **tol)
+    _, rd1, rd2 = ref.assign_top2(x, c)
+    torch.testing.assert_close(d1, rd1, **tol)
+    torch.testing.assert_close(d2, rd2, **tol)
+    cvalid = torch.from_numpy((np.random.RandomState(k).rand(k) < 0.7).astype(np.float32)).cuda()
+    mind2 = torch.full((n,), 3.0e38, device="cuda")
+    new, cost = msu.min_sqdist_update_cuda(x, w, c, cvalid, mind2)
+    r = ref.min_sqdist_update(x, w, c, cvalid, mind2)
+    torch.testing.assert_close(new, r.mind2, **tol)
+    torch.testing.assert_close(cost, r.cost, rtol=tol["rtol"], atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 150_001])
+def test_fold_over_valid_candidates_only_is_bit_exact(cuda_b45, n):
+    """B5 compacts its valid candidates: the fold equals, bit for bit, the
+    fold over ``cand[valid]`` with every slot valid, and with no valid
+    candidate ``mind2`` passes through unchanged."""
+    _, msu = cuda_b45
+    x, w, cand = _data(n, 19, 400, torch.float32, seed=n)
+    rng = np.random.RandomState(n)
+    cvalid = torch.from_numpy((rng.rand(400) < 0.5).astype(np.float32)).cuda()
+    mind2 = torch.from_numpy((rng.rand(n) * 300).astype(np.float32)).cuda()
+    new, cost = msu.min_sqdist_update_cuda(x, w, cand, cvalid, mind2)
+    sub = cand[cvalid > 0].contiguous()
+    only = msu.min_sqdist_update_cuda(x, w, sub, torch.ones(sub.shape[0], device="cuda"), mind2)
+    assert torch.equal(only[0], new) and torch.equal(only[1], cost)
+    r = ref.min_sqdist_update(x, w, cand, cvalid, mind2)
+    torch.testing.assert_close(new, r.mind2, **TOL[torch.float32])
+    torch.testing.assert_close(cost, r.cost, rtol=1e-5, atol=0.0)
+    none = msu.min_sqdist_update_cuda(x, w, cand, torch.zeros_like(cvalid), mind2)
+    assert torch.equal(none[0], mind2)
+    torch.testing.assert_close(none[1], (w * mind2).sum(), rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 150_001])
+def test_duplicate_centroids_go_to_the_smallest_id(cuda, n):
+    da, fau = cuda
+    x, w, c = _data(n, 19, 27, torch.float32, seed=n + 1)
+    c[7] = c[3]
+    c[20] = c[3]
+    for a, d1, d2 in (da.assign_top2_cuda(x, c), fau.fused_assign_update_cuda(x, w, c)[:3]):
+        on = (a == 3) | (a == 7) | (a == 20)
+        assert bool(on.any()) and bool((a[on] == 3).all())
+        assert torch.equal(d2[on], d1[on])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k", [(1001, 1), (1001, 27), (150_001, 1), (150_001, 27)])
+def test_scan_at_ragged_n_from_a_misaligned_view(cuda, cuda_b45, n, k, dtype):
+    """n not a multiple of the row tile, K = 1 (d2 = +inf), and x a view one
+    row into its storage, so its base is not 16-byte aligned: the kernels
+    give the bits they give on an aligned copy."""
+    da, fau = cuda
+    _, msu = cuda_b45
+    base, wb, c = _data(n + 1, 19, k, dtype, seed=n + k)
+    x, w = base[1:], wb[1:]
+    assert x.data_ptr() % 16 != 0
+    xc = x.clone()
+    out = da.assign_top2_cuda(x, c)
+    assert all(torch.equal(u, v) for u, v in zip(out, da.assign_top2_cuda(xc, c)))
+    _, rd1, rd2 = ref.assign_top2(xc, c)
+    torch.testing.assert_close(out[1], rd1, **TOL[dtype])
+    torch.testing.assert_close(out[2], rd2, **TOL[dtype])
+    if k == 1:
+        assert bool(torch.isinf(out[2]).all())
+    f = fau.fused_assign_update_cuda(x, w, c)
+    assert all(torch.equal(u, v) for u, v in zip(f, fau.fused_assign_update_cuda(xc, w, c)))
+    assert torch.equal(f[0], out[0]) and torch.equal(f[1], out[1])
+    mind2 = torch.full((n,), 3.0e38, device="cuda")
+    ones = torch.ones(k, device="cuda")
+    fold = msu.min_sqdist_update_cuda(x, w, c, ones, mind2)
+    assert all(torch.equal(u, v) for u, v in zip(fold, msu.min_sqdist_update_cuda(xc, w, c, ones, mind2)))
+    assert torch.equal(fold[0], out[1])
+
+
+@pytest.mark.cuda
+def test_scan_takes_rows_up_to_its_width_limit_and_names_it_beyond(cuda, cuda_b45):
+    """At d = SCAN_MAX_D four candidates fill a CTA's shared memory, and the
+    scan walks them four at a time; one feature more is refused by every
+    wrapper with the limit in the message."""
+    da, fau = cuda
+    _, msu = cuda_b45
+    d = da.SCAN_MAX_D
+    x, w, c = _data(130, d, 9, torch.float32, seed=9)
+    _, d1, d2 = da.assign_top2_cuda(x, c)
+    _, rd1, rd2 = ref.assign_top2(x, c)
+    torch.testing.assert_close(d1, rd1, **TOL[torch.float32])
+    torch.testing.assert_close(d2, rd2, **TOL[torch.float32])
+    x, w, c = _data(3, d + 1, 1, torch.float32, seed=10)
+    with pytest.raises(ValueError, match=f"at most {d} features"):
+        da.assign_top2_cuda(x, c)
+    with pytest.raises(ValueError, match=f"at most {d} features"):
+        fau.fused_assign_update_cuda(x, w, c)
+    with pytest.raises(ValueError, match=f"at most {d} features"):
+        msu.min_sqdist_update_cuda(x, w, c, torch.ones(1, device="cuda"), torch.zeros(3, device="cuda"))

@@ -346,3 +346,20 @@ def test_seams_take_the_plain_path_only_for_cpu_tensors():
         msu.min_sqdist_update_cuda(x, torch.ones(4), x[:2], torch.ones(2), torch.ones(4))
     with pytest.raises(ValueError, match="operands on"):
         ops.assign_top2(x, x[:2].to("meta"))
+
+
+def test_scan_width_limit_is_the_widest_d_with_four_candidates_resident():
+    """The scan keeps at least four candidates of d features in a CTA's
+    227 KB of shared memory (``csrc/top2.cuh::scan_shape``): 16·(dxp + 1)
+    bytes, features padded to a multiple of 32 past d = 19, within 231,424
+    dynamic bytes. The wrappers name the limit in their error."""
+    from repro_torch.kernels.distance_assign import SCAN_MAX_D, check_width
+
+    def fits(d):
+        dxp = 19 if d <= 19 else -(-d // 32) * 32
+        return 16 * (dxp + 1) <= 232_448 - 1024
+
+    assert fits(SCAN_MAX_D) and not fits(SCAN_MAX_D + 1)
+    check_width(SCAN_MAX_D)
+    with pytest.raises(ValueError, match="at most 14432 features"):
+        check_width(SCAN_MAX_D + 1)

@@ -97,6 +97,15 @@ def test_production_key_seeds_from_positive_weights_on_the_callers_device():
         assert resolve_init(alias).seed_centroids is kmeans_ll.kmeans_parallel
 
 
+def test_float64_input_gives_the_f32_seeds():
+    x, w = _points(seed=3, n=400, d=5)
+    want = kmeans_ll.kmeans_parallel(rnd.key(7), torch.from_numpy(x), torch.from_numpy(w), 6)
+    got = kmeans_ll.kmeans_parallel(
+        rnd.key(7), torch.from_numpy(x.astype(np.float64)), torch.from_numpy(w.astype(np.float64)), 6
+    )
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
 def test_bwkm_with_kmeans_ll_init_matches_the_reference_fit():
     x = _golden_data()
     live = repro.BWKM(k=4, engine="incore", init="kmeans||", max_iters=5, chunk_size=512,

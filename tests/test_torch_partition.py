@@ -71,6 +71,35 @@ def test_block_stats_is_bit_identical_across_runs_and_row_orders():
         assert torch.equal(u, v)  # fixed-point sums do not depend on the order
 
 
+@pytest.mark.parametrize("n,bits", [(1, 36), (2**26, 36), (2**26 + 1, 35), (2**27, 35),
+                                     (2**30, 32), (2**40, 22)])
+def test_fixed_point_bits_keep_each_feature_sum_inside_int64(n, bits):
+    assert part._fixed_bits(n) == bits
+    assert n * 2**bits <= 2**62  # n terms of magnitude at most 2^bits
+
+
+def _psum_in_one_chain(x, bid, m):
+    """The sums as ``block_stats`` took them before it kept one running sum
+    per feature: 36 bits, one cumulative sum over all d·n terms."""
+    n, d = x.shape
+    keys = torch.sort((bid.long()[None, :] << 32) | part._orderable(x.T.contiguous()), dim=1).values
+    starts = torch.searchsorted(keys[0], torch.arange(m + 1, dtype=torch.int64) << 32)
+    vals = part._from_orderable(keys & 0xFFFFFFFF)
+    scale = torch.ldexp(torch.ones(d, dtype=torch.float64),
+                        (36 - torch.frexp(x.abs().amax(0)).exponent).double())
+    q = torch.round(vals.double() * scale[:, None]).long()
+    csum = torch.cat([torch.zeros(1, dtype=torch.int64), torch.cumsum(q.reshape(-1), 0)])
+    base = (torch.arange(d) * n)[:, None]
+    seg = csum[base + starts[None, 1:]] - csum[base + starts[None, :-1]]
+    return (seg.double() / scale[:, None]).float().T.contiguous()
+
+
+def test_block_stats_sums_are_bit_identical_to_the_single_chain_form():
+    x = torch.from_numpy(_points(n=3000, d=5, seed=15))
+    bid = torch.from_numpy(np.random.RandomState(16).randint(0, 37, 3000).astype(np.int32))
+    assert torch.equal(part.block_stats(x, bid, 40).psum, _psum_in_one_chain(x, bid, 40))
+
+
 def test_split_plan_route_and_apply_match_exactly():
     x = _points(seed=5)
     want_p = _ref_partition(x)
