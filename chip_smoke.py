@@ -25,7 +25,9 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    and at the edges (ragged n, K = 1, K > one tile, zero weights, B3 with no
    and with every row active, the k-means|| weighting passes' 561 and 2,001
    candidates with about half parked far away, empty clusters, invalid
-   candidates, first and later folds);
+   candidates, first and later folds), and at rows of 14,433 and 41,000
+   features (the scan's wide-row form; B4's fold over two column chunks;
+   B2/B3 at K = 1);
 3. pruned ≡ dense bit for bit at 0 / 10 / 100 % active (fused at the
    representatives and over all 5,000,000 rows at the K = 27 weighting
    pass's 561 candidates and at K = 800, the widest the fused seam takes;
@@ -55,13 +57,16 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    at 561 candidates and B2's scratch bytes there, then B5's other eight
    launches of phase 4 (the two seed folds at L = 1 over every row and the
    six folds over the 14,528 representatives), each with its bound and its
-   library time, and the SM clock and power draw that ``nvidia-smi`` reads
-   while B1 at 2,001 candidates and B5 at 112 run back to back. With
-   ``--parent``, every row but B4's also times the parent's kernel on the
-   same inputs, in turns, and the walls of the SUSY fit and of k-means|| at
-   K = 27 and K = 100 are taken with the parent's package and with this
-   one, each in a process of its own (parent, this, this, parent; three
-   timed runs each).
+   library time, B4's fold and its reduction launched alone, every kernel
+   at the wide rows of phase 2 beside its plain version, and the SM clock
+   and power draw that ``nvidia-smi`` reads while B1 at 2,001 candidates
+   and B5 at 112 run back to back. With ``--parent``, every row (and the
+   two-pass route) also times the parent's kernel on the same inputs, in
+   turns; B4 at K = 2,001 and B2 at 561 candidates over all 5,000,000 rows
+   must be bit-equal to the parent's kernels (sums, counts, err); and the
+   walls of the SUSY fit and of k-means|| at K = 27 and K = 100 are taken
+   with the parent's package and with this one, each in a process of its
+   own (parent, this, this, parent; three timed runs each).
 
 Then the card's name and power limit, one JSON line of kernel records, and
 the result line ``{"ok": true, "device": {...}}`` last. Without a CUDA
@@ -307,6 +312,66 @@ def phase_kernels_b45(torch, ref, cu, msu):
             n_checks += 1
     torch.cuda.synchronize()
     return errs, rel, n_checks
+
+
+WIDE_D = (14_433, 41_000)  # past the scan's four resident candidates, past B4's d + 1 = 40,960
+
+
+def _wide_case(torch, d, seed, n=300, k=5):
+    """Rows of ``d`` features: x, w (half zero), K candidates, random ids."""
+    x, w, c = _data(torch, n, d, k, torch.float32, seed=seed, wmode="zeros-some")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, k, (n,), generator=g, device="cuda", dtype=torch.int32)
+    return x, w, c, ids
+
+
+def phase_kernels_wide(torch, ref, da, fau, cu, msu):
+    """B1, B4 and B5 at d = 14,433 and 41,000 (the scan's wide-row form, and
+    B4's fold over two column chunks at 41,000), B2 and B3 at 14,433 with
+    K = 1 (their fused partial K·(d + 1) <= 16,384 stays), each against its
+    plain version within the f32 tolerance (sums relative to Σ|terms|).
+    Returns the largest absolute error per kernel."""
+    tol = TOL["float32"]
+    errs = dict.fromkeys(("B1", "B2", "B3", "B4", "B5"), 0.0)
+    for i, d in enumerate(WIDE_D):
+        x, w, c, ids = _wide_case(torch, d, seed=400 + i)
+        tag = f"d={d}"
+        a, d1, d2 = da.assign_top2_cuda(x, c)
+        _labels_ok(torch, ref, x, c, a, tol, f"B1 {tag}")
+        _, rd1, rd2 = ref.assign_top2(x, c)
+        errs["B1"] = max(errs["B1"], _close(torch, d1, rd1, tol, f"B1 d1 {tag}")[0],
+                         _close(torch, d2, rd2, tol, f"B1 d2 {tag}")[0])
+        sums, counts = cu.cluster_sums_cuda(x, w, ids, c.shape[0])
+        rs, rc = ref.cluster_sums(x, w, ids, c.shape[0])
+        ss, sc = _abs_sums(torch, ref, x, w, ids, c.shape[0])
+        errs["B4"] = max(errs["B4"], _close(torch, sums, rs, tol, f"B4 sums {tag}", ss)[0],
+                         _close(torch, counts, rc, tol, f"B4 counts {tag}", sc)[0])
+        cvalid = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0], device="cuda")
+        mind2 = torch.full((x.shape[0],), BIG, device="cuda")
+        new, cost = msu.min_sqdist_update_cuda(x, w, c, cvalid, mind2)
+        r = ref.min_sqdist_update(x, w, c, cvalid, mind2)
+        errs["B5"] = max(errs["B5"], _close(torch, new, r.mind2, tol, f"B5 {tag}")[0])
+        _close(torch, cost, r.cost, dict(rtol=1e-5, atol=0.0), f"B5 cost {tag}")
+        if not fau.fused_supported(d, 1):  # K·(d + 1) past the fused partial even at K = 1
+            continue
+        c1 = c[:1].contiguous()
+        out = fau.fused_assign_update_cuda(x, w, c1)
+        r = ref.assign_update(x, w, c1)
+        check(bool((out[0] == 0).all()) and bool(torch.isinf(out[2]).all()), f"B2 {tag} K=1")
+        scale = (None,) * 3 + _abs_sums(torch, ref, x, w, out[0], 1)
+        errs["B2"] = max(errs["B2"], _close(torch, out[1], r.d1, tol, f"B2 d1 {tag}")[0],
+                         *(_close(torch, out[j], r[j], tol, f"B2 {tag}", scale[j])[0]
+                           for j in (3, 4)))
+        _close(torch, out[5], r.err, dict(rtol=1e-5, atol=0.0), f"B2 err {tag}")
+        act = torch.rand(x.shape[0], generator=torch.Generator(device="cuda").manual_seed(9),
+                         device="cuda") < 0.5
+        p = fau.fused_assign_update_pruned_cuda(x, w, c1, out[0], act)
+        check(torch.equal(p[3], out[3]) and torch.equal(p[4], out[4]),
+              f"B3 {tag}: pruned statistics not bit-equal to dense")
+        errs["B3"] = max(errs["B3"], _close(torch, p[1][act], r.d1[act], tol, f"B3 d1 {tag}")[0])
+        _close(torch, p[5], (w * r.d1)[act].sum(), dict(rtol=1e-5, atol=0.0), f"B3 err {tag}")
+    torch.cuda.synchronize()
+    return errs
 
 
 # ---------------------------------------------------------------- phase 3
@@ -827,6 +892,66 @@ def _b5_row(torch, ref, msu, args, what, parent, reps=10, plain_reps=10):
     )
 
 
+def _ms_s(r):
+    """``_timed``'s record as text: this commit's times, then the parent's."""
+    if "parent_ms" not in r:
+        return f"{r['ms']:.4f} ms"
+    return (f"{r['ms']:.4f} / {r['ms_again']:.4f} ms, parent {r['parent_ms'][0]:.4f} / "
+            f"{r['parent_ms'][1]:.4f} ms")
+
+
+def _parent_bits(torch, cu, fau, parent, x_full, c561, a2001):
+    """This commit's statistics fold against the parent's, bit for bit, over
+    every row: B4 at K = 2,001 (the K = 100 weighting pass's width) and B2 at
+    the K = 27 weighting pass's 561 candidates (its sums, counts and err, and
+    its ids and distances), with unit weights as the weighting passes have
+    and with random weights in [0, 3), half of them zero."""
+    n = x_full.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    u = torch.rand(n, generator=g, device="cuda")
+    weights = {"unit": torch.ones(n, device="cuda"), "random": torch.where(u < 0.5, 0.0, 6 * u)}
+    for name, w in weights.items():
+        mine = cu.cluster_sums_cuda(x_full, w, a2001, 2001)
+        with parent.active():
+            theirs = cu.cluster_sums_cuda(x_full, w, a2001, 2001)
+        check(all(torch.equal(u_, v_) for u_, v_ in zip(mine, theirs)),
+              f"B4 at K = 2001 ({name} weights) differs from the parent's kernel")
+        mine = fau.fused_assign_update_cuda(x_full, w, c561)
+        with parent.active():
+            theirs = fau.fused_assign_update_cuda(x_full, w, c561)
+        check(all(torch.equal(u_, v_) for u_, v_ in zip(mine, theirs)),
+              f"B2 at K = {c561.shape[0]} ({name} weights) differs from the parent's kernel")
+        del mine, theirs
+    print(f"[parent] B4 at K = 2001 and B2 at K = {c561.shape[0]} over all {n} rows, with unit "
+          "and with random weights: sums, counts, err (and B2's ids, d1, d2) bit-equal to the "
+          "parent's kernels")
+
+
+def _wide_times(torch, ref, da, fau, cu, msu):
+    """Each kernel at the wide rows of phase 2 beside its plain version."""
+    for i, d in enumerate(WIDE_D):
+        x, w, c, ids = _wide_case(torch, d, seed=400 + i)
+        k = c.shape[0]
+        cv = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0], device="cuda")
+        m0 = torch.full((x.shape[0],), BIG, device="cuda")
+        rows = [("B1", lambda: da.assign_top2_cuda(x, c), lambda: ref.assign_top2(x, c)),
+                ("B4", lambda: cu.cluster_sums_cuda(x, w, ids, k),
+                 lambda: ref.cluster_sums(x, w, ids, k)),
+                ("B5", lambda: msu.min_sqdist_update_cuda(x, w, c, cv, m0),
+                 lambda: ref.min_sqdist_update(x, w, c, cv, m0))]
+        if fau.fused_supported(d, 1):
+            c1 = c[:1].contiguous()
+            act = torch.arange(x.shape[0], device="cuda") % 2 == 0
+            rows += [("B2 (K=1)", lambda: fau.fused_assign_update_cuda(x, w, c1),
+                      lambda: ref.assign_update(x, w, c1)),
+                     ("B3 (K=1, half active)",
+                      lambda: fau.fused_assign_update_pruned_cuda(x, w, c1, ids * 0, act),
+                      lambda: ref.assign_update_pruned(x, w, c1, ids * 0, act))]
+        print(f"[time] wide rows x[{x.shape[0]},{d}] f32, K = {k}: " + "; ".join(
+            f"{name} kernel {_time_graph(torch, kern, reps=3):.4f} ms, plain "
+            f"{_time_graph(torch, plain, reps=3):.4f} ms" for name, kern, plain in rows))
+
+
 def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
     """Each kernel at the shape that carries most of its launches (the
     records of the JSON line), then B1, B2 and B5 at the k-means|| path's
@@ -902,13 +1027,19 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
 
     out["B4"] = dict(
         shape=f"x[{n},{d}] f32, K={k} (plain on the first {CHUNK} rows)",
-        ms=_time_graph(torch, lambda: cu.cluster_sums_cuda(x_full, ones, a, k), reps=10),
+        **_timed(torch, lambda: cu.cluster_sums_cuda(x_full, ones, a, k), 10, parent),
         plain_ms=_time_graph(torch, lambda: ref.cluster_sums(
             x_full[:CHUNK], ones[:CHUNK], a[:CHUNK], k), reps=10),
         library_ms=_time_graph(torch, lib4, reps=10),
         bound=_bound(4 * n * d + 8 * n + 4 * k * (d + 1), 2 * n * (d + 1)),
     )
-    print(f"[time] B4 on the same {CHUNK} rows as its plain version: kernel "
+    fold_ms = _time_graph(torch, lambda: cu.cluster_sums_cuda(x_full, ones, a, k, _phases=1),
+                          reps=10)
+    reduce_ms = _time_graph(torch, lambda: cu.cluster_sums_cuda(x_full, ones, a, k, _phases=2),
+                            reps=10)
+    print(f"[time] B4 x[{n},{d}] K={k}: the fold {fold_ms:.4f} ms, the reduction of its "
+          f"{cu.fold_ctas(n)} partials {reduce_ms:.4f} ms (each launched alone); on the same "
+          f"{CHUNK} rows as its plain version: kernel "
           f"{_time_graph(torch, lambda: cu.cluster_sums_cuda(x_full[:CHUNK], ones[:CHUNK], a[:CHUNK], k)):.4f} ms")
     # B5 at a k-means|| round over every row: 112 candidates, all valid
     l = 112
@@ -958,14 +1089,16 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
     )
     # the two-pass route at the same shape, B1 then B4 (what ops.assign_update
     # runs beyond the fused limit), and the fused pass's scratch there
-    two_ms = _time_graph(torch, lambda: cu.cluster_sums_cuda(
-        x_full, ones, da.assign_top2_cuda(x_full, c)[0], k), reps=2)
+    two = _timed(torch, lambda: cu.cluster_sums_cuda(
+        x_full, ones, da.assign_top2_cuda(x_full, c)[0], k), 2, parent)
     a561 = da.assign_top2_cuda(x_full, c)[0]
     b1_ms = _time_graph(torch, lambda: da.assign_top2_cuda(x_full, c), reps=2)
-    b4_ms = _time_graph(torch, lambda: cu.cluster_sums_cuda(x_full, ones, a561, k), reps=5)
-    print(f"[time] two-pass route B1 + B4 at x[{n},{d}] c[{k},{d}] f32: {two_ms:.4f} ms "
-          f"(B1 alone {b1_ms:.4f} ms, B4 alone under its ids {b4_ms:.4f} ms; B2 there "
+    b4 = _timed(torch, lambda: cu.cluster_sums_cuda(x_full, ones, a561, k), 5, parent)
+    print(f"[time] two-pass route B1 + B4 at x[{n},{d}] c[{k},{d}] f32: {_ms_s(two)} "
+          f"(B1 alone {b1_ms:.4f} ms, B4 alone under its ids {_ms_s(b4)}; B2 there "
           f"{out['B2@561']['ms']:.4f} ms)")
+    if parent is not None:
+        _parent_bits(torch, cu, fau, parent, x_full, c, a)
     scratch = 4 * fau.fused_scratch_floats(n, d, k)
     print(f"[scratch] B2 at x[{n},{d}] c[{k},{d}]: {scratch} bytes ({scratch / 1e6:.3f} MB) "
           f"of fold partials, min(128, ceil(n/256))·(K·(d+1)+1) floats")
@@ -981,6 +1114,7 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
         out[f"B5 reps {i}"] = _b5_row(torch, ref, msu, args,
                                       f"BWKM(init='kmeans||') fold {i} over the representatives: ",
                                       parent, reps=20, plain_reps=20)
+    _wide_times(torch, ref, da, fau, cu, msu)
     for name, r in out.items():
         lib_s = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         chunk_s = f" (on the chunk {r['chunk_ms']:.4f} ms)" if "chunk_ms" in r else ""
@@ -1182,6 +1316,10 @@ def main(argv) -> int:
           + ", ".join(f"{b} {dt} {v:.3g}" for (b, dt), v in errs45.items())
           + "; max rel err of B5 cost and B4 sums/counts: "
           + ", ".join(f"{b} {dt} {v:.3g}" for (b, dt), v in rel45.items()))
+    wide = phase_kernels_wide(torch, ref, da, fau, cu, msu)
+    print(f"[kernels] wide rows (d = {WIDE_D[0]:,} and {WIDE_D[1]:,}, 300 rows, K = 5; B2/B3 "
+          f"at K = 1, d = {WIDE_D[0]:,}) match their plain versions (f32 tol 1e-5, sums to "
+          "Σ|terms|); max abs err: " + ", ".join(f"{b} {v:.3g}" for b, v in wide.items()))
     # phase 4's data, used by phase 3's full-width checks as well
     t0 = time.perf_counter()
     x = torch.from_numpy(paper_dataset("SUSY", seed=0)).cuda()

@@ -4,10 +4,12 @@ CUDA tensors.
 Replaces ``repro/kernels/cluster_update.py:cluster_sums_pallas``. The CUDA
 source is ``csrc/cluster_sums.cu`` over the fold of ``csrc/cluster_fold.cuh``,
 which B2/B3 share: a fixed grid of at most 128 CTAs along the rows, each
-keeping a ``[K-tile, d + 1]`` partial in shared memory and adding its rows
-in row order (one warp per cluster residue, one lane per feature), then a
-second kernel that sums the partials in CTA order —
-deterministic, no float atomics, and scratch that does not grow with n. Its
+streaming its contiguous rows through a ring of TMA-filled stages and
+adding them in row order into a ``[K-tile, column-chunk]`` partial in shared
+memory (one warp per cluster residue, one lane per column), then a second
+kernel that sums the partials in CTA order — deterministic, no float
+atomics, scratch that does not grow with n, and any d (past ``d + 1 =
+40,960`` the columns are tiled too, which leaves the bits as they are). Its
 plain version is :func:`repro_torch.kernels.ref.cluster_sums`.
 
 It is the second pass of ``ops.assign_update`` / ``assign_update_pruned``
@@ -26,13 +28,10 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.distance_assign import DTYPE_CODES, check_operand, stream_of
 
-__all__ = ["MAX_D", "cluster_sums_cuda", "fold_ctas"]
+__all__ = ["cluster_sums_cuda", "fold_ctas"]
 
-#: rows per staged tile and the most CTAs along the rows, as in
-#: ``csrc/cluster_fold.cuh``
+#: rows per tile and the most CTAs along the rows, as in ``csrc/cluster_fold.cuh``
 _TILE, _MAX_CTAS = 256, 128
-#: the largest d: one cluster's d + 1 values must fit the shared partial
-MAX_D = 40_959
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -43,19 +42,26 @@ def fold_ctas(n: int) -> int:
     return min(_MAX_CTAS, -(-n // _TILE))
 
 
-def _fn():
-    f = _build.library("cluster_sums").bwkm_cluster_sums
-    f.argtypes = [_P, _I, _P, _P, _L, _I, _I, _P, _P, _P, _P]
+def _fn(ex: bool):
+    lib = _build.library("cluster_sums")
+    f = lib.bwkm_cluster_sums_ex if ex else lib.bwkm_cluster_sums
+    f.argtypes = [_P, _I, _P, _P, _L, _I, _I, _P, _P, _P] + ([_I, _I] if ex else []) + [_P]
     f.restype = ctypes.c_int
     return f
 
 
 def cluster_sums_cuda(
-    x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor, num_clusters: int
+    x: torch.Tensor, w: torch.Tensor, assign: torch.Tensor, num_clusters: int, *,
+    _part_floats: int = 0, _phases: int = 3,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(sums f32[K, d], counts f32[K])`` of ``x [n, d]`` (f32 or bf16)
     weighted by ``w [n]`` (f32) under ``assign [n]`` (i32); rows with
-    ``w == 0`` or an id outside ``[0, K)`` add nothing."""
+    ``w == 0`` or an id outside ``[0, K)`` add nothing.
+
+    The private ``_part_floats`` caps the fold's shared partial (0: its
+    default), which tiles clusters and columns more finely and leaves the
+    bits as they are; ``_phases`` runs the fold (1) or the reduction (2)
+    alone. Both exist to test and time the fold."""
     if x.device.type != "cuda":
         raise ValueError(f"cluster_sums_cuda takes CUDA tensors, got {x.device}")
     dev = x.device
@@ -66,17 +72,19 @@ def cluster_sums_cuda(
     k = int(num_clusters)
     if w.shape[0] != n or assign.shape[0] != n:
         raise ValueError("w and assign must have one entry per row of x")
-    if k < 1 or not 1 <= d <= MAX_D:
-        raise ValueError(f"cluster_sums_cuda takes K >= 1 and 1 <= d <= {MAX_D}, got {k}, {d}")
+    if k < 1 or d < 1:
+        raise ValueError(f"cluster_sums_cuda takes K >= 1 and d >= 1, got {k}, {d}")
     f32 = dict(dtype=torch.float32, device=dev)
     sums, counts = torch.empty(k, d, **f32), torch.empty(k, **f32)
     part = torch.empty(max(fold_ctas(n), 1) * k * (d + 1), **f32)
-    fn = _fn()
+    ex = (_part_floats, _phases) != (0, 3)
+    args = [
+        x.data_ptr(), DTYPE_CODES[x.dtype], w.data_ptr(), assign.data_ptr(), n, d, k,
+        sums.data_ptr(), counts.data_ptr(), part.data_ptr(),
+    ] + ([int(_part_floats), int(_phases)] if ex else [])
+    fn = _fn(ex)
     with torch.cuda.device(dev):
-        rc = fn(
-            x.data_ptr(), DTYPE_CODES[x.dtype], w.data_ptr(), assign.data_ptr(), n, d, k,
-            sums.data_ptr(), counts.data_ptr(), part.data_ptr(), stream_of(dev),
-        )
+        rc = fn(*args, stream_of(dev))
     if rc != 0:
         raise RuntimeError(f"cluster_sums kernel launch failed: cudaError_t {rc}")
     cluster_sums_cuda.launches += 1

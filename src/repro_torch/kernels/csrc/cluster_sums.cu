@@ -7,33 +7,49 @@
 // n·(d + 1) values, and a partial per row block would need scratch that
 // grows with n (6.3 GB at n = 5,000,000, K = 2,001, d = 19). So it runs the
 // fold of cluster_fold.cuh: a fixed grid of at most 128 CTAs along the rows,
-// each keeping a [K-tile, d + 1] partial in shared memory summed in row
-// order by one thread per element, then a second kernel that sums the
+// each streaming its contiguous rows through a ring of TMA-filled stages and
+// adding them into a [K-tile, column-chunk] partial in shared memory, in
+// row order by one thread per element, then a second kernel that sums the
 // partials in CTA order. B2/B3 fold their statistics through the same code.
 //
 // Scratch is at most 128·K·(d + 1) floats whatever n is, and two runs are
-// bit-equal. Rows with w == 0 add nothing.
+// bit-equal. Rows with w == 0 add nothing. Any d >= 1: past d + 1 = 40,960
+// the columns are tiled as well.
 //
 // What bounds it on an H100: the pass moves each row once (4·d + 8 bytes)
-// for d + 1 adds, far under one FLOP per byte, so it is bound by memory:
-// about 0.125 ms for 420 MB at x [5,000,000, 19]. Staging the tile keeps
-// the scattered adds in shared memory and the global reads coalesced.
+// for d + 1 adds, far under one FLOP per byte, so its bound is memory:
+// about 0.125 ms for 420 MB at x [5,000,000, 19]. The ring keeps two or
+// three tiles of rows in flight per SM (about 43 KB at K = 2,001, d = 19)
+// while one is walked, and the scattered adds stay in shared memory. What
+// sets its pace is the walk inside each SM, not the copies (PERF.md).
 #include "cluster_fold.cuh"
 
 using namespace bwkm;
 
 // sums [K, d] and counts [K] of x [n, d] under assign [n] (ids outside
 // [0, K) add nothing). `part` holds min(128, ceil(n/256))·K·(d + 1) floats
-// of scratch; d + 1 must be at most 40,960. dtype codes: 0 = float32,
-// 1 = bfloat16. Returns a cudaError_t.
-extern "C" int bwkm_cluster_sums(const void* x, int x_dtype, const float* w, const int* assign,
-                                 long long n, int d, int K, float* sums, float* counts,
-                                 float* part, void* stream) {
-  if (K < 1 || d < 1 || d + 1 > fold::PART_FLOATS) return (int)cudaErrorInvalidValue;
+// of scratch. `part_floats` caps the shared partial (0: the fold's 40,960
+// floats; a smaller cap tiles the clusters and columns more finely and
+// leaves every bit as it is), and `phases` says what runs (1 the fold, 2
+// the reduction, 3 both): both only to test and time the fold. dtype codes:
+// 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+extern "C" int bwkm_cluster_sums_ex(const void* x, int x_dtype, const float* w,
+                                    const int* assign, long long n, int d, int K, float* sums,
+                                    float* counts, float* part, int part_floats, int phases,
+                                    void* stream) {
+  if (K < 1 || d < 1 || part_floats < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0)
     return fold::fold_and_reduce(static_cast<const float*>(x), w, assign, nullptr, nullptr, n,
-                                 d, K, sums, counts, nullptr, part, s);
+                                 d, K, sums, counts, nullptr, part, s, part_floats, phases);
   return fold::fold_and_reduce(static_cast<const __nv_bfloat16*>(x), w, assign, nullptr,
-                               nullptr, n, d, K, sums, counts, nullptr, part, s);
+                               nullptr, n, d, K, sums, counts, nullptr, part, s, part_floats,
+                               phases);
+}
+
+// The fold and its reduction at the default partial.
+extern "C" int bwkm_cluster_sums(const void* x, int x_dtype, const float* w, const int* assign,
+                                 long long n, int d, int K, float* sums, float* counts,
+                                 float* part, void* stream) {
+  return bwkm_cluster_sums_ex(x, x_dtype, w, assign, n, d, K, sums, counts, part, 0, 3, stream);
 }

@@ -15,7 +15,8 @@
 // (5,000,000 rows, K = 2,001) it is f32 operations: four rows per thread
 // against four centroids per shared load, about 16 FFMA per load, plus
 // the top-2 compares of each (row, centroid). The design reads x once and
-// never writes the n×K distance matrix.
+// never writes the n×K distance matrix. Rows too wide for four resident
+// centroids (d > 14,432) take the scan's wide-row form, correct and slow.
 #include "top2.cuh"
 
 using namespace bwkm;

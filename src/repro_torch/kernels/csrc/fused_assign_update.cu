@@ -10,9 +10,10 @@
 //      (candidates resident in shared memory, rows blocked in registers),
 //      writing assign, d1 and d2, nothing else.
 //   2. fold (cluster_fold.cuh, the code B4 runs): a fixed grid of at most
-//      128 CTAs along the rows, each adding its contiguous run of 256-row
-//      tiles in row order into a [K, d + 1] partial in shared memory, and
-//      the error Σ w·d1 over the active rows as one more column.
+//      128 CTAs along the rows, each streaming its contiguous run of 256-row
+//      tiles through a ring of TMA-filled stages and adding them in row order
+//      into a [K, d + 1] partial in shared memory, and the error Σ w·d1 over
+//      the active rows, one thread adding the products in row order.
 //   3. reduce: one thread per output adds the ≤ 128 partials in CTA order.
 //
 // Scratch is min(128, ceil(n/256))·(K·(d + 1) + 1) floats whatever n is
@@ -54,15 +55,14 @@ static int launch(const void* x, const float* w, const void* c, const int* cache
 }
 
 // One dense (cached == active == nullptr) or pruned pass. `part` holds
-// min(128, ceil(n/256))·(K·(d + 1) + 1) floats of scratch; d + 1 must be at
-// most 40,960. dtype codes: 0 = float32, 1 = bfloat16. Returns a
-// cudaError_t.
+// min(128, ceil(n/256))·(K·(d + 1) + 1) floats of scratch. dtype codes:
+// 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int bwkm_assign_update(const void* x, int x_dtype, const float* w, const void* c,
                                   int c_dtype, const int* cached,
                                   const unsigned char* active, long long n, int d, int K,
                                   int* assign, float* d1, float* d2, float* sums,
                                   float* counts, float* err, float* part, void* stream) {
-  if (K < 1 || d < 1 || d + 1 > fold::PART_FLOATS) return (int)cudaErrorInvalidValue;
+  if (K < 1 || d < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && c_dtype == 0)
     return launch<float, float>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums, counts,

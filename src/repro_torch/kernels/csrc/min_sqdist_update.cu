@@ -22,6 +22,9 @@
 //     and padded rows add nothing).
 //   pass 2 (sum_partials): one CTA sums the partials in a fixed order.
 //
+// Rows too wide for four resident candidates (d > 14,432) take the scan's
+// wide-row form (top2.cuh::wide_rows_kernel) with the same reducer.
+//
 // No float atomics, so two runs are bit-equal.
 //
 // What bounds it on an H100: at the k-means|| path's shapes (n = 5,000,000,
@@ -115,16 +118,21 @@ int launch(const void* x, const float* w, const void* cand, const float* cvalid,
            float* costpart, cudaStream_t st) {
   ScanShape s;
   size_t smem = 0;
-  if (!scan_shape(n, d, L, (int)sizeof(TX), &s, &smem)) return (int)cudaErrorInvalidValue;
   const TX* xt = static_cast<const TX*>(x);
   const TC* ct = static_cast<const TC*>(cand);
   const Fold o{w, mind2, out, costpart};
-  const bool wide = s.rows == 4 * SCAN_THREADS;
-  const int rc =
-      scan_dx(d) == 32
-          ? launch_scan(min_sqdist_kernel<32, 1, TX, TC>, s, smem, st, xt, ct, cvalid, s, o)
-      : wide ? launch_scan(min_sqdist_kernel<19, 4, TX, TC>, s, smem, st, xt, ct, cvalid, s, o)
-             : launch_scan(min_sqdist_kernel<19, 1, TX, TC>, s, smem, st, xt, ct, cvalid, s, o);
+  int rc;
+  if (scan_shape(n, d, L, (int)sizeof(TX), &s, &smem)) {
+    const bool wide = s.rows == 4 * SCAN_THREADS;
+    rc = scan_dx(d) == 32
+             ? launch_scan(min_sqdist_kernel<32, 1, TX, TC>, s, smem, st, xt, ct, cvalid, s, o)
+         : wide ? launch_scan(min_sqdist_kernel<19, 4, TX, TC>, s, smem, st, xt, ct, cvalid, s, o)
+                : launch_scan(min_sqdist_kernel<19, 1, TX, TC>, s, smem, st, xt, ct, cvalid, s, o);
+  } else {  // rows too wide for four resident candidates
+    if (L < 1 || d < 1) return (int)cudaErrorInvalidValue;
+    s = wide_rows_shape(n, d, L);
+    rc = launch_scan(wide_rows_kernel<TX, TC, Fold>, s, WIDE_SMEM, st, xt, ct, cvalid, s, o);
+  }
   if (rc != 0) return rc;
   sum_partials<<<1, SUM_THREADS, 0, st>>>(costpart, s.tiles, cost);
   return (int)cudaGetLastError();

@@ -15,7 +15,8 @@
 //     K = 2,001 at d = 19 takes 160 KB. Beyond the budget the candidates
 //     are walked in resident chunks of kc, in increasing id, with the
 //     reducers' state in registers across chunks (then each row tile
-//     restages each chunk).
+//     restages each chunk). Rows too wide for even four resident candidates
+//     (d > 14,432) take the wide-row form below (wide_rows_kernel) instead.
 //   * Given `cvalid` (B5), only the candidates whose entry is nonzero are
 //     loaded: a stable in-CTA compaction, a prefix count in id order. The
 //     invalid ones cost nothing.
@@ -106,9 +107,10 @@ struct ScanShape {
 inline int scan_dx(int d) { return d <= 19 ? 19 : 32; }
 
 // Fills `s` and the dynamic shared bytes for n rows of d features of
-// `xsize` bytes against K candidate slots. False when not even four
-// candidates fit beside the x tile: past d = 14,432 (`SCAN_MAX_D` of
-// distance_assign.py), where four candidates alone fill SCAN_SMEM.
+// `xsize` bytes against K candidate slots. False when K < 1, d < 1, or not
+// even four candidates fit beside the x tile: past d = 14,432, where four
+// candidates alone fill SCAN_SMEM (the launches then take the wide-row
+// form, wide_rows_kernel).
 inline bool scan_shape(long long n, int d, int K, int xsize, ScanShape* s, size_t* smem) {
   const int dx = scan_dx(d);
   const int r = (dx < 32 && n >= SCAN_WIDE_N) ? 4 : 1;
@@ -416,6 +418,94 @@ __device__ __forceinline__ void scan_rows(const TX* __restrict__ x, const TC* __
   if (staged) cp_async_wait_all();
 }
 
+// The wide-row form of the scan, for rows too wide for four candidates to
+// stay resident (scan_shape false). One row a thread, 128-row tiles with a
+// grid stride, x read from global memory (each thread walks its own row, so
+// a row's 128-byte lines serve 32 features from L1). The candidates go by
+// in groups of four, in increasing id; a group's features go by in chunks
+// of WIDE_FC, staged [WIDE_FC][4] in shared memory, and each thread adds
+// its row's four products −2·x·c and the four norms ‖c‖² in registers, one
+// chunk's sum at a time (so rounding grows with the chunks, not with d).
+// Then the reducer gets p = ‖c‖² − 2·x·c of the group's candidates in
+// increasing id: given `cvalid` (B5), of its valid ones only, and a group
+// with none is skipped. Every thread of the CTA runs it.
+constexpr int WIDE_FC = 1024;
+constexpr int WIDE_SMEM = 16 * WIDE_FC;  // dynamic shared bytes
+
+inline ScanShape wide_rows_shape(long long n, int d, int K) {
+  return ScanShape{n, (n + SCAN_THREADS - 1) / SCAN_THREADS, d, K, SCAN_THREADS, 0, 4};
+}
+
+template <typename TX, typename TC, typename Op>
+__global__ void __launch_bounds__(SCAN_THREADS)
+wide_rows_kernel(const TX* __restrict__ x, const TC* __restrict__ c,
+                 const float* __restrict__ cvalid, ScanShape s, Op op) {
+  extern __shared__ __align__(16) unsigned char scan_smem[];
+  using Red = typename Op::Red;
+  float* cs = reinterpret_cast<float*>(scan_smem);  // [WIDE_FC][4]
+  const float4* cs4 = reinterpret_cast<const float4*>(cs);
+  const int t = threadIdx.x, d = s.d;
+  for (long long tile = blockIdx.x; tile < s.tiles; tile += gridDim.x) {
+    const long long row0 = tile * SCAN_THREADS, row = row0 + t;
+    const bool valid = row < s.n;
+    const TX* xr = x + (valid ? row : 0) * (long long)d;
+    const bool any = op.any_active(row0, min(s.n, row0 + SCAN_THREADS));
+    float xn[1] = {0.f};
+    Red red[1] = {Red::fresh()};
+    for (int f0 = 0; f0 < d; f0 += WIDE_FC) {
+      const int fe = min(d, f0 + WIDE_FC);
+      float sq = 0.f;
+      for (int j = f0; j < fe; ++j) {
+        const float v = valid ? to_f(xr[j]) : 0.f;
+        sq = fmaf(v, v, sq);
+      }
+      xn[0] += sq;
+    }
+    for (int k0 = 0; any && k0 < s.K; k0 += 4) {
+      bool use[4], some = false;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        use[q] = k0 + q < s.K && (cvalid == nullptr || cvalid[k0 + q] != 0.f);
+        some |= use[q];
+      }
+      if (!some) continue;  // the same for every thread
+      float dot[4] = {0.f, 0.f, 0.f, 0.f}, nrm[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int f0 = 0; f0 < d; f0 += WIDE_FC) {
+        const int fn = min(WIDE_FC, d - f0);
+        __syncthreads();  // the previous chunk is consumed
+        for (int e = t; e < 4 * WIDE_FC; e += SCAN_THREADS) {
+          const int q = e / WIDE_FC, j = e - q * WIDE_FC;
+          cs[4 * j + q] =
+              (j < fn && k0 + q < s.K) ? to_f(c[(long long)(k0 + q) * d + f0 + j]) : 0.f;
+        }
+        __syncthreads();
+        float pd[4] = {0.f, 0.f, 0.f, 0.f}, pn[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int j = 0; j < fn; ++j) {
+          const float4 cv = cs4[j];
+          const float xv = valid ? -2.f * to_f(xr[f0 + j]) : 0.f;
+          pd[0] = fmaf(xv, cv.x, pd[0]);
+          pd[1] = fmaf(xv, cv.y, pd[1]);
+          pd[2] = fmaf(xv, cv.z, pd[2]);
+          pd[3] = fmaf(xv, cv.w, pd[3]);
+          pn[0] = fmaf(cv.x, cv.x, pn[0]);
+          pn[1] = fmaf(cv.y, cv.y, pn[1]);
+          pn[2] = fmaf(cv.z, cv.z, pn[2]);
+          pn[3] = fmaf(cv.w, cv.w, pn[3]);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dot[q] += pd[q];
+          nrm[q] += pn[q];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (use[q]) red[0](k0 + q, nrm[q] + dot[q]);
+    }
+    op.finish(tile, row0, s.n, red, xn, any);
+  }
+}
+
 // B1–B3's per-row output: the top-2 of every row, written as assign, d1,
 // d2. Given `cached` and `active` (B3), a row tile whose rows are all
 // inactive skips the scan (d1 = BIG, d2 = +inf there), and every inactive
@@ -464,9 +554,14 @@ inline int launch_top2(const void* x, const void* c, long long n, int d, int K, 
                        cudaStream_t stream) {
   ScanShape s;
   size_t smem = 0;
-  if (!scan_shape(n, d, K, (int)sizeof(TX), &s, &smem)) return (int)cudaErrorInvalidValue;
   const TX* xt = static_cast<const TX*>(x);
   const TC* ct = static_cast<const TC*>(c);
+  if (!scan_shape(n, d, K, (int)sizeof(TX), &s, &smem)) {
+    if (K < 1 || d < 1) return (int)cudaErrorInvalidValue;
+    s = wide_rows_shape(n, d, K);
+    return launch_scan(wide_rows_kernel<TX, TC, Assign>, s, WIDE_SMEM, stream, xt, ct,
+                       static_cast<const float*>(nullptr), s, o);
+  }
   const bool wide = s.rows == 4 * SCAN_THREADS;
   if (scan_dx(d) == 32) return launch_scan(top2_kernel<32, 1, TX, TC>, s, smem, stream, xt, ct, s, o);
   return wide ? launch_scan(top2_kernel<19, 4, TX, TC>, s, smem, stream, xt, ct, s, o)

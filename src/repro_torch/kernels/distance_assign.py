@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/distance_assign.py:assign_top2_pallas``. The CUDA
 source is ``csrc/distance_assign.cu`` over the scan of ``csrc/top2.cuh``
 (the centroids resident in shared memory for the launch, rows blocked in
-registers); its plain version is :func:`repro_torch.kernels.ref.assign_top2`.
+registers; rows too wide for four resident centroids, d > 14,432, take its
+wide-row form); its plain version is :func:`repro_torch.kernels.ref.assign_top2`.
 At the predict chunk (d = 19, K = 27, about 11 FLOP per byte) the kernel is
 bound by memory and launch latency, at the k-means|| weighting pass (2,001
 candidates) by f32 operations; it reads x once and never writes the
@@ -18,15 +19,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["DTYPE_CODES", "SCAN_MAX_D", "assign_top2_cuda", "check_operand", "check_width",
-           "stream_of"]
+__all__ = ["DTYPE_CODES", "assign_top2_cuda", "check_operand", "stream_of"]
 
 #: element types the kernels load; they always compute in f32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-
-#: the widest rows the distance scan of ``csrc/top2.cuh`` takes (B1–B3, B5):
-#: four candidates of d features must fit in a CTA's shared memory
-SCAN_MAX_D = 14_432
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -41,15 +37,6 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device, dtypes, ndim
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def check_width(d: int) -> None:
-    """Raise when rows of ``d`` features are wider than the scan takes."""
-    if d > SCAN_MAX_D:
-        raise ValueError(
-            f"the distance kernels take rows of at most {SCAN_MAX_D} features (four "
-            f"candidates resident in a CTA's shared memory), got d = {d}"
-        )
 
 
 def stream_of(device: torch.device) -> int:
@@ -76,7 +63,6 @@ def assign_top2_cuda(
     k = c.shape[0]
     if c.shape[1] != d or k < 1:
         raise ValueError(f"shapes x {tuple(x.shape)} and c {tuple(c.shape)} do not match")
-    check_width(d)
     assign = torch.empty(n, dtype=torch.int32, device=x.device)
     d1 = torch.empty(n, dtype=torch.float32, device=x.device)
     d2 = torch.empty(n, dtype=torch.float32, device=x.device)

@@ -5,8 +5,9 @@ Replace ``repro/kernels/fused_assign_update.py:fused_assign_update_pallas``
 ``csrc/fused_assign_update.cu``: three launches, the top-2 scan that B1
 runs (``csrc/top2.cuh``), writing the (composed) assignment and the
 distances, then B4's fold
-(``csrc/cluster_fold.cuh``: at most 128 CTAs, each summing its rows in row
-order into a shared-memory partial, with the error as one more column), then
+(``csrc/cluster_fold.cuh``: at most 128 CTAs, each streaming its rows
+through a ring of TMA-filled stages and summing them in row order into a
+shared-memory partial, with the error summed in row order beside it), then
 a reduction of the partials in CTA order — deterministic, no float atomics,
 and scratch that does not grow with n (:func:`fused_scratch_floats`). B3 is
 the same launches given a cached assignment and an active mask, so pruned
@@ -29,9 +30,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.cluster_update import fold_ctas
-from repro_torch.kernels.distance_assign import (
-    DTYPE_CODES, check_operand, check_width, stream_of,
-)
+from repro_torch.kernels.distance_assign import DTYPE_CODES, check_operand, stream_of
 
 __all__ = [
     "FUSED_MAX_KD1",
@@ -92,7 +91,6 @@ def _launch(x, w, c, cached, active):
             f"shapes x {tuple(x.shape)}, w {tuple(w.shape)}, c {tuple(c.shape)} do not match"
         )
     check_fused(d, k)
-    check_width(d)
     if cached is not None:
         check_operand("assign", cached, dev, (torch.int32,), 1)
         check_operand("active", active, dev, (torch.bool,), 1)

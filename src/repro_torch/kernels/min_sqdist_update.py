@@ -8,8 +8,9 @@ over the scan of ``csrc/top2.cuh`` that B1–B3 run: persistent CTAs that load
 only the valid candidates (``cvalid != 0``, compacted in id order) into
 shared memory once per launch, then walk the rows in tiles, four rows a
 thread, with each row's running min in a register (x read once per fold).
-Each row tile writes a cost partial and a second kernel sums them in a fixed
-order — deterministic, no float atomics. The fold is bit for bit the fold
+Rows too wide for four resident candidates (d > 14,432) take the scan's
+wide-row form. Each row tile writes a cost partial and a second kernel sums
+them in a fixed order — deterministic, no float atomics. The fold is bit for bit the fold
 over ``cand[cvalid != 0]`` alone, and with no valid candidate ``mind2``
 passes through. Its plain version is
 :func:`repro_torch.kernels.ref.min_sqdist_update`.
@@ -26,9 +27,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.distance_assign import (
-    DTYPE_CODES, check_operand, check_width, stream_of,
-)
+from repro_torch.kernels.distance_assign import DTYPE_CODES, check_operand, stream_of
 from repro_torch.kernels.fused_assign_update import ROWS_PER_CTA  # a cost partial per tile
 
 __all__ = ["min_sqdist_update_cuda"]
@@ -66,7 +65,6 @@ def min_sqdist_update_cuda(
         )
     if w.shape[0] != n or mind2.shape[0] != n:
         raise ValueError("w and mind2 must have one entry per row of x")
-    check_width(d)
     f32 = dict(dtype=torch.float32, device=dev)
     out, cost = torch.empty(n, **f32), torch.empty((), **f32)
     costpart = torch.empty(max(-(-n // ROWS_PER_CTA), 1), **f32)

@@ -286,22 +286,69 @@ def test_scan_at_ragged_n_from_a_misaligned_view(cuda, cuda_b45, n, k, dtype):
 
 
 @pytest.mark.cuda
-def test_scan_takes_rows_up_to_its_width_limit_and_names_it_beyond(cuda, cuda_b45):
-    """At d = SCAN_MAX_D four candidates fill a CTA's shared memory, and the
-    scan walks them four at a time; one feature more is refused by every
-    wrapper with the limit in the message."""
+@pytest.mark.parametrize("d", [14_432, 14_433, 41_000])
+def test_kernels_take_rows_of_any_width(cuda, cuda_b45, d):
+    """At d = 14,432 four candidates still stay resident in the scan; from
+    14,433 on B1 and B5 take the scan's wide-row form, and at 41,000 B4's
+    fold tiles its columns (d + 1 > 40,960). B2 and B3 run at K = 1 past the
+    scan's old limit: their fused partial, K·(d + 1) <= 16,384, stays."""
     da, fau = cuda
-    _, msu = cuda_b45
-    d = da.SCAN_MAX_D
-    x, w, c = _data(130, d, 9, torch.float32, seed=9)
-    _, d1, d2 = da.assign_top2_cuda(x, c)
+    cu, msu = cuda_b45
+    tol = TOL[torch.float32]
+    n, k = 300, 5
+    x, w, c = _data(n, d, k, torch.float32, seed=d % 1009)
+    a, d1, d2 = da.assign_top2_cuda(x, c)
+    dd = ref.pairwise_sqdist(x, c)
+    torch.testing.assert_close(dd.gather(1, a.long()[:, None])[:, 0], dd.min(1).values, **tol)
     _, rd1, rd2 = ref.assign_top2(x, c)
-    torch.testing.assert_close(d1, rd1, **TOL[torch.float32])
-    torch.testing.assert_close(d2, rd2, **TOL[torch.float32])
-    x, w, c = _data(3, d + 1, 1, torch.float32, seed=10)
-    with pytest.raises(ValueError, match=f"at most {d} features"):
-        da.assign_top2_cuda(x, c)
-    with pytest.raises(ValueError, match=f"at most {d} features"):
-        fau.fused_assign_update_cuda(x, w, c)
-    with pytest.raises(ValueError, match=f"at most {d} features"):
-        msu.min_sqdist_update_cuda(x, w, c, torch.ones(1, device="cuda"), torch.zeros(3, device="cuda"))
+    torch.testing.assert_close(d1, rd1, **tol)
+    torch.testing.assert_close(d2, rd2, **tol)
+    rng = np.random.RandomState(d % 1013)
+    ids = torch.from_numpy(rng.randint(0, k, n).astype(np.int32)).cuda()
+    sums, counts = cu.cluster_sums_cuda(x, w, ids, k)
+    rs, rc = ref.cluster_sums(x, w, ids, k)
+    scale, _ = ref.cluster_sums(x.abs(), w, ids, k)
+    assert bool(((sums - rs).abs() <= tol["atol"] + tol["rtol"] * scale).all())
+    torch.testing.assert_close(counts, rc, **tol)
+    cvalid = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0], device="cuda")
+    mind2 = torch.from_numpy((rng.rand(n) * 1e6).astype(np.float32)).cuda()
+    new, cost = msu.min_sqdist_update_cuda(x, w, c, cvalid, mind2)
+    r = ref.min_sqdist_update(x, w, c, cvalid, mind2)
+    torch.testing.assert_close(new, r.mind2, **tol)
+    torch.testing.assert_close(cost, r.cost, rtol=tol["rtol"], atol=0.0)
+    if d != 14_433:
+        return
+    c1 = c[:1].contiguous()
+    out = fau.fused_assign_update_cuda(x, w, c1)
+    r = ref.assign_update(x, w, c1)
+    assert bool((out[0] == 0).all()) and bool(torch.isinf(out[2]).all())
+    torch.testing.assert_close(out[1], r.d1, **tol)
+    scale, _ = ref.cluster_sums(x.abs(), w, out[0], 1)
+    assert bool(((out[3] - r.sums).abs() <= tol["atol"] + tol["rtol"] * scale).all())
+    torch.testing.assert_close(out[4], r.counts, **tol)
+    torch.testing.assert_close(out[5], r.err, rtol=tol["rtol"], atol=0.0)
+    act = torch.from_numpy(rng.rand(n) < 0.5).cuda()
+    p = fau.fused_assign_update_pruned_cuda(x, w, c1, out[0], act)
+    assert torch.equal(p[0], out[0])
+    assert torch.equal(p[3], out[3]) and torch.equal(p[4], out[4])
+    torch.testing.assert_close(p[1][act], out[1][act], **tol)
+    torch.testing.assert_close(p[5], (w * out[1])[act].sum(), rtol=tol["rtol"], atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [19, 300])
+def test_fold_tiling_leaves_the_bits_as_they_are(cuda_b45, d, dtype):
+    """A smaller shared partial (the private ``_part_floats``) tiles B4's
+    clusters and then its columns more finely; each element is still summed
+    by one thread in row order, so the sums and counts keep their bits. More
+    than 128·256 rows, so each fold CTA streams two or more tiles, and ids
+    outside [0, K) among them."""
+    cu, _ = cuda_b45
+    n, k = 70_001, 40
+    x, w, _ = _data(n, d, 1, dtype, seed=d)
+    ids = torch.from_numpy(np.random.RandomState(d).randint(-1, k + 1, n).astype(np.int32)).cuda()
+    base = cu.cluster_sums_cuda(x, w, ids, k)
+    for cap in (3 * (d + 1), d + 1, 40, 7):
+        out = cu.cluster_sums_cuda(x, w, ids, k, _part_floats=cap)
+        assert torch.equal(out[0], base[0]) and torch.equal(out[1], base[1]), cap

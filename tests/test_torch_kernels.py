@@ -348,18 +348,81 @@ def test_seams_take_the_plain_path_only_for_cpu_tensors():
         ops.assign_top2(x, x[:2].to("meta"))
 
 
-def test_scan_width_limit_is_the_widest_d_with_four_candidates_resident():
-    """The scan keeps at least four candidates of d features in a CTA's
-    227 KB of shared memory (``csrc/top2.cuh::scan_shape``): 16·(dxp + 1)
-    bytes, features padded to a multiple of 32 past d = 19, within 231,424
-    dynamic bytes. The wrappers name the limit in their error."""
-    from repro_torch.kernels.distance_assign import SCAN_MAX_D, check_width
+# Past both widths the port's kernels once refused: the scan's four resident
+# candidates (d > 14,432) and B4's shared partial (d + 1 > 40,960). On the CPU
+# each seam takes its plain version; tests/test_torch_cuda.py holds the
+# kernels at these widths on the card.
+WIDE_D = [14_433, 40_960]
+WIDE_SEAMS = ["assign_top2", "assign_update", "assign_update_pruned", "cluster_sums",
+              "min_sqdist_update"]
 
-    def fits(d):
-        dxp = 19 if d <= 19 else -(-d // 32) * 32
-        return 16 * (dxp + 1) <= 232_448 - 1024
 
-    assert fits(SCAN_MAX_D) and not fits(SCAN_MAX_D + 1)
-    check_width(SCAN_MAX_D)
-    with pytest.raises(ValueError, match="at most 14432 features"):
-        check_width(SCAN_MAX_D + 1)
+@pytest.mark.parametrize("seam", WIDE_SEAMS)
+@pytest.mark.parametrize("d", WIDE_D)
+def test_seams_take_rows_past_the_old_width_limits(d, seam):
+    n, k = 48, 5
+    x, w, c = _data(n, d, k, seed=d % 101, wmode="zeros-some")
+    jx, jw, jc = map(jnp.asarray, (x, w, c))
+    tx, tw, tc = map(torch.from_numpy, (x, w, c))
+    tol = TOL["float32"]
+    rng = np.random.RandomState(d % 103)
+    if seam == "assign_top2":
+        a, d1, d2 = ops.assign_top2(tx, tc)
+        _, rd1, rd2 = jops.assign_top2(jx, jc, impl="ref")
+        _assert_labels(x, c, _np(a), tol)
+        np.testing.assert_allclose(_np(d1), np.asarray(rd1), **tol)
+        np.testing.assert_allclose(_np(d2), np.asarray(rd2), **tol)
+    elif seam == "assign_update":
+        out = ops.assign_update(tx, tw, tc)
+        r = jops.assign_update(jx, jw, jc, impl="ref")
+        _assert_labels(x, c, _np(out.assign), tol)
+        for f in ("d1", "d2", "sums", "counts"):
+            np.testing.assert_allclose(_np(getattr(out, f)), np.asarray(getattr(r, f)), **tol)
+        np.testing.assert_allclose(float(out.err), float(r.err), rtol=1e-5)
+        assert float(out.n_dist) == float(r.n_dist)
+    elif seam == "assign_update_pruned":
+        cached = rng.randint(0, k, n).astype(np.int32)
+        active = rng.rand(n) < 0.5
+        out = ops.assign_update_pruned(tx, tw, tc, torch.from_numpy(cached),
+                                       torch.from_numpy(active))
+        r = jops.assign_update_pruned(jx, jw, jc, jnp.asarray(cached), jnp.asarray(active),
+                                      impl="ref")
+        np.testing.assert_array_equal(_np(out.assign)[~active], cached[~active])
+        _assert_labels(x[active], c, _np(out.assign)[active], tol)
+        for f in ("d1", "d2"):
+            np.testing.assert_allclose(_np(getattr(out, f))[active],
+                                       np.asarray(getattr(r, f))[active], **tol)
+        for f in ("sums", "counts"):
+            np.testing.assert_allclose(_np(getattr(out, f)), np.asarray(getattr(r, f)), **tol)
+        np.testing.assert_allclose(float(out.err), float(r.err), rtol=1e-5)
+        assert float(out.n_dist) == float(r.n_dist)
+    elif seam == "cluster_sums":
+        assign = rng.randint(0, k, n).astype(np.int32)
+        sums, counts = ops.cluster_sums(tx, tw, torch.from_numpy(assign), k)
+        rs, rc = jops.cluster_sums(jx, jw, jnp.asarray(assign), k, impl="ref")
+        assert sums.shape == (k, d)
+        np.testing.assert_allclose(_np(sums), np.asarray(rs), **tol)
+        np.testing.assert_allclose(_np(counts), np.asarray(rc), **tol)
+    else:
+        cand, cvalid, mind2 = _fold_inputs(n, d, k, False, seed=d % 107)
+        args = (x, w, cand, cvalid, mind2)
+        out = ops.min_sqdist_update(*map(torch.from_numpy, args))
+        r = jops.min_sqdist_update(*map(jnp.asarray, args), impl="ref")
+        np.testing.assert_allclose(_np(out.mind2), np.asarray(r.mind2), **tol)
+        np.testing.assert_allclose(float(out.cost), float(r.cost), rtol=1e-5)
+        assert float(out.n_dist) == float(r.n_dist)
+
+
+def test_predict_and_score_past_the_old_scan_width():
+    """A model at d = 14,433, in chunks of 32 rows (the last one ragged):
+    labels at the minimum distance, and ``score`` the sum of the minima."""
+    from repro_torch import BWKM
+
+    x, _, c = _data(70, 14_433, 4, seed=17)
+    model = BWKM.from_centroids(c, device="cpu", chunk_size=32)
+    labels = model.predict(x)
+    dd = np.asarray(jref.pairwise_sqdist(jnp.asarray(x), jnp.asarray(c)))
+    assert labels.shape == (70,) and labels.dtype == torch.int32
+    np.testing.assert_allclose(dd[np.arange(70), labels.numpy()], dd.min(1), **TOL["float32"])
+    np.testing.assert_allclose(model.score(x), float(dd.min(1).astype(np.float64).sum()),
+                               rtol=1e-5)
