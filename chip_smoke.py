@@ -5,7 +5,8 @@ Run from the root of the repository:
 
     python3 chip_smoke.py            # the check; needs one CUDA device
     python3 chip_smoke.py --profile DIR  # and torch.profiler breakdowns of the
-                                         # fit and of k-means||, tables in DIR
+                                         # fit, of k-means||, of the streaming fit
+                                         # and of streaming k-means||, tables in DIR
     python3 chip_smoke.py --parent DIR   # and phase 5 times the kernels built from
                                          # DIR/src/repro_torch/kernels/csrc (an
                                          # earlier commit, same C interface) in
@@ -67,6 +68,27 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    walls of the SUSY fit and of k-means|| at K = 27 and K = 100 are taken
    with the parent's package and with this one, each in a process of its
    own (parent, this, this, parent; three timed runs each).
+
+6. (run right after phase 2, before the data goes on the card, so that the
+   fit's peak memory is its own) the streaming engine: the same SUSY array
+   written by ``write_npy_shards`` as 20 shards of 250,000 rows and streamed
+   by glob in 65,536-row chunks (77, the last ragged). ``BWKM(k=27).fit(glob)``
+   must take the streaming engine, stream ``passes × n`` rows exactly and
+   peak under 256 MiB of device memory; its streamed block statistics
+   against one ``block_stats`` over all rows from the plane's host
+   memberships (counts and boxes bit-equal, sums within 1e-5 of Σ|x|);
+   ``predict(glob)`` / ``score(glob)`` bit-equal to ``predict(x)`` /
+   ``score(x)`` on the resident tensor and ``score`` within 1e-4 of float64;
+   ``kmeans_parallel_streaming`` at K = 27 (weighting by B2) and K = 100 (B1
+   then B4): rounds + 1 passes, weighting counts summing to n, each pass's
+   first-chunk B5 fold against the plain fold, the last φ within 1e-5 of the
+   float64 fold; ``streaming_lloyd`` from the fit's centroids pruned and
+   dense, bit-equal; and, over the first 500,000 rows through
+   ``ResilientChunkSource``, a fit under seeded transient faults bit-equal
+   to the clean fit with ``retries`` equal to the schedule's faults, and
+   ``quarantined_rows`` equal to the rows a ``CorruptChunkSource`` poisoned.
+   The launches of each of its paths are read just after the path. The
+   streamed score's gap to phase 4's in-core fit is printed, not gated.
 
 Then the card's name and power limit, one JSON line of kernel records, and
 the result line ``{"ok": true, "device": {...}}`` last. Without a CUDA
@@ -547,7 +569,7 @@ def phase_fit(torch, repro_torch, ref, da, fau, x, parent):
     check(worst <= 1e-5, "a label is farther than f32 rounding (1e-5·‖x‖²) from the float64 argmin")
     for name, cnt in launches.items():
         check(cnt > 0, f"kernel {name} was not launched on the main path")
-    return launches
+    return launches, score
 
 
 def _weighting_sums_vs_f64(torch, x, au):
@@ -757,6 +779,264 @@ def phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops, ref, counters, x):
           + ", ".join(f"{b:+.3e}" for _, b, _ in fold_rows) + "; limit "
           + ", ".join(f"{lim:.3e}" for _, _, lim in fold_rows))
     return total, {k: seen[k] for k in (27, 100)}, [a for a, _ in rep_folds]
+
+
+# ---------------------------------------------------------------- phase 6
+STREAM_SHARD_ROWS = 250_000
+STREAM_PEAK_LIMIT = 256 << 20  # bytes: two chunks, block_stats' scratch, a route tile, M·d state
+
+
+def _cost_f64(torch, x, cand, rows=16_384):
+    """Σ over rows of the squared distance to the nearest of ``cand``, from
+    float64 distances (the decomposition, in float64)."""
+    c = cand.double()
+    cn = (c * c).sum(1)
+    total = torch.zeros((), dtype=torch.float64, device=x.device)
+    for i in range(0, x.shape[0], rows):
+        xc = x[i : i + rows].double()
+        dd = (xc * xc).sum(1)[:, None] - 2.0 * (xc @ c.T) + cn[None]
+        total += dd.clamp(min=0.0).min(1).values.sum()
+    return float(total)
+
+
+def _zero(counters):
+    for f in counters.values():
+        f.launches = 0
+
+
+def _read(counters):
+    return {b: f.launches for b, f in counters.items()}
+
+
+def _stream_fit(torch, repro_torch, glob, counters, planes):
+    from repro_torch.engine import streaming as eng
+
+    class Recorded(eng.StreamingPlane):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            planes.append(self)
+
+    plain = eng.StreamingPlane
+    _zero(counters)
+    eng.StreamingPlane = Recorded
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = repro_torch.BWKM(k=SUSY_K).fit(glob)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eng.StreamingPlane = plain
+    return model, wall, torch.cuda.max_memory_allocated(), _read(counters)
+
+
+def _stream_kmeans_ll(torch, rnd, ops, ref, fau, counters, glob, x, k):
+    """Streaming k-means|| at ``k`` over the shards, with the B5 fold of each
+    pass's first chunk held against the plain fold, the weighting counts
+    summed, the last φ held against the float64 fold of every candidate
+    folded so far, and the weighting pass's route checked."""
+    from repro_torch import streaming
+    from repro_torch.data.chunks import as_chunk_source
+
+    n = x.shape[0]
+    src = as_chunk_source(glob, CHUNK)
+    plain = {"min_sqdist_update_chunk": ops.min_sqdist_update_chunk,
+             "assign_update_chunk": ops.assign_update_chunk}
+    calls = {name: [] for name in plain}
+
+    def spy(name):
+        def inner(*a, **kw):
+            out = plain[name](*a, **kw)
+            calls[name].append((a, out))
+            return out
+        return inner
+
+    _zero(counters)
+    for name in plain:
+        setattr(ops, name, spy(name))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = streaming.kmeans_parallel_streaming(rnd.key(0), src, k)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for name, fn in plain.items():
+            setattr(ops, name, fn)
+    launches = _read(counters)
+    folds = calls["min_sqdist_update_chunk"]
+    weigh = calls["assign_update_chunk"]
+    nc = src.n_chunks
+    check(len(folds) % nc == 0 and len(weigh) == nc,
+          f"k-means|| K={k}: {len(folds)} fold and {len(weigh)} weighting chunk calls")
+    check(out.passes == 5 + 1 == len(folds) // nc + 1,
+          f"k-means|| K={k}: {out.passes} passes, not rounds + 1 = 6")
+    check(tuple(out.centroids.shape) == (k, x.shape[1]) and bool(torch.isfinite(out.centroids).all()),
+          f"k-means|| K={k}: seeds not finite [{k}, 19]")
+    total = sum(float(au.counts.double().sum()) for _, au in weigh)
+    check(total == n, f"k-means|| K={k}: weighting counts add up to {total}, not {n}")
+    firsts = [(a, o) for a, o in folds[::nc]]
+    fold_m, fold_c = _folds_vs_plain(torch, ref, [(a[:5], o) for a, o in firsts])
+    last_phi = sum(float(o.cost.double()) for _, o in folds[-nc:])
+    check(last_phi == out.normalisers[-1],
+          f"k-means|| K={k}: the last fold's chunk costs sum to {last_phi!r}, φ is {out.normalisers[-1]!r}")
+    cands = torch.cat([a[2][a[3] > 0] for a, _ in firsts])
+    phi64 = _cost_f64(torch, x, cands)
+    gap = (last_phi - phi64) / phi64
+    check(abs(gap) <= 1e-5, f"k-means|| K={k}: φ {last_phi!r} is {gap:+.3e} off the float64 fold")
+    route = ("B2",) if fau.fused_supported(x.shape[1], out.n_candidates) else ("B1", "B4")
+    check(launches["B5"] == len(folds) and all(launches[b] >= nc for b in route),
+          f"k-means|| K={k}: launches {launches}, weighting route {route}")
+    print(f"[stream] kmeans_parallel_streaming K={k}: wall_s={wall:.3f} passes={out.passes} "
+          f"candidates={out.n_candidates} weighting {'+'.join(route)} launches={launches}; "
+          f"first-chunk folds vs plain: min-d² max abs err {fold_m:.3g}, cost max rel err "
+          f"{fold_c:.3g}; last φ vs float64 over {cands.shape[0]} candidates {gap:+.3e}")
+    return launches
+
+
+def phase_stream(torch, repro_torch, rnd, ops, ref, fau, partition, counters, xs):
+    """Phase 6: the streaming engine over the SUSY profile written as 20
+    ``.npy`` shards, run before the data goes on the card so that the
+    fit's peak memory is its own. Returns the launches of its paths summed,
+    the data on the card, and the streamed fit's score."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import streaming
+    from repro_torch.data.chunks import ArrayChunkSource, as_chunk_source, write_npy_shards
+    from repro_torch.data.resilient import ResilientChunkSource, RetryPolicy
+    from repro_torch.testing.faults import (
+        CorruptChunkSource, FakeClock, FlakyIOSource, seeded_fault_schedule,
+    )
+
+    n = xs.shape[0]
+    total = dict.fromkeys(counters, 0)
+    with tempfile.TemporaryDirectory(prefix="bwkm_shards_") as tmp:
+        t0 = time.perf_counter()
+        paths = write_npy_shards(xs, tmp, rows_per_shard=STREAM_SHARD_ROWS)
+        glob = f"{tmp}/*.npy"
+        check(len(paths) == 20, f"{len(paths)} shards written, not 20")
+        print(f"[stream] {len(paths)} shards of {STREAM_SHARD_ROWS:,} rows written in "
+              f"{time.perf_counter() - t0:.1f} s; streamed by glob in {CHUNK:,}-row chunks")
+        # 1. the fit
+        planes = []
+        model, wall, peak, launches = _stream_fit(torch, repro_torch, glob, counters, planes)
+        res, md = model.result_, model.result_.metadata
+        print(f"[stream] BWKM(k={SUSY_K}).fit(glob): engine={model.engine_} "
+              f"stop_reason={res.stop_reason} iterations={res.iterations} "
+              f"blocks={md['n_blocks'][-1]} passes={md['passes']} "
+              f"points_streamed={md['points_streamed']} chunks={md['n_chunks']} wall_s={wall:.3f} "
+              f"peak_mem_MiB={peak / 2**20:.1f} launches={launches}")
+        check(model.engine_ == "streaming", f"fit(glob) took engine {model.engine_!r}")
+        check(md["n_chunks"] == -(-n // CHUNK) == 77 and md["chunk_size"] == CHUNK,
+              f"{md['n_chunks']} chunks of {md['chunk_size']}")
+        check(md["points_streamed"] == md["passes"] * n,
+              f"points_streamed {md['points_streamed']} != passes {md['passes']} × n")
+        check(peak < STREAM_PEAK_LIMIT, f"streaming fit peak {peak / 2**20:.1f} MiB ≥ 256 MiB")
+        c = model.centroids_
+        check(tuple(c.shape) == (SUSY_K, xs.shape[1]) and bool(torch.isfinite(c).all()),
+              "streamed centroids not finite [27, 19]")
+        for b in ("B1", "B2", "B3"):
+            check(launches[b] > 0, f"streaming fit: kernel {b} was not launched")
+        for b in total:
+            total[b] += launches[b]
+        # 2. the streamed statistics against one recomputation over all rows
+        x = torch.from_numpy(xs).cuda()
+        part = md["partition"]
+        bids = torch.from_numpy(np.concatenate(planes[0].bids)).cuda()
+        check(bids.shape[0] == n, f"{bids.shape[0]} host memberships, not {n}")
+        one = partition.block_stats(x, bids, part.capacity)
+        check(torch.equal(one.count, part.count), "streamed block counts differ from one pass")
+        check(float(part.count.double().sum()) == n, "streamed block counts do not add up to n")
+        check(torch.equal(one.lo, part.lo) and torch.equal(one.hi, part.hi),
+              "streamed block boxes differ from one pass")
+        absum = partition.block_stats(x.abs(), bids, part.capacity).psum.double()
+        psum_gap = float(((part.psum.double() - one.psum.double()).abs()
+                          / absum.clamp(min=1e-30)).max())
+        check(psum_gap <= 1e-5, f"streamed block sums {psum_gap:.3e} of Σ|x| off one pass")
+        print(f"[stream] block statistics vs one pass over all {n:,} rows: counts and boxes "
+              f"bit-equal over {int(part.n_blocks)} blocks, sums within {psum_gap:.3e} of Σ|x|")
+        del one, absum, bids
+        # 3. out-of-core predict/score against in memory
+        _zero(counters)
+        t0 = time.perf_counter()
+        lab_glob = model.predict(glob)
+        torch.cuda.synchronize()
+        t_pred = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s_glob = model.score(glob)
+        t_score = time.perf_counter() - t0
+        launches = _read(counters)
+        check(launches["B1"] == 2 * md["n_chunks"], f"out-of-core predict/score launches {launches}")
+        total["B1"] += launches["B1"]
+        lab_x, s_x = model.predict(x), model.score(x)
+        check(torch.equal(lab_glob, lab_x), "predict(glob) differs from predict(x)")
+        check(s_glob == s_x, f"score(glob) {s_glob!r} != score(x) {s_x!r}")
+        ref_score = _score_f64(torch, x, c)
+        check(abs(s_glob - ref_score) <= 1e-4 * abs(ref_score),
+              f"score(glob) {s_glob} vs float64 {ref_score}")
+        print(f"[stream] predict(glob) bit-equal to predict(x), score(glob) == score(x) = "
+              f"{s_glob!r} (vs float64 {(s_glob - ref_score) / ref_score:+.3e}); "
+              f"predict_s={t_pred:.3f} score_s={t_score:.3f}")
+        # 4. streaming k-means||
+        for k in (27, 100):
+            launches = _stream_kmeans_ll(torch, rnd, ops, ref, fau, counters, glob, x, k)
+            for b in total:
+                total[b] += launches[b]
+        # 5. full-stream Lloyd, pruned and dense
+        src = as_chunk_source(glob, CHUNK)
+        runs = {}
+        for prune in (True, False):
+            _zero(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[prune] = streaming.streaming_lloyd(src, c, max_iters=10, prune=prune)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read(counters)
+            r = runs[prune]
+            print(f"[stream] streaming_lloyd prune={prune}: wall_s={wall:.3f} iters={r.iters} "
+                  f"error={r.error!r} distances={r.distances:.0f} launches={launches} "
+                  f"active fractions {[round(a, 4) for a in r.active_fractions]}")
+            check(launches["B2" if not prune else "B3"] > 0, f"streaming_lloyd launches {launches}")
+            for b in total:
+                total[b] += launches[b]
+        pr, de = runs[True], runs[False]
+        check(pr.iters == de.iters, f"streaming_lloyd: {pr.iters} pruned iterations, {de.iters} dense")
+        check(torch.equal(pr.centroids, de.centroids), "streaming_lloyd: pruned != dense centroids")
+        check(pr.distances < de.distances, "streaming_lloyd: pruning saved no distance")
+    # 6. faults, on the first 500,000 rows (8 chunks)
+    base = ArrayChunkSource(xs[:500_000], CHUNK)
+    sched = seeded_fault_schedule(base.n_chunks, rate=0.4, seed=1, fails=2)
+    check(bool(sched), "the seeded fault schedule is empty")
+
+    def resilient(inner):
+        clock = FakeClock()
+        return ResilientChunkSource(inner, policy=RetryPolicy(max_attempts=4, base_delay_s=0.001),
+                                    sleep=clock.sleep, clock=clock.time)
+
+    clean = repro_torch.BWKM(k=SUSY_K).fit(base).result_
+    flaky = repro_torch.BWKM(k=SUSY_K).fit(resilient(FlakyIOSource(base, sched))).result_
+    check(torch.equal(clean.centroids, flaky.centroids)
+          and clean.metadata["n_blocks"] == flaky.metadata["n_blocks"]
+          and clean.stop_reason == flaky.stop_reason,
+          "the fit under transient faults differs from the clean fit")
+    check(flaky.metadata["health"]["retries"] == sum(sched.values()),
+          f"retries {flaky.metadata['health']['retries']}, schedule {sched}")
+    corrupt = CorruptChunkSource(base, {2: 5, 6: 3})
+    bad = repro_torch.BWKM(k=SUSY_K).fit(resilient(corrupt)).result_
+    want_q = (5 + 3) * bad.metadata["passes"]  # the same rows are poisoned on every pass
+    check(bad.metadata["health"]["quarantined_rows"] == want_q,
+          f"quarantined {bad.metadata['health']['quarantined_rows']} rows, corrupted {want_q}")
+    check(bool(torch.isfinite(bad.centroids).all()), "the fit over corrupt chunks is not finite")
+    print(f"[stream] faults over 500,000 rows ({base.n_chunks} chunks): schedule {sched} -> "
+          f"bit-identical fit ({clean.stop_reason}, {clean.iterations} iterations), retries "
+          f"{flaky.metadata['health']['retries']}; 8 corrupt rows a pass over "
+          f"{bad.metadata['passes']} passes -> quarantined_rows "
+          f"{bad.metadata['health']['quarantined_rows']}")
+    return total, x, s_glob
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1254,6 +1534,41 @@ def phase_profile(torch, repro_torch, rnd, x, out_dir: pathlib.Path):
                          (ops, "assign_update"): "span:weighting pass",
                          (kmeanspp, "weighted_kmeanspp"): "span:kmeans++ reduction",
                      }, out_dir / f"kmeans_ll_k{k}_profile.txt")
+    _profile_stream(torch, repro_torch, rnd, x, out_dir)
+
+
+def _profile_stream(torch, repro_torch, rnd, x, out_dir: pathlib.Path):
+    """The streaming fit and streaming k-means|| at K = 27 over the data as
+    20 shards, profiled with spans around the passes and their steps."""
+    import tempfile
+
+    from repro_torch import streaming
+    from repro_torch.core import kmeanspp, lloyd, partition
+    from repro_torch.data.chunks import as_chunk_source, write_npy_shards
+    from repro_torch.engine import streaming as eng
+    from repro_torch.kernels import ops
+
+    with tempfile.TemporaryDirectory(prefix="bwkm_shards_") as tmp:
+        write_npy_shards(x.cpu().numpy(), tmp, rows_per_shard=STREAM_SHARD_ROWS)
+        glob = f"{tmp}/*.npy"
+        _profile_run(torch, "streaming fit", lambda: repro_torch.BWKM(k=SUSY_K).fit(glob), {
+            (eng, "streaming_initial_partition"): "span:sample pass and Algorithms 2-4",
+            (eng, "_routing_pass"): "span:routing pass",
+            (eng, "_split_pass"): "span:split passes",
+            (partition, "route_into_boxes"): "span:route_into_boxes",
+            (partition, "block_stats"): "span:block_stats",
+            (partition, "route_split"): "span:route_split",
+            (lloyd, "weighted_lloyd"): "span:lloyd_over_reps",
+        }, out_dir / "susy_stream_fit_profile.txt")
+        src = as_chunk_source(glob, CHUNK)
+        _profile_run(torch, "streaming kmeans|| K=27",
+                     lambda: streaming.kmeans_parallel_streaming(rnd.key(0), src, SUSY_K), {
+                         (ops, "min_sqdist_update_chunk"): "span:fold (B5)",
+                         (eng.StreamLLSession, "begin_round"): "span:begin_round (folds, draws)",
+                         (eng.StreamLLSession, "select"): "span:select and gather",
+                         (ops, "assign_update_chunk"): "span:weighting (B2)",
+                         (kmeanspp, "weighted_kmeanspp"): "span:kmeans++ reduction",
+                     }, out_dir / "susy_stream_kmeans_ll_profile.txt")
 
 
 # ---------------------------------------------------------------- main
@@ -1320,10 +1635,17 @@ def main(argv) -> int:
     print(f"[kernels] wide rows (d = {WIDE_D[0]:,} and {WIDE_D[1]:,}, 300 rows, K = 5; B2/B3 "
           f"at K = 1, d = {WIDE_D[0]:,}) match their plain versions (f32 tol 1e-5, sums to "
           "Σ|terms|); max abs err: " + ", ".join(f"{b} {v:.3g}" for b, v in wide.items()))
-    # phase 4's data, used by phase 3's full-width checks as well
+    counters = {"B1": da.assign_top2_cuda, "B2": fau.fused_assign_update_cuda,
+                "B3": fau.fused_assign_update_pruned_cuda, "B4": cu.cluster_sums_cuda,
+                "B5": msu.min_sqdist_update_cuda}
+    # phase 6 first: the streaming engine over the data as shards, before the
+    # data goes on the card; it leaves the data on the card for phases 3–5
     t0 = time.perf_counter()
-    x = torch.from_numpy(paper_dataset("SUSY", seed=0)).cuda()
-    print(f"[data] SUSY profile {tuple(x.shape)} on the card in {time.perf_counter() - t0:.1f} s")
+    xs = paper_dataset("SUSY", seed=0)
+    print(f"[data] SUSY profile {xs.shape} made in {time.perf_counter() - t0:.1f} s")
+    stream_launches, x, stream_score = phase_stream(torch, repro_torch, rnd, ops, ref, fau,
+                                                    partition, counters, xs)
+    del xs
     # phase 3
     phase_determinism(torch, ops, da, fau, cu, msu, partition, x, kmeans_ll._FAR)
     print("[determinism] pruned == dense bit for bit at 0/10/100 % active (fused at the "
@@ -1331,13 +1653,14 @@ def main(argv) -> int:
           "18,000); two B2 runs at each of those shapes, two full-n B1, B4 and B5 runs and two "
           "full-n block_stats runs bit-equal; full-n B5 over 400 slots == B5 over its valid ones")
     # phase 4
-    launches = phase_fit(torch, repro_torch, ref, da, fau, x, parent)
-    counters = {"B1": da.assign_top2_cuda, "B2": fau.fused_assign_update_cuda,
-                "B3": fau.fused_assign_update_pruned_cuda, "B4": cu.cluster_sums_cuda,
-                "B5": msu.min_sqdist_update_cuda}
+    launches, incore_score = phase_fit(torch, repro_torch, ref, da, fau, x, parent)
+    print(f"[stream] the streamed fit's score against the in-core fit's: "
+          f"{(stream_score - incore_score) / incore_score:+.3e} (reported, not gated)")
     ll_launches, ll_path, rep_folds = phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops,
                                                       ref, counters, x)
     launches.update(B4=ll_launches["B4"], B5=ll_launches["B5"])
+    for b in launches:
+        launches[b] += stream_launches[b]
     # phase 5
     times = phase_times(torch, ref, da, fau, cu, msu, x, ll_path, rep_folds, parent)
     if parent is not None:

@@ -1,13 +1,19 @@
 """``repro_torch.BWKM`` — the estimator. Counterpart of ``repro.api.estimator``.
 
-    >>> model = BWKM(k=27).fit(x)          # x: [n, d] tensor or array; runs on CUDA
-    >>> labels = model.predict(x)          # int32 tensor on the model's device
-    >>> model.score(x), model.result_.stop_reason
+    >>> model = BWKM(k=27).fit(x)                 # x: [n, d] tensor or array; runs on CUDA
+    >>> model = BWKM(k=27).fit("shards/*.npy")    # out of core: the streaming engine
+    >>> labels = model.predict("shards/*.npy")    # int32 tensor on the model's device
+    >>> model.score(x), model.result_.stop_reason, model.engine_
 
+``fit`` takes a tensor, an array or nested lists, a ``.npy`` path, a glob or
+a directory of shards, a list of shard paths, or any ``ChunkSource``
+(``repro_torch.api.adapters``); ``engines.select_engine`` picks the engine.
 The model runs on ``device`` ("cuda" unless the caller asks for another);
 without a CUDA device the default raises instead of carrying on on the CPU.
-``predict``/``score``/``transform`` walk the data in ``chunk_size`` slices
-through the chunk-shaped seams, so each slice is one kernel launch.
+``predict``/``score``/``transform`` walk the data in ``chunk_size`` chunks
+through the chunk-shaped seams, one kernel launch a chunk: a tensor already
+on the model's device is sliced where it lies, anything else streams through
+``padded_device_chunks``, so they take out-of-core inputs too.
 """
 
 from __future__ import annotations
@@ -17,41 +23,37 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch import random as rnd
-from repro_torch.api import engines
+from repro_torch.api import adapters, engines
 from repro_torch.api.inits import resolve_init
 from repro_torch.api.result import FitResult
 from repro_torch.core.bwkm import BWKMConfig
+from repro_torch.data.chunks import padded_device_chunks
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
 __all__ = ["BWKM", "DEFAULT_CHUNK_SIZE"]
 
-#: rows per chunk for predict/score/transform
+#: rows per chunk for the streaming engine and predict/score/transform
 DEFAULT_CHUNK_SIZE = 65_536
 
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(BWKMConfig)}
-
-
-def _resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch.BWKM runs on CUDA by default and no CUDA device is "
-            "available; pass device='cpu' to run the plain PyTorch path"
-        )
-    return device
 
 
 class BWKM:
     """Boundary Weighted K-means estimator (paper Algorithm 5).
 
     ``k`` clusters; ``device`` where the model and its data live; ``engine``
-    ``"auto"`` or ``"incore"``; ``init`` a name of ``repro_torch.api.inits``;
-    ``chunk_size`` rows per slice of predict/score/transform; ``seed`` the
-    default key (``fit(..., key=...)`` overrides it); ``trace`` records
-    per-iteration snapshots; ``config`` a prebuilt :class:`BWKMConfig`, or
-    its fields as keyword overrides.
+    ``"auto"``, ``"incore"`` or ``"streaming"``; ``init`` a name of
+    ``repro_torch.api.inits``; ``chunk_size`` rows per chunk of the
+    streaming engine and of predict/score/transform; ``seed`` the default
+    key (``fit(..., key=...)`` overrides it); ``trace`` records
+    per-iteration snapshots; ``incore_limit_bytes`` the size beyond which
+    ``engine="auto"`` streams data held in memory; ``config`` a prebuilt
+    :class:`BWKMConfig`, or its fields as keyword overrides (such as
+    ``init_sample_size``, the streaming engine's first-pass sample).
     """
 
     def __init__(
@@ -64,11 +66,13 @@ class BWKM:
         chunk_size: int = DEFAULT_CHUNK_SIZE,
         seed: int = 0,
         trace: bool = False,
+        incore_limit_bytes: int = engines.INCORE_LIMIT_BYTES,
         config: BWKMConfig | None = None,
         **config_overrides: Any,
     ):
-        self.device = _resolve_device(device)
-        engines.get_engine(engine)  # fail fast on typos and unported engines
+        self.device = resolve_device(device)
+        if engine != "auto":
+            engines.get_engine(engine)  # fail fast on typos and unported engines
         if config is not None:
             if k is not None and k != config.k:
                 raise ValueError(f"k={k} conflicts with config.k={config.k}")
@@ -94,6 +98,7 @@ class BWKM:
         self.chunk_size = int(chunk_size)
         self.seed = int(seed)
         self.trace = bool(trace)
+        self.incore_limit_bytes = int(incore_limit_bytes)
         self.result_: FitResult | None = None
         self.centroids_: torch.Tensor | None = None
         self.engine_: str | None = None
@@ -116,27 +121,19 @@ class BWKM:
     def init(self) -> str:
         return self.config.init
 
-    def _as_tensor(self, data: Any) -> torch.Tensor:
-        if isinstance(data, torch.Tensor):
-            return data.to(device=self.device, dtype=torch.float32)
-        if isinstance(data, (str, list, tuple)) or not hasattr(data, "__array__"):
-            raise NotImplementedError(
-                "repro_torch takes resident tensors and arrays; out-of-core "
-                "sources wait for ROADMAP queue A item 11 (streaming)"
-            )
-        # torch shares the array's memory, so a read-only array is copied
-        return torch.from_numpy(np.require(data, np.float32, ["C", "W"])).to(self.device)
-
     # ------------------------------------------------------------------ fit
     def fit(self, data: Any, *, key=None) -> "BWKM":
-        """Cluster ``data [n, d]`` (moved to the model's device as f32)."""
+        """Cluster ``data [n, d]`` with the selected (or auto-selected) engine."""
         if key is None:
             key = rnd.key(self.seed)
-        x = self._as_tensor(data)
-        res = engines.get_engine(self.engine).fit(key, x, self.config, trace_centroids=self.trace)
+        name = engines.select_engine(data, self.engine, incore_limit_bytes=self.incore_limit_bytes)
+        res = engines.get_engine(name).fit(
+            key, data, self.config,
+            chunk_size=self.chunk_size, trace_centroids=self.trace, device=self.device,
+        )
         self.result_ = res
         self.centroids_ = res.centroids
-        self.engine_ = res.engine
+        self.engine_ = name
         self.n_iter_ = res.iterations
         return self
 
@@ -146,18 +143,24 @@ class BWKM:
 
     # ------------------------------------------------- chunked inference ops
     def _chunks(self, data: Any):
+        """``(x, n_valid)`` per chunk on the model's device, every chunk the
+        same number of rows, zero padding past ``n_valid``."""
         if self.centroids_ is None:
             raise RuntimeError("this BWKM instance is not fitted yet; call fit()")
-        x = self._as_tensor(data)
-        for i in range(0, x.shape[0], self.chunk_size):
-            yield x[i : i + self.chunk_size]
+        if isinstance(data, torch.Tensor) and data.device == self.device:
+            x, cs = data.float(), self.chunk_size
+            for i in range(0, x.shape[0], cs):
+                nv = min(cs, x.shape[0] - i)
+                yield (x[i : i + cs] if nv == cs else F.pad(x[i:], (0, 0, 0, cs - nv))), nv
+            return
+        yield from padded_device_chunks(adapters.to_chunk_source(data, self.chunk_size), self.device)
 
     def predict(self, data: Any) -> torch.Tensor:
         """Closest-centroid labels ``int32 [n]``, one kernel launch per chunk."""
         c = self.centroids_
         out = [torch.zeros(0, dtype=torch.int32, device=self.device)]
-        for x in self._chunks(data):
-            out.append(ops.assign_top2_chunk(x, c, chunk_size=self.chunk_size)[0])
+        for x, nv in self._chunks(data):
+            out.append(ops.assign_top2_chunk(x, c, chunk_size=x.shape[0])[0][:nv])
         return torch.cat(out)
 
     def score(self, data: Any) -> float:
@@ -165,17 +168,17 @@ class BWKM:
         the device across chunks; one host sync at the end."""
         c = self.centroids_
         err = torch.zeros((), dtype=torch.float64, device=self.device)
-        for x in self._chunks(data):
-            _, d1, _ = ops.assign_top2_chunk(x, c, chunk_size=self.chunk_size)
-            err = err + d1.sum(dtype=torch.float64)
+        for x, nv in self._chunks(data):
+            _, d1, _ = ops.assign_top2_chunk(x, c, chunk_size=x.shape[0])
+            err = err + d1[:nv].sum(dtype=torch.float64)
         return float(err)
 
     def transform(self, data: Any) -> torch.Tensor:
         """Squared distances to every centroid, ``f32 [n, K]``, chunked."""
         c = self.centroids_
         out = [torch.zeros(0, c.shape[0], device=self.device)]
-        for x in self._chunks(data):
-            out.append(ops.pairwise_sqdist_chunk(x, c, chunk_size=self.chunk_size))
+        for x, nv in self._chunks(data):
+            out.append(ops.pairwise_sqdist_chunk(x, c, chunk_size=x.shape[0])[:nv])
         return torch.cat(out)
 
     def __repr__(self) -> str:

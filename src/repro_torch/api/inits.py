@@ -1,8 +1,16 @@
 """Name-based registry of seeding strategies. Counterpart of ``repro.api.inits``.
 
+A strategy bundles the two places a driver needs randomness before Lloyd:
+``seed_centroids`` picks the K initial centroids from a weighted point set
+(BWKM's representatives), and ``sample`` draws the first-pass uniform sample
+the streaming engine builds its initial partition from (default
+:func:`~repro_torch.data.chunks.reservoir_sample`).
+
 The port has ``kmeans++`` (the default, paper Algorithm 5 Step 1),
-``kmeans||`` and ``forgy``. The reference's other strategies are named here
-so that asking for one says which ROADMAP item brings it.
+``kmeans||``, ``forgy`` and ``reservoir`` (the streaming-native name of
+``kmeans++``: a reservoir sample for the initial partition, then weighted
+K-means++ on the representatives). The reference's other strategies are
+named here so that asking for one says which ROADMAP item brings it.
 """
 
 from __future__ import annotations
@@ -11,6 +19,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.core import kmeans_ll, kmeanspp
+from repro_torch.data.chunks import reservoir_sample
 
 __all__ = ["InitStrategy", "resolve_init"]
 
@@ -20,6 +29,7 @@ class InitStrategy:
     name: str
     description: str
     seed_centroids: Callable  # (key, points [n,d], weights [n], k) -> [k,d]
+    sample: Callable = reservoir_sample  # (ChunkSource, size, seed) -> ndarray
 
 
 _REGISTRY = {
@@ -43,6 +53,13 @@ _REGISTRY = {
             "K rows drawn weight-proportionally without replacement (the paper's FKM seeding)",
             lambda key, x, w, k: kmeanspp.forgy(key, x, k, w),
         ),
+        InitStrategy(
+            "reservoir",
+            "one-pass reservoir sample for the streaming engine's initial "
+            "partition, then weighted K-means++ (as 'kmeans++' in core, where "
+            "no sampling pass exists)",
+            kmeanspp.weighted_kmeanspp,
+        ),
     )
 }
 _ALIASES = {
@@ -57,7 +74,6 @@ _ALIASES = {
 _NOT_PORTED = {
     "afkmc2": "queue A item 10 (baselines)",
     "kmc2": "queue A item 10 (baselines)",
-    "reservoir": "queue A item 11 (streaming)",
 }
 
 

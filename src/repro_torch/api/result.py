@@ -11,7 +11,9 @@ __all__ = ["FitResult", "from_driver_result"]
 @dataclasses.dataclass
 class FitResult:
     """What a fit reports. ``metadata`` carries the block counts, boundary
-    sizes, weighted errors, the final ``Partition`` and the health ledger."""
+    sizes, weighted errors, the final ``Partition`` and the health ledger,
+    and for the streaming engine the passes, rows streamed, chunks and
+    chunk size."""
 
     centroids: Any  # [K, d] torch.Tensor
     distances: float  # total distance computations (the paper's cost unit)
@@ -34,6 +36,12 @@ def from_driver_result(res: Any, engine: str) -> FitResult:
         "weighted_errors": list(res.weighted_errors),
         "partition": res.partition,
     }
+    stream = getattr(res, "stream", None)
+    if stream is not None:
+        metadata["passes"] = stream.passes
+        metadata["points_streamed"] = stream.points_streamed
+        metadata["n_chunks"] = stream.n_chunks
+        metadata["chunk_size"] = stream.chunk_size
     health = getattr(res, "health", None)
     if health is not None:
         metadata["health"] = health.as_dict()

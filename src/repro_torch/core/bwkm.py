@@ -47,6 +47,8 @@ class BWKMConfig:
     displacement_epsilon: float | None = None  # Thm A.4's ε (on E^D scale)
     gap_bound_threshold: float | None = None  # Thm 2 stopping threshold
     init: str = "kmeans++"  # seeding strategy (repro_torch.api.inits)
+    init_sample_size: int | None = None  # streaming first-pass sample rows;
+    # None = the engine's default (the in-core engine has no such pass)
     prune: bool | None = None  # drift-bound pruned Lloyd; None = default (on)
 
     def resolve(self, n: int, d: int) -> dict[str, Any]:

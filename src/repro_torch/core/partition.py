@@ -14,6 +14,14 @@ minimum and maximum as the first and last key of its run, and the sums are
 taken in 64-bit fixed point, whose addition is exact and so does not depend
 on the order of the terms. No float atomics are involved, and no block's
 reduction is serialised on one thread however skewed the partition is.
+
+The streaming plane folds statistics chunk by chunk: :func:`block_stats`
+masks a chunk's padding rows through ``valid``, and
+:func:`combine_block_stats` adds the chunks' sums in f32 in chunk order and
+takes their minima and maxima exactly, as the reference does, so a streamed
+fit is deterministic too. :func:`route_into_boxes` routes a chunk into the
+boxes of a partition built from a sample, tiled so that its ``[rows, M, d]``
+temporaries stay under a byte budget.
 """
 
 from __future__ import annotations
@@ -28,7 +36,10 @@ __all__ = [
     "SplitPlan",
     "create_partition",
     "block_stats",
+    "combine_block_stats",
+    "empty_block_stats",
     "recompute_stats",
+    "route_into_boxes",
     "split_plan",
     "route_split",
     "apply_split_plan",
@@ -41,6 +52,8 @@ _BIG = 3.0e38
 #: fixed-point magnitude per term, at most: |q| ≤ 2^36 keeps 36 bits of the
 #: feature's largest magnitude
 _FIXED_BITS = 36
+#: bytes of the two ``[rows, M, d]`` f32 temporaries of one route tile
+ROUTE_TILE_BYTES = 64 << 20
 
 
 def _fixed_bits(n: int) -> int:
@@ -116,20 +129,29 @@ def _from_orderable(u: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int32).view(torch.float32)
 
 
-def block_stats(x: torch.Tensor, bid: torch.Tensor, m: int) -> BlockStats:
+def block_stats(
+    x: torch.Tensor, bid: torch.Tensor, m: int, valid: torch.Tensor | None = None
+) -> BlockStats:
     """Segment sums, counts, minima and maxima of the rows of ``x [n, d]``
-    over ``m`` block rows, bit-identical from run to run (module docs)."""
+    over ``m`` block rows, bit-identical from run to run (module docs).
+    ``valid [n]`` bool masks rows out (a streamed chunk's padding): they go
+    to a scratch segment ``m`` that is dropped."""
     n, d = x.shape
     if n == 0:
         raise ValueError("block_stats needs at least one row")
     dev = x.device
     x = x.float()
+    seg = m
+    if valid is not None:
+        bid = torch.where(valid, bid.to(torch.int64), m)
+        x = torch.where(valid[:, None], x, 0.0)  # masked rows set no scale
+        seg = m + 1
     # one sort per feature of (block id << 32 | orderable value): each block
     # is a run, sorted by value inside it
     keys = (bid.to(torch.int64)[None, :] << 32) | _orderable(x.T.contiguous())
     keys = torch.sort(keys, dim=1).values  # [d, n]
     starts = torch.searchsorted(
-        keys[0], torch.arange(m + 1, device=dev, dtype=torch.int64) << 32
+        keys[0], torch.arange(seg + 1, device=dev, dtype=torch.int64) << 32
     )  # the run of block b is [starts[b], starts[b+1])
     count_i = starts[1:] - starts[:-1]
     empty = (count_i == 0)[:, None]
@@ -147,9 +169,58 @@ def block_stats(x: torch.Tensor, bid: torch.Tensor, m: int) -> BlockStats:
     csum = torch.zeros(d, n + 1, dtype=torch.int64, device=dev)
     for j in range(d):  # a 1-D scan each: PyTorch's scan along dim 1 of [d, n] is slow on CUDA
         torch.cumsum(q[j], 0, out=csum[j, 1:])
-    seg = csum[:, starts[1:]] - csum[:, starts[:-1]]  # [d, m]
-    psum = (seg.double() / scale[:, None]).float().T.contiguous()
-    return BlockStats(psum, count_i.float(), lo.contiguous(), hi.contiguous())
+    seg_sum = csum[:, starts[1:]] - csum[:, starts[:-1]]  # [d, seg]
+    psum = (seg_sum.double() / scale[:, None]).float().T
+    return BlockStats(
+        psum[:m].contiguous(), count_i[:m].float(), lo[:m].contiguous(), hi[:m].contiguous()
+    )
+
+
+def empty_block_stats(m: int, d: int, device) -> BlockStats:
+    """The identity of :func:`combine_block_stats`."""
+    return BlockStats(
+        psum=torch.zeros(m, d, device=device),
+        count=torch.zeros(m, device=device),
+        lo=torch.full((m, d), _BIG, device=device),
+        hi=torch.full((m, d), -_BIG, device=device),
+    )
+
+
+def combine_block_stats(a: BlockStats, b: BlockStats) -> BlockStats:
+    """Merge two partial statistics: f32 sums, exact minima and maxima (the
+    empty rows' ±_BIG are absorbing, so no masking is needed)."""
+    return BlockStats(
+        psum=a.psum + b.psum,
+        count=a.count + b.count,
+        lo=torch.minimum(a.lo, b.lo),
+        hi=torch.maximum(a.hi, b.hi),
+    )
+
+
+def route_into_boxes(
+    x: torch.Tensor,
+    lo: torch.Tensor,
+    hi: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    tile_bytes: int = ROUTE_TILE_BYTES,
+) -> torch.Tensor:
+    """Each row's box of smallest clipped L∞ distance, ``int32 [n]``:
+    containment for rows inside some box, the nearest box for the rest;
+    ties go to the first box. The rows are taken in tiles whose two
+    ``[rows, M, d]`` f32 temporaries fit ``tile_bytes``."""
+    n, d = x.shape
+    m = lo.shape[0]
+    lo_ = torch.where(active[:, None], lo, _BIG)
+    hi_ = torch.where(active[:, None], hi, -_BIG)
+    rows = max(1, tile_bytes // (2 * 4 * m * d))
+    out = torch.empty(n, dtype=torch.int32, device=x.device)
+    for i in range(0, n, rows):
+        xt = x[i : i + rows].float()
+        below = (lo_[None] - xt[:, None, :]).clamp_(min=0.0)
+        below += (xt[:, None, :] - hi_[None]).clamp_(min=0.0)
+        out[i : i + rows] = below.amax(-1).argmin(-1)  # [rows, M] clipped L∞
+    return out
 
 
 def recompute_stats(part: Partition, x: torch.Tensor) -> Partition:

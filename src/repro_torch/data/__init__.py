@@ -1,1 +1,1 @@
-"""Synthetic datasets."""
+"""Synthetic datasets, out-of-core chunk sources and their fault-tolerant wrapper."""

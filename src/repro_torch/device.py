@@ -1,0 +1,23 @@
+"""Where the port runs: CUDA unless the caller asks for another device."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``device`` as a ``torch.device``, with a CUDA device's index made
+    explicit. Without a CUDA device, asking for one raises: the port never
+    carries on on the CPU unless it was asked to."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain PyTorch path"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device

@@ -4,8 +4,9 @@ round loop over a seeding session.
 Counterpart of ``repro.engine.driver``'s ``fit_plane`` — weighted Lloyd over
 the partition representatives alternating with ε-proportional boundary
 splitting, with the six stop criteria of Section 2.4.2 in the reference's
-order — and of its ``plane_kmeans_parallel``, ``ll_bernoulli`` and
-``resolve_ll_params``.
+order — of its ``plane_kmeans_parallel``, ``ll_bernoulli`` and
+``resolve_ll_params``, and of ``plane_lloyd``, full-data Lloyd over a
+:class:`~repro_torch.engine.plane.LloydSession`.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from repro_torch.core import bwkm as core_bwkm
 from repro_torch.core import misassignment as mis
 from repro_torch.core import partition as part_mod
 
-__all__ = ["fit_plane", "ll_bernoulli", "plane_kmeans_parallel", "resolve_ll_params"]
+__all__ = [
+    "fit_plane", "ll_bernoulli", "plane_kmeans_parallel", "plane_lloyd", "resolve_ll_params",
+]
 
 
 def fit_plane(key, plane: Any, config: "core_bwkm.BWKMConfig", *, trace_centroids: bool = False):
@@ -156,3 +159,30 @@ def plane_kmeans_parallel(sess: Any, *, rounds: int) -> dict:
         normalisers.append(float(phi))
         sess.select(r, u, ll_bernoulli(u, w, mind2, sess.l, phi))
     return sess.finish(tuple(normalisers))
+
+
+# -------------------------------------------- full-data pruned Lloyd
+def plane_lloyd(
+    sess: Any, c: torch.Tensor, *, max_iters: int = 50, epsilon: float = 1e-4
+) -> tuple[torch.Tensor, float, int, float, list[float]]:
+    """Full-dataset Lloyd with drift-bound pruning over a
+    :class:`~repro_torch.engine.plane.LloydSession`:
+    ``(centroids, error, iters, distances, active_fractions)``. The error
+    after the first pass comes from ``lloyd.stats_error``; the stop rule is
+    Eq. 2's relative error change. Per-row bounds stay in the session."""
+    sums, counts, err, w2sum, n_dist = sess.seed(c)
+    distances = float(n_dist)
+    prev_err = float("inf")
+    err = float(err)
+    active_fractions: list[float] = []
+    it = 0
+    while it < max_iters and abs(prev_err - err) > epsilon * max(err, 1e-30):
+        c_new = lloyd_mod._next_centroids(sums, counts, c)
+        drift = torch.linalg.vector_norm(c_new - c, dim=-1)
+        sums, counts, n_dist = sess.step(c_new, drift)
+        c = c_new
+        prev_err, err = err, float(lloyd_mod.stats_error(w2sum, c_new, sums, counts))
+        distances += float(n_dist)
+        active_fractions.append(float(n_dist) / sess.denom)
+        it += 1
+    return c, err, it, distances, active_fractions

@@ -1,13 +1,15 @@
 """The protocols the driver is written against. Counterparts of
-``DataPlane`` and ``LLSession`` of ``repro.engine.plane``.
+``DataPlane``, ``LLSession``, ``LloydSession`` and ``global_extent`` of
+``repro.engine.plane``.
 
 A plane owns the dataset in its layout and exposes the few data-touching
 steps that :func:`repro_torch.engine.driver.fit_plane` is written against; a
 k-means|| session does the same for
-:func:`~repro_torch.engine.driver.plane_kmeans_parallel`. Everything
-algorithmic lives in the driver. The port has one of each so far,
-:class:`repro_torch.engine.incore.InCorePlane` and
-:class:`~repro_torch.engine.incore.InCoreLLSession`.
+:func:`~repro_torch.engine.driver.plane_kmeans_parallel`, and a Lloyd
+session for :func:`~repro_torch.engine.driver.plane_lloyd`. Everything
+algorithmic lives in the driver. The port has the in-core plane and
+k-means|| session (:mod:`repro_torch.engine.incore`) and the streaming
+plane and sessions (:mod:`repro_torch.engine.streaming`).
 """
 
 from __future__ import annotations
@@ -19,7 +21,18 @@ import torch
 from repro_torch.core.partition import Partition, SplitPlan
 from repro_torch.health import RunHealth
 
-__all__ = ["DataPlane", "LLSession"]
+__all__ = ["DataPlane", "LLSession", "LloydSession", "global_extent"]
+
+_BIG = 3.0e38
+
+
+def global_extent(part: Partition) -> float:
+    """``‖max x − min x‖`` over the whole dataset, from the blocks' boxes:
+    the displacement threshold's scale without a pass over the data."""
+    occ = ((part.count > 0) & part.active)[:, None]
+    lo = torch.where(occ, part.lo, _BIG).amin(0)
+    hi = torch.where(occ, part.hi, -_BIG).amax(0)
+    return float(torch.linalg.vector_norm(torch.clamp(hi - lo, min=0.0)))
 
 
 @runtime_checkable
@@ -80,3 +93,23 @@ class LLSession(Protocol):
     def select(self, rnd: int, u: torch.Tensor, accept: torch.Tensor) -> None: ...
 
     def finish(self, normalisers: tuple) -> dict: ...
+
+
+class LloydSession(Protocol):
+    """One full-data Lloyd run over a plane.
+
+    ``seed`` runs the dense pass and returns the folded statistics and the
+    Σ w‖x‖² term of the error identity; ``step`` runs one pruned (or dense)
+    round against the new centroids. Per-row bound state stays inside the
+    session between calls.
+    """
+
+    denom: float  # active-fraction denominator: max(k · n_points, 1)
+
+    def seed(self, c: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, float]:
+        """``(sums, counts, err, w2sum, n_dist)``."""
+        ...
+
+    def step(self, c_new: torch.Tensor, drift: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, float]:
+        """``(sums, counts, n_dist)`` under the composed assignment."""
+        ...

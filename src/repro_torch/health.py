@@ -1,9 +1,11 @@
 """RunHealth — the degradation ledger a fit reports.
 
-Counterpart of ``repro.health``. A clean run reports all-zero counters; the
-in-core plane counts the non-finite rows it quarantines. The other counters
-belong to the streaming and distributed planes, which the port does not
-have yet, and stay zero.
+Counterpart of ``repro.health``. A clean run reports all-zero counters. The
+in-core plane counts the non-finite rows it quarantines; the streaming plane
+reports the ledger of a :class:`~repro_torch.data.resilient.ResilientChunkSource`
+(retries, deadline hits, lost chunks, quarantined rows). The shard counters
+belong to the distributed plane, which the port does not have yet, and stay
+zero.
 """
 
 from __future__ import annotations
@@ -39,3 +41,21 @@ class RunHealth:
         d = dataclasses.asdict(self)
         d["degraded"] = self.degraded
         return d
+
+    @classmethod
+    def from_dict(cls, d: dict | None) -> "RunHealth":
+        if not d:
+            return cls()
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def merged(self, other: "RunHealth | None") -> "RunHealth":
+        """Counter-wise sum (max for ``lost_mass_frac``): a source's ledger
+        and an engine's own as one record."""
+        if other is None:
+            return dataclasses.replace(self)
+        out = RunHealth()
+        for f in dataclasses.fields(RunHealth):
+            a, b = getattr(self, f.name), getattr(other, f.name)
+            setattr(out, f.name, max(a, b) if f.name == "lost_mass_frac" else a + b)
+        return out

@@ -30,7 +30,9 @@ __all__ = [
     "assign_top2",
     "assign_top2_chunk",
     "assign_update",
+    "assign_update_chunk",
     "assign_update_pruned",
+    "assign_update_pruned_chunk",
     "cluster_sums",
     "min_sqdist_update",
     "min_sqdist_update_chunk",
@@ -119,6 +121,18 @@ def assign_update(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> AssignUp
     return out._replace(n_dist=_dense_dist_count(w, c.shape[0]))
 
 
+def assign_update_chunk(
+    x: torch.Tensor, w: torch.Tensor, c: torch.Tensor, *, chunk_size: int
+) -> AssignUpdate:
+    """Chunk-shaped :func:`assign_update`: the tail chunk is padded to
+    ``chunk_size`` rows of weight 0, so the statistics are exactly those of
+    the ``n`` real rows; the per-row outputs are sliced back to ``n``."""
+    n, x = _pad_to_chunk(x, chunk_size)
+    w = F.pad(w.float(), (0, chunk_size - n))
+    out = assign_update(x, w, c)
+    return out._replace(assign=out.assign[:n], d1=out.d1[:n], d2=out.d2[:n])
+
+
 def assign_update_pruned(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -143,6 +157,27 @@ def assign_update_pruned(
             *ref.two_pass(assign_top2, cluster_sums, x, w, c, assign, active)
         )
     return out._replace(n_dist=n_dist)
+
+
+def assign_update_pruned_chunk(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    c: torch.Tensor,
+    assign: torch.Tensor,
+    active: torch.Tensor,
+    *,
+    chunk_size: int,
+) -> PrunedAssignUpdate:
+    """Chunk-shaped :func:`assign_update_pruned`: padding rows have weight
+    0, are never active and have cached id 0, so they add nothing; the
+    per-row outputs are sliced back to ``n``."""
+    n, x = _pad_to_chunk(x, chunk_size)
+    pad = chunk_size - n
+    w = F.pad(w.float(), (0, pad))
+    assign = F.pad(assign.to(torch.int32), (0, pad))
+    active = F.pad(active.bool(), (0, pad))
+    out = assign_update_pruned(x, w, c, assign, active)
+    return out._replace(assign=out.assign[:n], d1=out.d1[:n], d2=out.d2[:n])
 
 
 def min_sqdist_update(

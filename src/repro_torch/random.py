@@ -1,17 +1,18 @@
 """The port's random-number seam: functional keys, as ``jax.random`` has them.
 
-The port calls :func:`split` exactly where the reference calls
-``jax.random.split``, and draws through :func:`randint`, :func:`categorical`,
-:func:`uniform` and :func:`gumbel` where the reference draws through their
-``jax.random`` namesakes. Each function delegates to its key, so any object
-with the methods of :class:`Key` can stand in for the production
-:class:`TorchKey` (the tests use one that calls ``jax.random`` to follow the
-reference's draws).
+The port calls :func:`split` and :func:`fold_in` exactly where the reference
+calls ``jax.random.split`` and ``jax.random.fold_in``, and draws through
+:func:`randint`, :func:`categorical`, :func:`uniform` and :func:`gumbel`
+where the reference draws through their ``jax.random`` namesakes. Each
+function delegates to its key, so any object with the methods of
+:class:`Key` can stand in for the production :class:`TorchKey` (the tests
+use one that calls ``jax.random`` to follow the reference's draws).
 
 :class:`TorchKey` is an integer; each draw seeds a fresh ``torch.Generator``
-on the device of the tensors it makes, and :meth:`TorchKey.split` derives
-child integers with a SplitMix64 hash. The same key gives the same draws on
-the same device; CPU and CUDA generators give different numbers.
+on the device of the tensors it makes, and :meth:`TorchKey.split` and
+:meth:`TorchKey.fold_in` derive child integers with a SplitMix64 hash. The
+same key gives the same draws on the same device; CPU and CUDA generators
+give different numbers.
 """
 
 from __future__ import annotations
@@ -20,13 +21,17 @@ from typing import Protocol
 
 import torch
 
-__all__ = ["Key", "TorchKey", "categorical", "gumbel", "key", "randint", "split", "uniform"]
+__all__ = [
+    "Key", "TorchKey", "categorical", "fold_in", "gumbel", "key", "randint", "split", "uniform",
+]
 
 _MASK64 = (1 << 64) - 1
 
 
 class Key(Protocol):
     def split(self, num: int) -> tuple["Key", ...]: ...
+
+    def fold_in(self, data: int) -> "Key": ...
 
     def randint(self, shape, minval: int, maxval: int, device) -> torch.Tensor: ...
 
@@ -63,6 +68,11 @@ class TorchKey:
             TorchKey(_splitmix64(self.seed ^ _splitmix64(i + 1))) for i in range(num)
         )
 
+    def fold_in(self, data: int) -> "TorchKey":
+        """The key for ``data`` under this one; distinct from every
+        :meth:`split` child (those hash ``i + 1`` into the seed itself)."""
+        return TorchKey(_splitmix64(_splitmix64(self.seed) ^ (int(data) & _MASK64)))
+
     def randint(self, shape, minval, maxval, device) -> torch.Tensor:
         return torch.randint(
             int(minval), int(maxval), tuple(shape), generator=self._gen(device),
@@ -94,6 +104,10 @@ def key(seed: int) -> TorchKey:
 
 def split(key: Key, num: int = 2) -> tuple[Key, ...]:
     return key.split(num)
+
+
+def fold_in(key: Key, data: int) -> Key:
+    return key.fold_in(data)
 
 
 def randint(key: Key, shape, minval: int, maxval: int, *, device) -> torch.Tensor:

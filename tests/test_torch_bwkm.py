@@ -46,6 +46,9 @@ class JaxKey:
     def split(self, num):
         return tuple(JaxKey(k) for k in jax.random.split(self.key, num))
 
+    def fold_in(self, data):
+        return JaxKey(jax.random.fold_in(self.key, data))
+
     def randint(self, shape, minval, maxval, device):
         out = jax.random.randint(self.key, tuple(shape), minval, maxval)
         return torch.as_tensor(np.array(out), device=device).long()
@@ -230,8 +233,14 @@ def test_unported_options_name_their_roadmap_item():
     assert repro_torch.BWKM(k=2, device="cpu", init="kmeans||").config.init == "kmeans||"
     with pytest.raises(NotImplementedError, match="item 10"):
         repro_torch.BWKM(k=2, device="cpu", init="afkmc2")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        repro_torch.BWKM(k=2, device="cpu", engine="streaming")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        repro_torch.BWKM(k=2, device="cpu", init="kmc2")
+    assert repro_torch.BWKM(k=2, device="cpu", engine="streaming").engine == "streaming"
+    assert repro_torch.BWKM(k=2, device="cpu", init="reservoir").init == "reservoir"
+    with pytest.raises(NotImplementedError, match="item 13"):
+        repro_torch.BWKM(k=2, device="cpu", engine="distributed")
+    with pytest.raises(ValueError, match="unknown engine"):
+        repro_torch.BWKM(k=2, device="cpu", engine="nope")
     with pytest.raises(ValueError, match="unknown init"):
         repro_torch.BWKM(k=2, device="cpu", init="nope")
 

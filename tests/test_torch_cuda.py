@@ -352,3 +352,87 @@ def test_fold_tiling_leaves_the_bits_as_they_are(cuda_b45, d, dtype):
     for cap in (3 * (d + 1), d + 1, 40, 7):
         out = cu.cluster_sums_cuda(x, w, ids, k, _part_floats=cap)
         assert torch.equal(out[0], base[0]) and torch.equal(out[1], base[1]), cap
+
+
+# ------------------------------------------------------------ streaming
+class _CpuDrawKey:
+    """The production key with every draw made on the CPU and moved to the
+    device asked for, so a fit on the card and one on the CPU draw the same
+    numbers (CPU and CUDA generators differ)."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, num):
+        return tuple(_CpuDrawKey(k) for k in self.key.split(num))
+
+    def fold_in(self, data):
+        return _CpuDrawKey(self.key.fold_in(data))
+
+    def randint(self, shape, minval, maxval, device):
+        return self.key.randint(shape, minval, maxval, "cpu").to(device)
+
+    def categorical(self, logits, shape=None):
+        return self.key.categorical(logits.cpu(), shape).to(logits.device)
+
+    def uniform(self, shape, device):
+        return self.key.uniform(shape, "cpu").to(device)
+
+    def gumbel(self, shape, device):
+        return self.key.gumbel(shape, "cpu").to(device)
+
+
+def _separated(n, d, k, seed):
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(k, d) * 30.0
+    return (centers[rng.randint(0, k, n)] + 0.5 * rng.randn(n, d)).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_streaming_fit_on_the_card_is_the_fit_on_the_cpu(cuda):
+    from repro_torch import random as rnd
+    from repro_torch import streaming
+    from repro_torch.core.bwkm import BWKMConfig
+    from repro_torch.data.chunks import ArrayChunkSource
+
+    x = _separated(20_000, 6, 5, seed=4)
+    cfg = BWKMConfig(k=5, max_iters=8)
+    fits = [
+        streaming.fit_streaming(_CpuDrawKey(rnd.key(2)), ArrayChunkSource(x, 3000), cfg, device=dev)
+        for dev in ("cuda", "cpu")
+    ]
+    gpu, cpu = fits
+    assert gpu.stop_reason == cpu.stop_reason and gpu.iterations == cpu.iterations
+    assert gpu.n_blocks == cpu.n_blocks
+    assert gpu.stream.points_streamed == gpu.stream.passes * x.shape[0] == cpu.stream.points_streamed
+    torch.testing.assert_close(gpu.centroids.cpu(), cpu.centroids, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_streaming_chunk_seams_match_plain_versions(cuda):
+    from repro_torch.data.chunks import ArrayChunkSource, padded_device_chunks
+    from repro_torch.kernels import ops
+
+    x, w, c = _data(1000, 19, 27, torch.float32, seed=8)
+    cs, n = 1024, 1000  # a ragged tail chunk
+    tol = TOL[torch.float32]
+    got = ops.assign_update_chunk(x, w, c, chunk_size=cs)
+    r = ref.assign_update(x, w, c)
+    dd = ref.pairwise_sqdist(x, c)
+    assert got.assign.shape == (n,)
+    torch.testing.assert_close(dd.gather(1, got.assign.long()[:, None])[:, 0], dd.min(1).values, **tol)
+    torch.testing.assert_close(got.d1, r.d1, **tol)
+    sums, counts = ref.cluster_sums(x, w, got.assign, 27)
+    torch.testing.assert_close(got.sums, sums, rtol=tol["rtol"], atol=tol["atol"] * 100)
+    torch.testing.assert_close(got.counts, counts, **tol)
+    act = torch.from_numpy(np.random.RandomState(8).rand(n) < 0.3).cuda()
+    pr = ops.assign_update_pruned_chunk(x, w, c, got.assign, act, chunk_size=cs)
+    assert torch.equal(pr.assign, got.assign)
+    assert torch.equal(pr.sums, got.sums) and torch.equal(pr.counts, got.counts)
+    assert float(pr.n_dist) == float((act & (w > 0)).sum()) * 27
+    xs = _separated(2500, 5, 3, seed=9)
+    on_card = list(padded_device_chunks(ArrayChunkSource(xs, 1024), "cuda"))
+    on_cpu = list(padded_device_chunks(ArrayChunkSource(xs, 1024), "cpu"))
+    assert [nv for _, nv in on_card] == [nv for _, nv in on_cpu] == [1024, 1024, 452]
+    for (a, _), (b, _) in zip(on_card, on_cpu):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
