@@ -5,8 +5,9 @@ Run from the root of the repository:
 
     python3 chip_smoke.py            # the check; needs one CUDA device
     python3 chip_smoke.py --profile DIR  # and torch.profiler breakdowns of the
-                                         # fit, of k-means||, of the streaming fit
-                                         # and of streaming k-means||, tables in DIR
+                                         # fit, of k-means||, of the streaming fit,
+                                         # of streaming k-means|| and of five
+                                         # service batches, tables in DIR
     python3 chip_smoke.py --parent DIR   # and phase 5 times the kernels built from
                                          # DIR/src/repro_torch/kernels/csrc (an
                                          # earlier commit, same C interface) in
@@ -89,6 +90,35 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    ``quarantined_rows`` equal to the rows a ``CorruptChunkSource`` poisoned.
    The launches of each of its paths are read just after the path. The
    streamed score's gap to phase 4's in-core fit is printed, not gated.
+
+7. (after phase 5) the online service: the SUSY array as a drifting stream
+   of 77 batches of 65,536 rows, every feature shifted by +0.5 of its
+   first-half standard deviation from row 2,500,000 on, through
+   ``ServiceConfig(base=BWKMConfig(k=27), decay=0.9)``. Run 1: ``run_service``
+   over an ``ArrayChunkSource``, checkpointing every 10 batches, with its
+   wall, per-batch ms (median, p95; the bootstrap apart), CUDA-event spans of
+   ``route_into_boxes``, ``block_stats`` and ``weighted_lloyd`` per batch,
+   the synchronizing CUDA calls per batch (``torch.cuda.set_sync_debug_mode``),
+   peak device memory, refits (there must be one after the drift), splits,
+   the final block count, B1–B3 launches (each > 0) and ``score`` of the
+   final centroids over all rows against float64 (1e-4). Run 2: the same
+   stream through ``CrashingSource`` dies at batch 40, ``resume_service``
+   continues from the newest checkpoint, and the final ``SessionState`` must
+   be bit-equal to run 1's (every tensor, the key, the counters) with equal
+   metrics for every batch after the cursor. One flipped byte of
+   ``session§centroids`` in run 1's newest ``state.npz`` must make
+   ``load_session`` raise ``CheckpointCorruptionError`` naming it. Serving:
+   8 threads submit ragged predict requests (1–5,000 rows, 1,000,000 in
+   all) and the main thread 8 transform requests to a ``BatchedPredictor``
+   over the final centroids, then one flush: ``ceil(rows / 2048)`` chunk
+   calls per kind, every request's labels bit-equal to ``ops.assign_top2``,
+   the transforms equal to ``ops.pairwise_sqdist_chunk``. Then the first 8
+   batches of 4,096 rows on the card and on the CPU with the draws made on
+   the CPU: the bootstrap's error within rtol 1e-3, and each later batch
+   taken on both devices from the card's state before it (equal refit,
+   n_splits, n_blocks; error within rtol 1e-3); and
+   ``BWKM(k=27).partial_fit`` over 5 batches bit-equal to a ``BWKMSession``.
+   Its launches (run 1's and the flush's) join the JSON line's.
 
 Then the card's name and power limit, one JSON line of kernel records, and
 the result line ``{"ok": true, "device": {...}}`` last. Without a CUDA
@@ -1039,6 +1069,389 @@ def phase_stream(torch, repro_torch, rnd, ops, ref, fau, partition, counters, xs
     return total, x, s_glob
 
 
+# ---------------------------------------------------------------- phase 7
+SERVICE_CRASH_AT = 40  # the crashed run dies reading this chunk
+SERVICE_CKPT_EVERY = 10
+SERVICE_SHIFT_SD = 0.5  # the drift: every feature moves by this many of its first-half std
+SERVICE_SERVE_ROWS = 1_000_000
+SERVICE_SMALL_ROWS = 4_096  # the card-against-CPU run's batches
+SERVICE_BOOT_ITERS = 8  # the bootstrap fit's outer iterations
+SERVICE_MAX_SPLITS = 64  # splits a refit at most
+
+
+class _CpuDrawKey:
+    """The production key with every draw made on the CPU and moved to the
+    device asked for, so a session on the card and one on the CPU draw the
+    same numbers (CPU and CUDA generators differ)."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, num):
+        return tuple(_CpuDrawKey(k) for k in self.key.split(num))
+
+    def fold_in(self, data):
+        return _CpuDrawKey(self.key.fold_in(data))
+
+    def randint(self, shape, minval, maxval, device):
+        return self.key.randint(shape, minval, maxval, "cpu").to(device)
+
+    def categorical(self, logits, shape=None):
+        return self.key.categorical(logits.cpu(), shape).to(logits.device)
+
+    def uniform(self, shape, device):
+        return self.key.uniform(shape, "cpu").to(device)
+
+    def gumbel(self, shape, device):
+        return self.key.gumbel(shape, "cpu").to(device)
+
+
+@contextlib.contextmanager
+def _patched(obj, name, value):
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+class _BatchProbe:
+    """Per ``partial_fit`` call: host wall (ending in a synchronize), the
+    synchronizing CUDA calls that ``torch.cuda.set_sync_debug_mode`` reports
+    inside it, and CUDA-event spans of the named functions it calls."""
+
+    def __init__(self, torch, session_cls, spans):
+        self.torch, self.session_cls, self.spans = torch, session_cls, spans
+        self.batches = []  # (wall_s, syncs, {span: [(e0, e1)]})
+
+    @contextlib.contextmanager
+    def active(self):
+        import warnings
+
+        torch = self.torch
+        fit = self.session_cls.partial_fit
+        probe = self
+
+        def timed_fit(session, batch):
+            events: dict[str, list] = {}
+            probe._events = events
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    out = fit(session, batch)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            syncs = sum("synchroniz" in str(w.message) for w in caught)
+            probe.batches.append((wall, syncs, events))
+            return out
+
+        def span(name, fn):
+            def inner(*a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                probe._events.setdefault(name, []).append((e0, e1))
+                return out
+            return inner
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_patched(self.session_cls, "partial_fit", timed_fit))
+            for name, (mod, attr) in self.spans.items():
+                stack.enter_context(_patched(mod, attr, span(name, getattr(mod, attr))))
+            yield self
+
+    def span_ms(self, name, batches):
+        return [sum(e0.elapsed_time(e1) for e0, e1 in self.batches[i][2].get(name, []))
+                for i in batches]
+
+
+def _pct(a, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(a, dtype=np.float64), q))
+
+
+def _state_bit_equal(torch, a, b) -> list[str]:
+    """The fields of two SessionStates that differ in any bit (the key by
+    its 64-bit seed)."""
+    bad = []
+    for f in a.partition._fields:
+        x, y = getattr(a.partition, f), getattr(b.partition, f)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            bad.append(f"partition.{f}")
+    for f in ("centroids", "d1", "d2", "batches", "points"):
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            bad.append(f)
+    if a.key.seed != b.key.seed:
+        bad.append("key")
+    return bad
+
+
+def _state_to(state, device):
+    """A SessionState with its tensors copied to ``device``."""
+    part = state.partition._replace(**{f: getattr(state.partition, f).to(device)
+                                       for f in state.partition._fields})
+    return state._replace(partition=part, **{f: getattr(state, f).to(device)
+                                             for f in ("centroids", "d1", "d2", "batches", "points")})
+
+
+def phase_service(torch, repro_torch, rnd, ops, counters, x):
+    """Phase 7: the online service over the SUSY profile as a drifting
+    stream of 77 batches. Returns the launches of its paths."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import lloyd
+    from repro_torch.core import partition as part_mod
+    from repro_torch.core.bwkm import BWKMConfig
+    from repro_torch.data.chunks import ArrayChunkSource
+    from repro_torch.service import (
+        BatchedPredictor, BWKMSession, ServiceConfig, load_session, resume_service, run_service,
+    )
+    from repro_torch.service import session as smod
+    from repro_torch.testing.faults import CrashingSource, InjectedCrash
+    from repro_torch.train.checkpoint import CheckpointCorruptionError
+
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    stream = x.cpu().numpy()
+    half = n // 2
+    sd = stream[:half].std(axis=0, dtype=np.float64)
+    shift = (SERVICE_SHIFT_SD * sd).astype(np.float32)
+    stream[half:] += shift
+    src = ArrayChunkSource(stream, CHUNK)
+    nb = src.n_chunks
+    drift_batch = half // CHUNK
+    print(f"[service] stream: SUSY profile {n:,} × {d} as {nb} batches of {CHUNK:,} rows (the last "
+          f"{n - (nb - 1) * CHUNK:,}); from row {half:,} (inside batch {drift_batch}) every feature "
+          f"shifted by {SERVICE_SHIFT_SD} of its first-half std: "
+          + "[" + ", ".join(f"{v:.4f}" for v in shift) + "]")
+    check(nb == 77, f"{nb} batches, not 77")
+    # BWKMConfig(k=27)'s own bootstrap fills all 14,528 block rows (stop reason
+    # "capacity"), and a service at capacity never refits: 8 outer iterations
+    # leave about 8,800 rows free, and at most 64 splits a refit spread them
+    # over the whole stream, so the refit path runs after the drift too
+    cfg = ServiceConfig(base=BWKMConfig(k=SUSY_K, max_iters=SERVICE_BOOT_ITERS), decay=0.9,
+                        max_splits_per_refit=SERVICE_MAX_SPLITS)
+    total = dict.fromkeys(counters, 0)
+    with tempfile.TemporaryDirectory(prefix="bwkm_service_") as tmp:
+        d1, d2 = f"{tmp}/run1", f"{tmp}/run2"
+        # 1. the uninterrupted run, checkpointing every 10 batches
+        probe = _BatchProbe(torch, BWKMSession, {
+            "route": (part_mod, "route_into_boxes"), "block_stats": (part_mod, "block_stats"),
+            "lloyd": (lloyd, "weighted_lloyd"),
+        })
+        session = BWKMSession(cfg)
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
+        t0 = time.perf_counter()
+        with probe.active():
+            metrics = run_service(session, src, checkpoint_dir=d1,
+                                  checkpoint_every=SERVICE_CKPT_EVERY)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        launches = _read(counters)
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        for b in total:
+            total[b] += launches[b]
+        check(len(metrics) == nb, f"{len(metrics)} batches consumed, not {nb}")
+        walls = [w for w, _, _ in probe.batches]
+        syncs = [s for _, s, _ in probe.batches]
+        upd = range(1, nb)
+        route = probe.span_ms("route", upd)
+        bstats = probe.span_ms("block_stats", upd)
+        lloyd_ms = probe.span_ms("lloyd", upd)
+        step_ms = [1e3 * walls[i] for i in upd]
+        refits = [i for i, m in enumerate(metrics) if m["refit"] and i > 0]
+        after = [i for i in refits if i >= drift_batch]
+        splits = sum(m["n_splits"] for m in metrics[1:])
+        st = session.state
+        print(f"[service] run 1 (uninterrupted, checkpoint every {SERVICE_CKPT_EVERY}): wall_s={wall1:.3f} "
+              f"bootstrap_ms={1e3 * walls[0]:.1f} ({metrics[0]['n_blocks']} blocks) per-batch ms "
+              f"median {_pct(step_ms, 50):.2f} p95 {_pct(step_ms, 95):.2f} (max {max(step_ms):.2f}); "
+              f"peak_mem_MiB={peak / 2**20:.1f} above the resident data ({base_mem / 2**20:.1f} MiB); "
+              f"refits={len(refits)} ({len(after)} from batch {drift_batch} on) splits={splits} "
+              f"final n_blocks={metrics[-1]['n_blocks']} of {st.partition.capacity}; launches={launches}")
+        print(f"[service] run 1 per update batch, CUDA-event spans (median, and share of the sum of "
+              f"the batch walls): route_into_boxes {_pct(route, 50):.2f} ms "
+              f"({100 * sum(route) / sum(step_ms):.1f} %), block_stats {_pct(bstats, 50):.2f} ms "
+              f"({100 * sum(bstats) / sum(step_ms):.1f} %), weighted_lloyd (tracking and any refit) "
+              f"{_pct(lloyd_ms, 50):.2f} ms ({100 * sum(lloyd_ms) / sum(step_ms):.1f} %); "
+              f"synchronizing CUDA calls per update batch median {_pct(syncs[1:], 50):.0f} "
+              f"(min {min(syncs[1:])}, max {max(syncs[1:])}), bootstrap {syncs[0]}")
+        print(f"[service] run 1 metrics per batch (refit, n_splits, n_blocks, boundary_frac): "
+              + " ".join(f"{i}:{int(m['refit'])},{m['n_splits']},{m['n_blocks']},{m['boundary_frac']:.4f}"
+                         for i, m in enumerate(metrics)))
+        check(len(after) > 0, "no refit after the drift")
+        for b in ("B1", "B2", "B3"):
+            check(launches[b] > 0, f"service run: kernel {b} was not launched")
+        c = st.centroids
+        check(tuple(c.shape) == (SUSY_K, d) and bool(torch.isfinite(c).all()),
+              "service centroids not finite [27, 19]")
+        check(int(st.batches) == nb and float(st.points) == float(n),
+              f"state counters batches={int(st.batches)} points={float(st.points)}")
+        xd = torch.from_numpy(stream).cuda()
+        score = repro_torch.BWKM.from_centroids(c.cpu().numpy()).score(xd)
+        ref_score = _score_f64(torch, xd, c)
+        check(abs(score - ref_score) <= 1e-4 * abs(ref_score),
+              f"service score {score} vs float64 {ref_score}")
+        print(f"[service] score of the final centroids over all {n:,} rows {score!r} "
+              f"(vs float64 {(score - ref_score) / ref_score:+.3e})")
+        del xd
+        # 2. crash at batch 40, resume from the newest checkpoint
+        crashed = BWKMSession(cfg)
+        t0 = time.perf_counter()
+        try:
+            run_service(crashed, CrashingSource(src, SERVICE_CRASH_AT), checkpoint_dir=d2,
+                        checkpoint_every=SERVICE_CKPT_EVERY)
+        except InjectedCrash:
+            pass
+        else:
+            check(False, "the crashing source did not crash")
+        t_crash = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed, metrics2 = resume_service(d2, src, checkpoint_every=SERVICE_CKPT_EVERY)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+        cursor = nb - len(metrics2)
+        check(cursor == SERVICE_CRASH_AT, f"resumed at cursor {cursor}, not {SERVICE_CRASH_AT}")
+        check(metrics2 == metrics[cursor:], "resumed batches' metrics differ from run 1's")
+        bad = _state_bit_equal(torch, st, resumed.state)
+        check(not bad, f"resumed state differs from run 1's in {bad}")
+        print(f"[service] run 2: crashed reading batch {SERVICE_CRASH_AT} after {t_crash:.3f} s, "
+              f"resumed from cursor {cursor} and ran {len(metrics2)} batches in {t_resume:.3f} s: "
+              f"the final state (every tensor, the key, batches, points) bit-equal to run 1's, the "
+              f"metrics of all {len(metrics2)} batches equal")
+        # 3. a flipped byte in the newest checkpoint is refused by name
+        newest = sorted(pathlib.Path(d1).glob("step_*"))[-1] / "state.npz"
+        data = dict(np.load(newest))
+        victim = "session§centroids"
+        data[victim] = data[victim].copy()
+        data[victim].reshape(-1).view(np.uint8)[7] ^= 0x04
+        np.savez(newest, **data)
+        try:
+            load_session(d1)
+        except CheckpointCorruptionError as e:
+            check(f"'{victim}'" in str(e), f"the corruption error does not name {victim}: {e}")
+            print(f"[service] one byte of {victim} flipped in {newest.parent.name}: load_session "
+                  f"raised CheckpointCorruptionError naming it")
+        else:
+            check(False, "load_session accepted a corrupted checkpoint")
+    # 4. serving: 8 threads of ragged predict requests, one flush
+    import threading
+
+    rng = np.random.default_rng(0)
+    sizes = []
+    while sum(sizes) < SERVICE_SERVE_ROWS:
+        sizes.append(min(int(rng.integers(1, 5001)), SERVICE_SERVE_ROWS - sum(sizes)))
+    starts = rng.integers(0, n - 5000, len(sizes))
+    reqs = [stream[a : a + s] for a, s in zip(starts, sizes)]
+    t_sizes = [int(v) for v in rng.integers(1, 5001, 8)]
+    t_reqs = [stream[a : a + s] for a, s in zip(rng.integers(0, n - 5000, 8), t_sizes)]
+    predictor = BatchedPredictor(c)
+    tickets = [None] * len(reqs)
+
+    def submit(j):
+        for i in range(j, len(reqs), 8):
+            tickets[i] = predictor.submit(reqs[i])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=submit, args=(j,)) for j in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    check(not any(t.is_alive() for t in threads), "a submitting thread did not finish")
+    t_tickets = [predictor.submit(r, kind="transform") for r in t_reqs]
+    t_submit = time.perf_counter() - t0
+    _zero(counters)
+    t0 = time.perf_counter()
+    served = predictor.flush()
+    t_flush = time.perf_counter() - t0
+    launches = _read(counters)
+    total["B1"] += launches["B1"]
+    cs = predictor.chunk_size
+    want_calls = -(-SERVICE_SERVE_ROWS // cs) + -(-sum(t_sizes) // cs)
+    check(served == len(reqs) + len(t_reqs), f"flush served {served} requests")
+    check(predictor.stats["n_kernel_calls"] == want_calls,
+          f"{predictor.stats['n_kernel_calls']} chunk calls, not {want_calls}")
+    check(launches["B1"] == -(-SERVICE_SERVE_ROWS // cs), f"serving launches {launches}")
+    for r, t in zip(reqs, tickets):
+        got = t.result(timeout=0)
+        want = ops.assign_top2(torch.from_numpy(r).cuda(), c)[0].cpu().numpy()
+        check(got.dtype == np.int32 and np.array_equal(got, want),
+              f"a served request's labels differ from assign_top2 over its {r.shape[0]} rows")
+    rows = torch.from_numpy(np.concatenate(t_reqs)).cuda()
+    want = torch.cat([ops.pairwise_sqdist_chunk(rows[i : i + cs], c, chunk_size=cs)
+                      for i in range(0, rows.shape[0], cs)]).cpu().numpy()
+    got = np.concatenate([t.result(timeout=0) for t in t_tickets])
+    check(np.array_equal(got, want), "served transforms differ from pairwise_sqdist_chunk")
+    print(f"[service] BatchedPredictor: {len(reqs)} predict requests of 1–5,000 rows "
+          f"({SERVICE_SERVE_ROWS:,} rows) from 8 threads and {len(t_reqs)} transform requests "
+          f"({sum(t_sizes):,} rows), submitted in {t_submit:.3f} s, one flush of {t_flush:.3f} s "
+          f"({SERVICE_SERVE_ROWS / t_flush:,.0f} predict rows/s with the transforms in it); "
+          f"{predictor.stats['n_kernel_calls']} chunk calls of {cs} rows, B1 launches "
+          f"{launches['B1']}; every request's labels bit-equal to assign_top2, transforms equal "
+          f"to pairwise_sqdist_chunk")
+    # 5. the card against the CPU: 8 batches of 4,096 rows, draws on the CPU.
+    # The bootstrap is the in-core fit, which splits on near-ties of the
+    # kernels' and the plain distances at K = 27 on this data, so the two
+    # free-running sessions part after it; each update is therefore taken on
+    # both devices from the card's state before it, where the decisions must
+    # be the same.
+    small = [stream[i * SERVICE_SMALL_ROWS : (i + 1) * SERVICE_SMALL_ROWS] for i in range(8)]
+    with _patched(smod, "_session_key", lambda seed: _CpuDrawKey(rnd.key(seed))):
+        card, cpu = BWKMSession(cfg), BWKMSession(cfg, device="cpu")
+        t0 = time.perf_counter()
+        boot = (card.partial_fit(small[0]), cpu.partial_fit(small[0]))
+        t_boot = time.perf_counter() - t0
+        rel = [abs(boot[0]["error"] - boot[1]["error"]) / abs(boot[1]["error"])]
+        check(rel[0] <= 1e-3, f"bootstrap error on the card {boot[0]} vs CPU {boot[1]}")
+        pairs = []
+        for b in small[1:]:
+            cpu.state = _state_to(card.state, "cpu")
+            pairs.append((card.partial_fit(b), cpu.partial_fit(b)))
+    for i, (g, p) in enumerate(pairs, 1):
+        same = (g["refit"], g["n_splits"], g["n_blocks"]) == (p["refit"], p["n_splits"], p["n_blocks"])
+        check(same, f"batch {i}: card {g} and CPU {p} differ in refit/n_splits/n_blocks")
+        rel.append(abs(g["error"] - p["error"]) / abs(p["error"]))
+        check(rel[-1] <= 1e-3, f"batch {i}: error on the card {g['error']} vs CPU {p['error']}")
+    print(f"[service] card against CPU, 8 batches of {SERVICE_SMALL_ROWS:,} rows with the draws on the "
+          f"CPU: bootstrap n_blocks {boot[0]['n_blocks']} on the card, {boot[1]['n_blocks']} on the "
+          f"CPU ({t_boot:.2f} s for both); each update from the card's state: refit, n_splits, "
+          f"n_blocks equal in all {len(pairs)} (n_splits {[g['n_splits'] for g, _ in pairs]}); "
+          f"error within {max(rel):.2e} (bootstrap {rel[0]:.2e})")
+    # 6. the estimator: partial_fit is the session
+    model = repro_torch.BWKM(k=SUSY_K)
+    plain = BWKMSession(ServiceConfig(base=BWKMConfig(k=SUSY_K)))
+    ms = []
+    for i in range(5):
+        b = src.chunk_at(i)
+        model.partial_fit(b)
+        plain.partial_fit(b)
+        ms.append(model.session_.last_metrics)
+    check(model.engine_ == "service" and model.n_iter_ == 5, f"estimator {model!r} n_iter_ {model.n_iter_}")
+    check(torch.equal(model.centroids_, plain.centroids),
+          "BWKM.partial_fit centroids differ from the session's")
+    print(f"[service] BWKM(k={SUSY_K}).partial_fit over 5 batches (the default configuration): "
+          f"centroids bit-equal to a BWKMSession with the same config; n_blocks "
+          f"{[m['n_blocks'] for m in ms]}, refits after the bootstrap "
+          f"{sum(m['refit'] for m in ms[1:])}; phase 7 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 # ---------------------------------------------------------------- phase 5
 def _time_graph(torch, fn, reps=20):
     """Milliseconds per call of ``fn`` replayed from a CUDA graph (so the
@@ -1535,6 +1948,28 @@ def phase_profile(torch, repro_torch, rnd, x, out_dir: pathlib.Path):
                          (kmeanspp, "weighted_kmeanspp"): "span:kmeans++ reduction",
                      }, out_dir / f"kmeans_ll_k{k}_profile.txt")
     _profile_stream(torch, repro_torch, rnd, x, out_dir)
+    _profile_service(torch, x, out_dir)
+
+
+def _profile_service(torch, x, out_dir: pathlib.Path):
+    """Five update batches of phase 7's service (after its bootstrap on the
+    first batch), profiled with spans around the steps of an update."""
+    from repro_torch.core import lloyd, misassignment, partition
+    from repro_torch.core.bwkm import BWKMConfig
+    from repro_torch.service import BWKMSession, ServiceConfig
+
+    cfg = ServiceConfig(base=BWKMConfig(k=SUSY_K, max_iters=SERVICE_BOOT_ITERS), decay=0.9,
+                        max_splits_per_refit=SERVICE_MAX_SPLITS)
+    session = BWKMSession(cfg)
+    session.partial_fit(x[:CHUNK])
+    batches = [x[i * CHUNK : (i + 1) * CHUNK] for i in range(1, 6)]
+    _profile_run(torch, "service 5 batches", lambda: [session.partial_fit(b) for b in batches], {
+        (partition, "route_into_boxes"): "span:route_into_boxes",
+        (partition, "block_stats"): "span:block_stats",
+        (lloyd, "weighted_lloyd"): "span:weighted_lloyd (tracking, refit)",
+        (misassignment, "sample_boundary"): "span:sample_boundary",
+        (partition, "split_blocks_virtual"): "span:split_blocks_virtual",
+    }, out_dir / "susy_service_profile.txt")
 
 
 def _profile_stream(torch, repro_torch, rnd, x, out_dir: pathlib.Path):
@@ -1663,6 +2098,10 @@ def main(argv) -> int:
         launches[b] += stream_launches[b]
     # phase 5
     times = phase_times(torch, ref, da, fau, cu, msu, x, ll_path, rep_folds, parent)
+    # phase 7
+    service_launches = phase_service(torch, repro_torch, rnd, ops, counters, x)
+    for b in launches:
+        launches[b] += service_launches[b]
     if parent is not None:
         phase_walls(argv[argv.index("--parent") + 1])
     if "--profile" in argv:

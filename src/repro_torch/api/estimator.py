@@ -4,6 +4,7 @@
     >>> model = BWKM(k=27).fit("shards/*.npy")    # out of core: the streaming engine
     >>> labels = model.predict("shards/*.npy")    # int32 tensor on the model's device
     >>> model.score(x), model.result_.stop_reason, model.engine_
+    >>> model = BWKM(k=27).partial_fit(batch)     # one mini-batch of a stream: the service
 
 ``fit`` takes a tensor, an array or nested lists, a ``.npy`` path, a glob or
 a directory of shards, a list of shard paths, or any ``ChunkSource``
@@ -14,6 +15,9 @@ without a CUDA device the default raises instead of carrying on on the CPU.
 through the chunk-shaped seams, one kernel launch a chunk: a tensor already
 on the model's device is sliced where it lies, anything else streams through
 ``padded_device_chunks``, so they take out-of-core inputs too.
+``partial_fit`` feeds one mini-batch to a
+:class:`~repro_torch.service.BWKMSession` on the model's device, after
+which ``predict``/``score``/``transform`` serve the session's centroids.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from repro_torch.core.bwkm import BWKMConfig
 from repro_torch.data.chunks import padded_device_chunks
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.service.session import BWKMSession, ServiceConfig
 
 __all__ = ["BWKM", "DEFAULT_CHUNK_SIZE"]
 
@@ -53,7 +58,9 @@ class BWKM:
     per-iteration snapshots; ``incore_limit_bytes`` the size beyond which
     ``engine="auto"`` streams data held in memory; ``config`` a prebuilt
     :class:`BWKMConfig`, or its fields as keyword overrides (such as
-    ``init_sample_size``, the streaming engine's first-pass sample).
+    ``init_sample_size``, the streaming engine's first-pass sample);
+    ``service`` a :class:`ServiceConfig` for ``partial_fit`` (it carries its
+    own base config, so it excludes ``config``).
     """
 
     def __init__(
@@ -68,11 +75,20 @@ class BWKM:
         trace: bool = False,
         incore_limit_bytes: int = engines.INCORE_LIMIT_BYTES,
         config: BWKMConfig | None = None,
+        service: ServiceConfig | None = None,
         **config_overrides: Any,
     ):
         self.device = resolve_device(device)
         if engine != "auto":
             engines.get_engine(engine)  # fail fast on typos and unported engines
+        if service is not None:
+            if config is not None:
+                raise ValueError(
+                    "pass either service= (which carries its own base config) or config=, not both"
+                )
+            if k is not None and k != service.base.k:
+                raise ValueError(f"k={k} conflicts with service.base.k={service.base.k}")
+            config = service.base
         if config is not None:
             if k is not None and k != config.k:
                 raise ValueError(f"k={k} conflicts with config.k={config.k}")
@@ -99,10 +115,12 @@ class BWKM:
         self.seed = int(seed)
         self.trace = bool(trace)
         self.incore_limit_bytes = int(incore_limit_bytes)
+        self.service = service
         self.result_: FitResult | None = None
         self.centroids_: torch.Tensor | None = None
         self.engine_: str | None = None
         self.n_iter_: int | None = None
+        self.session_: BWKMSession | None = None
 
     @classmethod
     def from_centroids(cls, centroids, *, device: str | torch.device = "cuda", **kwargs) -> "BWKM":
@@ -140,6 +158,27 @@ class BWKM:
     def fit_predict(self, data: Any, *, key=None) -> torch.Tensor:
         """``fit(data)``, then the labels of ``predict(data)``."""
         return self.fit(data, key=key).predict(data)
+
+    # --------------------------------------------------------- online updates
+    def partial_fit(self, batch: Any) -> "BWKM":
+        """Consume one mini-batch of an unbounded stream.
+
+        The first call opens a :class:`~repro_torch.service.BWKMSession`
+        on the model's device (``session_``), configured from ``service=``
+        or, without one, from a default :class:`ServiceConfig` around this
+        estimator's ``config`` and ``seed``. After every call
+        ``centroids_`` are the session's, so ``predict``/``score``/
+        ``transform`` serve the current model; the batch's metrics are in
+        ``session_.last_metrics``.
+        """
+        if self.session_ is None:
+            service = self.service or ServiceConfig(base=self.config, seed=self.seed)
+            self.session_ = BWKMSession(service, device=self.device)
+        self.session_.partial_fit(batch)
+        self.centroids_ = self.session_.centroids
+        self.engine_ = "service"
+        self.n_iter_ = int(self.session_.state.batches)
+        return self
 
     # ------------------------------------------------- chunked inference ops
     def _chunks(self, data: Any):

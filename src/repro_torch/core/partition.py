@@ -21,7 +21,9 @@ masks a chunk's padding rows through ``valid``, and
 takes their minima and maxima exactly, as the reference does, so a streamed
 fit is deterministic too. :func:`route_into_boxes` routes a chunk into the
 boxes of a partition built from a sample, tiled so that its ``[rows, M, d]``
-temporaries stay under a byte budget.
+temporaries stay under a byte budget. The online service decays block mass
+(:func:`decay_stats`) and splits blocks without a data pass
+(:func:`split_blocks_virtual`).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ __all__ = [
     "create_partition",
     "block_stats",
     "combine_block_stats",
+    "decay_stats",
     "empty_block_stats",
     "recompute_stats",
     "route_into_boxes",
@@ -44,6 +47,7 @@ __all__ = [
     "route_split",
     "apply_split_plan",
     "split_blocks",
+    "split_blocks_virtual",
     "representatives",
     "diagonals",
 ]
@@ -197,6 +201,13 @@ def combine_block_stats(a: BlockStats, b: BlockStats) -> BlockStats:
     )
 
 
+def decay_stats(part: Partition, gamma: float) -> Partition:
+    """Exponential forgetting of block mass (the online service's merge
+    rule): sums and counts scale by ``gamma`` in f32; the boxes stay, since
+    they are geometric routing state."""
+    return part._replace(psum=part.psum * gamma, count=part.count * gamma)
+
+
 def route_into_boxes(
     x: torch.Tensor,
     lo: torch.Tensor,
@@ -299,3 +310,34 @@ def split_blocks(part: Partition, x: torch.Tensor, chosen: torch.Tensor) -> Part
     new_bid = route_split(x, part.block_id, plan)
     out = apply_split_plan(part._replace(block_id=new_bid), plan)
     return recompute_stats(out, x)
+
+
+def split_blocks_virtual(part: Partition, plan: SplitPlan) -> Partition:
+    """A split round without a data pass, for the online service, whose
+    member points are gone: each child takes the parent's box clipped at the
+    split plane, and the parent's statistics go wholly to the child holding
+    the parent's representative (the other starts empty). Elementwise and
+    deterministic, so a resumed session replays it bit for bit."""
+    fits = plan.fits
+    onehot = torch.nn.functional.one_hot(plan.axis.long(), part.dim).bool()  # [M, d]
+    mid_col = plan.mid[:, None]
+    hi_left = torch.where(fits[:, None] & onehot, torch.minimum(part.hi, mid_col), part.hi)
+    lo_right = torch.where(onehot, torch.maximum(part.lo, mid_col), part.lo)
+    # the representative's side inherits the parent's mass
+    safe = torch.clamp(part.count, min=1.0)
+    rep_ax = (part.psum / safe[:, None]).gather(1, plan.axis.long()[:, None])[:, 0]
+    rep_right = fits & (rep_ax > plan.mid)
+    psum_left = torch.where(rep_right[:, None], 0.0, part.psum)
+    count_left = torch.where(rep_right, 0.0, part.count)
+    psum_right = torch.where(rep_right[:, None], part.psum, 0.0)
+    count_right = torch.where(rep_right, part.count, 0.0)
+    # the right children go to their allocated rows; rows that do not split
+    # write nothing (the reference's scatter with mode="drop")
+    src = fits.nonzero()[:, 0]
+    dst = plan.right_row.long()[src]
+    return apply_split_plan(part._replace(
+        lo=part.lo.index_copy(0, dst, lo_right[src]),
+        hi=hi_left.index_copy(0, dst, part.hi[src]),
+        psum=psum_left.index_copy(0, dst, psum_right[src]),
+        count=count_left.index_copy(0, dst, count_right[src]),
+    ), plan)

@@ -12,17 +12,21 @@ use one that calls ``jax.random`` to follow the reference's draws).
 on the device of the tensors it makes, and :meth:`TorchKey.split` and
 :meth:`TorchKey.fold_in` derive child integers with a SplitMix64 hash. The
 same key gives the same draws on the same device; CPU and CUDA generators
-give different numbers.
+give different numbers. :func:`key_to_words` and :func:`key_from_words`
+carry a key through the reference's checkpoint format, which stores a key
+as ``uint32[2]``: the seed's high word, then its low word.
 """
 
 from __future__ import annotations
 
 from typing import Protocol
 
+import numpy as np
 import torch
 
 __all__ = [
-    "Key", "TorchKey", "categorical", "fold_in", "gumbel", "key", "randint", "split", "uniform",
+    "Key", "TorchKey", "categorical", "fold_in", "gumbel", "key", "key_from_words",
+    "key_to_words", "randint", "split", "uniform",
 ]
 
 _MASK64 = (1 << 64) - 1
@@ -100,6 +104,17 @@ class TorchKey:
 def key(seed: int) -> TorchKey:
     """The production key for ``seed``."""
     return TorchKey(seed)
+
+
+def key_to_words(key: TorchKey) -> np.ndarray:
+    """``key`` as ``uint32[2]``, the reference's stored form of a key."""
+    return np.array([key.seed >> 32, key.seed & 0xFFFFFFFF], np.uint32)
+
+
+def key_from_words(words) -> TorchKey:
+    """The key of :func:`key_to_words`' two words, high word first."""
+    hi, lo = (int(w) for w in np.asarray(words, np.uint32).reshape(2))
+    return TorchKey((hi << 32) | lo)
 
 
 def split(key: Key, num: int = 2) -> tuple[Key, ...]:

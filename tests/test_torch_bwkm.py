@@ -205,7 +205,10 @@ def test_state_carried_across_serves_the_same_answers():
 
 def test_package_imports_neither_jax_nor_the_reference():
     bad = []
-    for path in sorted(SRC.rglob("*.py")):
+    paths = sorted(SRC.rglob("*.py"))
+    scanned = {p.relative_to(SRC).parts[0] for p in paths}
+    assert {"api", "core", "engine", "kernels", "service", "streaming", "train"} <= scanned
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             names = []
             if isinstance(node, ast.Import):

@@ -436,3 +436,99 @@ def test_streaming_chunk_seams_match_plain_versions(cuda):
     assert [nv for _, nv in on_card] == [nv for _, nv in on_cpu] == [1024, 1024, 452]
     for (a, _), (b, _) in zip(on_card, on_cpu):
         assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------------------------ the service
+def _drifting_stream(n_chunks=8, rows=256, d=4, k=3):
+    """The reference crash suite's drifting stream (centres jump halfway)."""
+    rng = np.random.RandomState(11)
+    centers = rng.randn(k, d).astype(np.float32) * 4.0
+    chunks = []
+    for i in range(n_chunks):
+        c = centers + (2.5 if i >= n_chunks // 2 else 0.0)
+        lab = rng.randint(0, k, rows)
+        chunks.append((c[lab] + 0.3 * rng.randn(rows, d)).astype(np.float32))
+    return np.concatenate(chunks)
+
+
+def _service_config():
+    from repro_torch.core.bwkm import BWKMConfig
+    from repro_torch.service import ServiceConfig
+
+    return ServiceConfig(base=BWKMConfig(k=3, max_iters=4, lloyd_max_iters=20), decay=0.9,
+                         refit_boundary_frac=0.02, seed=5)
+
+
+@pytest.mark.cuda
+def test_service_on_the_card_is_the_service_on_the_cpu(cuda, monkeypatch):
+    from repro_torch import random as rnd
+    from repro_torch.data.chunks import ArrayChunkSource
+    from repro_torch.service import BWKMSession, run_service
+    from repro_torch.service import session as smod
+
+    monkeypatch.setattr(smod, "_session_key", lambda seed: _CpuDrawKey(rnd.key(seed)))
+    x = _drifting_stream()
+    runs = {dev: run_service(BWKMSession(_service_config(), device=dev), ArrayChunkSource(x, 256))
+            for dev in ("cuda", "cpu")}
+    assert any(m["refit"] for m in runs["cpu"][1:])
+    for g, c in zip(runs["cuda"], runs["cpu"]):
+        assert (g["refit"], g["n_splits"], g["n_blocks"]) == (c["refit"], c["n_splits"], c["n_blocks"])
+        assert abs(g["boundary_frac"] - c["boundary_frac"]) <= 1e-5
+        assert abs(g["error"] - c["error"]) <= 1e-3 * abs(c["error"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crash_at", [1, 3, 6])
+def test_service_resume_is_bit_identical_on_the_card(cuda, crash_at, tmp_path):
+    from repro_torch.data.chunks import ArrayChunkSource
+    from repro_torch.service import BWKMSession, resume_service, run_service
+    from repro_torch.testing.faults import CrashingSource, InjectedCrash
+
+    src = ArrayChunkSource(_drifting_stream(), 256)
+    whole = BWKMSession(_service_config())
+    want = run_service(whole, src)
+    with pytest.raises(InjectedCrash):
+        run_service(BWKMSession(_service_config()), CrashingSource(src, crash_at),
+                    checkpoint_dir=str(tmp_path), checkpoint_every=2)
+    resumed, got = resume_service(str(tmp_path), src, config=_service_config())
+    assert got == want[(crash_at // 2) * 2 :]
+    a, b = whole.state, resumed.state
+    assert resumed.device.type == "cuda" and b.centroids.is_cuda
+    for f in a.partition._fields:
+        assert torch.equal(getattr(a.partition, f), getattr(b.partition, f)), f
+    for f in ("centroids", "d1", "d2", "batches", "points"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert a.key.seed == b.key.seed
+
+
+@pytest.mark.cuda
+def test_batched_predictor_labels_are_assign_top2_on_the_card(cuda):
+    import threading
+
+    from repro_torch.kernels import ops
+    from repro_torch.service import BatchedPredictor
+
+    rng = np.random.RandomState(3)
+    c = torch.from_numpy((rng.randn(27, 19) * 3).astype(np.float32)).cuda()
+    reqs = [(rng.randn(s, 19) * 3).astype(np.float32) for s in rng.randint(1, 3000, 24)]
+    predictor = BatchedPredictor(c, chunk_size=2048)
+    tickets = [None] * len(reqs)
+
+    def submit(j):
+        for i in range(j, len(reqs), 4):
+            tickets[i] = predictor.submit(reqs[i])
+
+    threads = [threading.Thread(target=submit, args=(j,)) for j in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    launches = cuda[0].assign_top2_cuda.launches
+    predictor.flush()
+    total = sum(r.shape[0] for r in reqs)
+    assert predictor.stats["n_kernel_calls"] == -(-total // 2048)
+    assert cuda[0].assign_top2_cuda.launches - launches == -(-total // 2048)
+    for r, t in zip(reqs, tickets):
+        want = ops.assign_top2(torch.from_numpy(r).cuda(), c)[0].cpu().numpy()
+        np.testing.assert_array_equal(t.result(timeout=0), want)
