@@ -120,6 +120,28 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    ``BWKM(k=27).partial_fit`` over 5 batches bit-equal to a ``BWKMSession``.
    Its launches (run 1's and the flush's) join the JSON line's.
 
+8. (after phase 7) the paper's trade-off at full scale, with
+   ``benchmarks/bench_tradeoff.py``'s methods and settings: BWKM
+   (``engine="incore", max_iters=20, trace=True``), FKM, KM++, KM++_init,
+   KMC2 (chain 100), MB100/500/1000 (150 steps) and grid-RPKM on the SUSY
+   array at K = 3, 9 and 27, and FKM, KM++, KM++_init and KMC2 on the WUY
+   profile (45,811,883 × 5, made here from seed 0) at K = 27, each with
+   ``rnd.key(K)``. One line per (dataset, K, method): distances,
+   ``kmeans_error``, Ê_M, wall seconds (the method alone, after a
+   synchronize) and the card's name and power limit; BWKM's per-iteration
+   (distances, error) curve. Checks: (a) every ``kmeans_error`` within
+   1e-4 of float64 over all rows; (b) every baseline's distances within
+   1e-5 of the reference's formula for it; (c) grid-RPKM's level-1 cells
+   and counts over all of SUSY equal ``np.unique(axis=0)``'s on the host;
+   (d) KMC2, MB1000 and grid-RPKM at K = 27 run twice bit-equal; (e)
+   1,000,000 categorical draws over WUY's 45,811,883 rows reach past 2^24
+   in the expected share (within 0.005), and each KM++_init seed on WUY is
+   a row of WUY; (f) B1–B4 launch in the phase and no plain distance or
+   statistics function of ``kernels/ref.py`` is called. Then B1 and B4 at
+   the mini-batch shapes and B2 at grid-RPKM's level-1 cells are timed
+   beside their plain versions, library calls and bounds. Its launches join
+   the JSON line's.
+
 Then the card's name and power limit, one JSON line of kernel records, and
 the result line ``{"ok": true, "device": {...}}`` last. Without a CUDA
 device, or without the rest of the repository beside it, it prints no
@@ -1105,6 +1127,9 @@ class _CpuDrawKey:
     def gumbel(self, shape, device):
         return self.key.gumbel(shape, "cpu").to(device)
 
+    def choice(self, n, shape, device):
+        return self.key.choice(n, shape, "cpu").to(device)
+
 
 @contextlib.contextmanager
 def _patched(obj, name, value):
@@ -1820,6 +1845,318 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
     return out
 
 
+# ---------------------------------------------------------------- phase 8
+TRADEOFF_KS = (3, 9, 27)  # the paper's sweep
+KMC2_CHAIN = 100  # bench_tradeoff's chain length
+MB_ITERS = 150  # bench_tradeoff's mini-batch steps
+MB_BATCHES = (100, 500, 1000)
+TRADEOFF_METHODS = ("BWKM", "FKM", "KM++", "KM++_init", "KMC2", "MB100", "MB500", "MB1000", "RPKM")
+#: the plain distance and statistics functions of kernels/ref.py, none of
+#: which may run on the card in phase 8
+PLAIN_FNS = ("assign_top2", "cluster_sums", "assign_update", "assign_update_pruned",
+             "min_sqdist_update", "weighted_error")
+
+
+def _tradeoff_methods(repro_torch, baselines, k, names):
+    """bench_tradeoff's methods (``benchmarks/bench_tradeoff.py:48-57``):
+    name -> fit(key, x) returning a ``FitResult``."""
+    methods = {
+        "BWKM": lambda key, x: repro_torch.BWKM(
+            k=k, device=x.device, engine="incore", max_iters=20, trace=True).fit(
+                x, key=key).result_,
+        "FKM": lambda key, x: baselines.forgy_kmeans(key, x, k),
+        "KM++": lambda key, x: baselines.kmeanspp_kmeans(key, x, k),
+        "KM++_init": lambda key, x: baselines.kmeanspp_kmeans(key, x, k, init_only=True),
+        "KMC2": lambda key, x: baselines.kmc2_kmeans(key, x, k, chain_length=KMC2_CHAIN),
+        **{f"MB{b}": (lambda key, x, b=b: baselines.minibatch_kmeans(
+            key, x, k, batch=b, iters=MB_ITERS)) for b in MB_BATCHES},
+        "RPKM": lambda key, x: baselines.grid_rpkm(key, x, k),
+    }
+    return {m: methods[m] for m in names}
+
+
+def _expected_distances(method, res, n, k):
+    """The reference's accounting of a baseline's distances (None for BWKM)."""
+    dense = (res.iterations + 1) * n * k
+    if method == "FKM":
+        return dense
+    if method == "KM++":
+        return n * k + dense
+    if method == "KM++_init":
+        return n * k
+    if method == "KMC2":
+        return n + (k - 1) * KMC2_CHAIN * k + dense
+    if method.startswith("MB"):
+        return int(method[2:]) * k * MB_ITERS
+    if method == "RPKM":
+        return sum(m * k * (it + 1) for m, it in
+                   zip(res.metadata["cells"], res.metadata["lloyd_iters"]))
+    return None
+
+
+class _ShapeTally:
+    """Launches of B1, B2 and B4 by shape while :meth:`active`: each wrapper
+    is replaced by one that counts ``(kernel, rows, K)`` and calls it. A
+    wrapper counts its launches on the module's name for it, so the
+    stand-in carries the count meanwhile and hands it back."""
+
+    def __init__(self, da, fau, cu):
+        self.mods = ((da, "assign_top2_cuda", "B1"), (fau, "fused_assign_update_cuda", "B2"),
+                     (cu, "cluster_sums_cuda", "B4"))
+        self.counts: dict[tuple, int] = {}
+
+    @contextlib.contextmanager
+    def active(self):
+        with contextlib.ExitStack() as stack:
+            for mod, attr, b in self.mods:
+                fn = getattr(mod, attr)
+
+                def counted(*a, _fn=fn, _b=b, **kw):
+                    k = a[-1] if _b == "B4" else a[-1].shape[0]
+                    key = (_b, a[0].shape[0], int(k))
+                    self.counts[key] = self.counts.get(key, 0) + 1
+                    return _fn(*a, **kw)
+
+                counted.launches = fn.launches
+                stack.callback(lambda fn=fn, c=counted: setattr(fn, "launches", c.launches))
+                stack.enter_context(_patched(mod, attr, counted))
+            yield self
+
+
+@contextlib.contextmanager
+def _plain_calls(ref):
+    """While active, count the calls of :data:`PLAIN_FNS` of ``ref``; yields
+    the dict of counts."""
+    calls = {f: 0 for f in PLAIN_FNS}
+    with contextlib.ExitStack() as stack:
+        for name in PLAIN_FNS:
+            fn = getattr(ref, name)
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                calls[_name] += 1
+                return _fn(*a, **kw)
+
+            stack.enter_context(_patched(ref, name, counted))
+        yield calls
+
+
+def _sync_calls(torch, fn) -> int:
+    """The synchronizing CUDA calls that ``torch.cuda.set_sync_debug_mode``
+    reports while ``fn`` runs."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _rows_present(torch, x, rows, chunk=CHUNK):
+    """Whether each of ``rows`` equals some row of ``x`` exactly."""
+    found = torch.zeros(rows.shape[0], dtype=torch.bool, device=x.device)
+    for i in range(0, x.shape[0], chunk):
+        found |= (x[i : i + chunk, None, :] == rows[None]).all(-1).any(0)
+    return bool(found.all())
+
+
+def _run_tradeoff(torch, rnd, metrics, methods, x, k, ds, smi):
+    """Run ``methods`` on ``x`` with ``rnd.key(k)``; check (a) and (b) and
+    print a line per method and BWKM's curve. Returns name -> FitResult."""
+    n = x.shape[0]
+    results, errors, walls = {}, {}, {}
+    for name, fit in methods.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit(rnd.key(k), x)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        c = res.centroids
+        check(tuple(c.shape) == (k, x.shape[1]) and c.is_cuda and bool(torch.isfinite(c).all()),
+              f"{ds} K={k} {name}: centroids not finite [{k}, {x.shape[1]}] on the card")
+        err = float(metrics.kmeans_error(x, c))
+        want = _score_f64(torch, x, c)
+        check(abs(err - want) <= 1e-4 * abs(want),
+              f"(a) {ds} K={k} {name}: kmeans_error {err!r} vs float64 {want!r}")
+        expected = _expected_distances(name, res, n, k)
+        if expected is not None:
+            check(abs(res.distances - expected) <= 1e-5 * expected,
+                  f"(b) {ds} K={k} {name}: distances {res.distances!r} vs formula {expected}")
+        results[name], errors[name] = res, err
+    rel = metrics.relative_errors(errors)
+    for name, res in results.items():
+        extra = ""
+        if name.startswith("MB"):
+            extra = f" ms_per_step={walls[name] / MB_ITERS * 1e3:.4f}"
+        if name == "RPKM":
+            extra = (f" cells_per_level={res.metadata['cells']} "
+                     f"lloyd_iters_per_level={res.metadata['lloyd_iters']}")
+        print(f"[tradeoff] {ds} n={n} K={k} {name}: distances={res.distances!r} "
+              f"error={errors[name]!r} rel_error={rel[name]!r} wall_s={walls[name]!r} "
+              f"stop={res.stop_reason} iterations={res.iterations}{extra} | {smi}")
+    bwkm = results.get("BWKM")
+    if bwkm is not None:
+        curve = [(t["distances"], float(metrics.kmeans_error(
+            x, torch.from_numpy(t["centroids"]).to(x.device)))) for t in bwkm.trace]
+        print(f"[tradeoff] {ds} K={k} BWKM curve (distances, error) per iteration: "
+              + ", ".join(f"({dd!r}, {e!r})" for dd, e in curve) + f" | {smi}")
+    return results
+
+
+def _tradeoff_times(torch, ref, da, fau, cu, x, k, mb_c, rpkm, tally):
+    """B1 and B4 at mini-batch K-means' batches and B2 at grid-RPKM's
+    level-1 cells, beside the plain version, the library call and the
+    bound, with the phase's launches at each shape."""
+    from repro_torch.core import baselines
+
+    d = x.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(81)
+    rows = []
+    for b in MB_BATCHES:
+        xb = x[torch.randint(0, x.shape[0], (b,), generator=g, device="cuda")]
+        c = mb_c[b]
+        a = da.assign_top2_cuda(xb, c)[0]
+        ones = torch.ones(b, device="cuda")
+        a_long = a.long()
+
+        def lib4(xb=xb, a_long=a_long, ones=ones):
+            sums = torch.zeros(k, d, device="cuda").index_add_(0, a_long, xb)
+            return sums, torch.zeros(k, device="cuda").index_add_(0, a_long, ones)
+
+        rows.append((f"B1 MB{b}", f"x[{b},{d}] c[{k},{d}] f32", tally.get(("B1", b, k), 0),
+                     _time_graph(torch, lambda xb=xb, c=c: da.assign_top2_cuda(xb, c)),
+                     _time_graph(torch, lambda xb=xb, c=c: ref.assign_top2(xb, c)),
+                     _time_graph(torch, lambda xb=xb, c=c: torch.topk(
+                         torch.cdist(xb, c) ** 2, 2, dim=1, largest=False)),
+                     _bound(4 * b * d + 4 * k * d + 12 * b, b * k * (2 * d + 3))))
+        rows.append((f"B4 MB{b}", f"x[{b},{d}] f32, K={k}", tally.get(("B4", b, k), 0),
+                     _time_graph(torch, lambda xb=xb, a=a, ones=ones: cu.cluster_sums_cuda(
+                         xb, ones, a, k)),
+                     _time_graph(torch, lambda xb=xb, a=a, ones=ones: ref.cluster_sums(
+                         xb, ones, a, k)),
+                     _time_graph(torch, lib4),
+                     _bound(4 * b * d + 8 * b + 4 * k * (d + 1), 2 * b * (d + 1))))
+    lo, hi = x.min(0).values, x.max(0).values
+    span = torch.where(hi > lo, hi - lo, 1.0)
+    _, inverse, counts = baselines.grid_cells(x, lo, span, 1)
+    reps, w = baselines.cell_means(x, inverse, counts), counts.float()
+    m, c = reps.shape[0], rpkm
+
+    def lib2():
+        dist, idx = torch.topk(torch.cdist(reps, c) ** 2, 2, dim=1, largest=False)
+        a = idx[:, 0]
+        sums = torch.zeros(k, d, device="cuda").index_add_(0, a, reps * w[:, None])
+        return sums, torch.zeros(k, device="cuda").index_add_(0, a, w), (w * dist[:, 0]).sum()
+
+    rows.append(("B2 RPKM L1", f"x[{m},{d}] c[{k},{d}] f32, w = cell counts",
+                 tally.get(("B2", m, k), 0),
+                 _time_graph(torch, lambda: fau.fused_assign_update_cuda(reps, w, c)),
+                 _time_graph(torch, lambda: ref.assign_update(reps, w, c)),
+                 _time_graph(torch, lib2),
+                 _bound(4 * m * d + 4 * m + 4 * k * d + 12 * m + 4 * k * (d + 1) + 4,
+                        m * k * (2 * d + 3) + 2 * m * d)))
+    for name, shape, launches, ms, plain, lib, bound in rows:
+        print(f"[time] {name} {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), phase 8 launches at this "
+              f"shape {launches}")
+
+
+def phase_tradeoff(torch, repro_torch, rnd, ref, da, fau, cu, counters, x, smi):
+    """Phase 8: the paper's trade-off at full scale, bench_tradeoff's
+    methods on SUSY at K = 3, 9, 27 and FKM, KM++, KM++_init and KMC2 on
+    WUY at K = 27, with checks (a)–(f). Returns the launches of its paths."""
+    import numpy as np
+
+    from repro_torch.core import baselines, metrics
+    from repro_torch.data.synthetic import paper_dataset
+
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    tally = _ShapeTally(da, fau, cu)
+    _zero(counters)
+    with _plain_calls(ref) as plain, tally.active():
+        susy = {k: _run_tradeoff(torch, rnd, metrics,
+                                 _tradeoff_methods(repro_torch, baselines, k, TRADEOFF_METHODS),
+                                 x, k,
+                                 "SUSY", smi)
+                for k in TRADEOFF_KS}
+        # (d) run twice with the same key, bit-equal
+        for name in ("KMC2", "MB1000", "RPKM"):
+            again = _tradeoff_methods(repro_torch, baselines, 27, [name])[name](rnd.key(27), x)
+            check(torch.equal(again.centroids, susy[27][name].centroids),
+                  f"(d) SUSY K=27 {name}: a second run with the same key differs")
+        t0 = time.perf_counter()
+        xw_host = paper_dataset("WUY", seed=0)
+        xw = torch.from_numpy(xw_host).cuda()
+        del xw_host
+        nw = xw.shape[0]
+        print(f"[data] WUY profile {tuple(xw.shape)} made and moved to the card in "
+              f"{time.perf_counter() - t0:.1f} s")
+        wuy = _run_tradeoff(torch, rnd, metrics, _tradeoff_methods(
+            repro_torch, baselines, 27, ["FKM", "KM++", "KM++_init", "KMC2"]), xw, 27, "WUY", smi)
+        # (e) the draw past 2^24 categories at full scale
+        big = 1 << 24
+        draws = rnd.key(27).categorical(torch.zeros(nw, device="cuda"), shape=(1_000_000,))
+        share = float((draws >= big).float().mean())
+        want_share = (nw - big) / nw
+        print(f"[tradeoff] C8: 1,000,000 draws over {nw:,} uniform logits: largest "
+              f"{int(draws.max()):,}, smallest {int(draws.min()):,}, share >= 2^24 {share!r} "
+              f"(expected {want_share!r})")
+        check(int(draws.max()) >= big and int(draws.max()) < nw and int(draws.min()) >= 0,
+              "(e) the draws over WUY's rows do not reach past 2^24 or leave the range")
+        check(abs(share - want_share) <= 0.005, f"(e) share past 2^24 {share} vs {want_share}")
+        check(_rows_present(torch, xw, wuy["KM++_init"].centroids),
+              "(e) a KM++_init seed on WUY is not a row of WUY")
+        syncs = {ds: _sync_calls(torch, lambda xx=xx: baselines.kmeanspp_kmeans(
+            rnd.key(27), xx, 27, init_only=True)) for ds, xx in (("SUSY", x), ("WUY", xw))}
+        print(f"[tradeoff] synchronizing CUDA calls in KM++_init at K = 27: {syncs} (SUSY's "
+              f"{n:,} rows draw by torch.multinomial, WUY's {nw:,} by inverse CDF)")
+        del xw, wuy
+    launches = _read(counters)
+    print(f"[tradeoff] phase 8 launches {launches}; plain-version calls {plain}")
+    for b in ("B1", "B2", "B3", "B4"):
+        check(launches[b] > 0, f"(f) kernel {b} was not launched in phase 8")
+    check(not any(plain.values()), f"(f) plain versions ran on the card: {plain}")
+    # (c) grid-RPKM's level-1 cells on the card against numpy's over all rows,
+    # and the cells of the first three levels with their times on the card
+    lo, hi = x.min(0).values, x.max(0).values
+    span = torch.where(hi > lo, hi - lo, 1.0)
+    levels = []
+    for level in (1, 2, 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cells, _, counts = baselines.grid_cells(x, lo, span, level)
+        torch.cuda.synchronize()
+        levels.append((cells.shape[0], time.perf_counter() - t0))
+        if level == 1:
+            cells1, counts1 = cells, counts
+    xh = x.cpu().numpy()
+    t0 = time.perf_counter()
+    lo_h, hi_h = xh.min(axis=0), xh.max(axis=0)
+    span_h = np.where(hi_h > lo_h, hi_h - lo_h, 1.0)
+    q = np.minimum(((xh - lo_h) / span_h * 2).astype(np.int64), 1)
+    want_cells, want_counts = np.unique(q, axis=0, return_counts=True)
+    t_host = time.perf_counter() - t0
+    check(np.array_equal(cells1.cpu().numpy(), want_cells)
+          and np.array_equal(counts1.cpu().numpy(), want_counts),
+          "(c) grid-RPKM's level-1 cells or counts differ from np.unique's")
+    print(f"[tradeoff] RPKM's level-1 cells equal np.unique's over all {n:,} rows "
+          f"({t_host:.3f} s on the host); cells and grid_cells seconds on the card per level: "
+          + ", ".join(f"level {i + 1}: {m:,} in {t:.3f} s" for i, (m, t) in enumerate(levels))
+          + "; RPKM stopped " + ", ".join(
+              f"K={k}: {susy[k]['RPKM'].stop_reason} after level {susy[k]['RPKM'].iterations}"
+              for k in TRADEOFF_KS))
+    _tradeoff_times(torch, ref, da, fau, cu, x, 27,
+                    {b: susy[27][f"MB{b}"].centroids for b in MB_BATCHES},
+                    susy[27]["RPKM"].centroids, tally.counts)
+    print(f"[tradeoff] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- walls
 def _walls_child(src: str, reps: int) -> int:
     """``--walls SRC REPS``, run by :func:`phase_walls` in a process of its
@@ -2102,14 +2439,18 @@ def main(argv) -> int:
     service_launches = phase_service(torch, repro_torch, rnd, ops, counters, x)
     for b in launches:
         launches[b] += service_launches[b]
-    if parent is not None:
-        phase_walls(argv[argv.index("--parent") + 1])
-    if "--profile" in argv:
-        phase_profile(torch, repro_torch, rnd, x, pathlib.Path(argv[argv.index("--profile") + 1]))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    # phase 8
+    tradeoff_launches = phase_tradeoff(torch, repro_torch, rnd, ref, da, fau, cu, counters, x, smi)
+    for b in launches:
+        launches[b] += tradeoff_launches[b]
+    if parent is not None:
+        phase_walls(argv[argv.index("--parent") + 1])
+    if "--profile" in argv:
+        phase_profile(torch, repro_torch, rnd, x, pathlib.Path(argv[argv.index("--profile") + 1]))
     print(smi)
     sources = {
         "B1": ("assign_top2", "src/repro_torch/kernels/csrc/distance_assign.cu",

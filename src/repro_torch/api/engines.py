@@ -29,7 +29,10 @@ import numpy as np
 from repro_torch.api import adapters
 from repro_torch.api.result import FitResult, from_driver_result
 
-__all__ = ["INCORE_LIMIT_BYTES", "Engine", "get_engine", "select_engine"]
+__all__ = [
+    "INCORE_LIMIT_BYTES", "Engine", "get_engine", "list_engines", "register_engine",
+    "select_engine",
+]
 
 #: auto-selection: data in memory beyond this is streamed in chunks
 INCORE_LIMIT_BYTES = 1 << 30
@@ -74,19 +77,19 @@ def _fit_streaming(key, data, config, *, chunk_size, trace_centroids, device) ->
     return from_driver_result(res, "streaming")
 
 
-_REGISTRY = {
-    e.name: e
-    for e in (
-        Engine("incore", "single-device Algorithm 5 over a resident tensor", _fit_incore),
-        Engine(
-            "streaming",
-            "out-of-core Algorithm 5 over fixed-size chunks; device memory stays "
-            "O(chunk + M·d)",
-            _fit_streaming,
-        ),
-    )
-}
+_REGISTRY: dict[str, Engine] = {}
 _NOT_PORTED = {"distributed": "queue A item 13 (distributed)"}
+
+
+def register_engine(engine: Engine) -> Engine:
+    """Make ``engine`` selectable by name in every ``BWKM``."""
+    _REGISTRY[engine.name] = engine
+    return engine
+
+
+def list_engines() -> dict[str, str]:
+    """``{name: description}`` for every registered engine."""
+    return {e.name: e.description for e in _REGISTRY.values()}
 
 
 def get_engine(name: str) -> Engine:
@@ -111,3 +114,11 @@ def select_engine(
     if nbytes is None:
         nbytes = np.asarray(data).nbytes
     return "streaming" if nbytes > incore_limit_bytes else "incore"
+
+
+register_engine(Engine("incore", "single-device Algorithm 5 over a resident tensor", _fit_incore))
+register_engine(Engine(
+    "streaming",
+    "out-of-core Algorithm 5 over fixed-size chunks; device memory stays O(chunk + M·d)",
+    _fit_streaming,
+))

@@ -27,13 +27,13 @@ from typing import Any
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch import random as rnd
 from repro_torch.api import adapters, engines
 from repro_torch.api.inits import resolve_init
 from repro_torch.api.result import FitResult
 from repro_torch.core.bwkm import BWKMConfig
+from repro_torch.core.metrics import chunked_error, tensor_chunks
 from repro_torch.data.chunks import padded_device_chunks
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -187,10 +187,7 @@ class BWKM:
         if self.centroids_ is None:
             raise RuntimeError("this BWKM instance is not fitted yet; call fit()")
         if isinstance(data, torch.Tensor) and data.device == self.device:
-            x, cs = data.float(), self.chunk_size
-            for i in range(0, x.shape[0], cs):
-                nv = min(cs, x.shape[0] - i)
-                yield (x[i : i + cs] if nv == cs else F.pad(x[i:], (0, 0, 0, cs - nv))), nv
+            yield from tensor_chunks(data.float(), self.chunk_size)
             return
         yield from padded_device_chunks(adapters.to_chunk_source(data, self.chunk_size), self.device)
 
@@ -205,12 +202,7 @@ class BWKM:
     def score(self, data: Any) -> float:
         """Full-dataset K-means error ``E^D(C)`` (paper Eq. 1), accumulated on
         the device across chunks; one host sync at the end."""
-        c = self.centroids_
-        err = torch.zeros((), dtype=torch.float64, device=self.device)
-        for x, nv in self._chunks(data):
-            _, d1, _ = ops.assign_top2_chunk(x, c, chunk_size=x.shape[0])
-            err = err + d1[:nv].sum(dtype=torch.float64)
-        return float(err)
+        return float(chunked_error(self._chunks(data), self.centroids_))
 
     def transform(self, data: Any) -> torch.Tensor:
         """Squared distances to every centroid, ``f32 [n, K]``, chunked."""

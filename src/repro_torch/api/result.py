@@ -13,19 +13,24 @@ class FitResult:
     """What a fit reports. ``metadata`` carries the block counts, boundary
     sizes, weighted errors, the final ``Partition`` and the health ledger,
     and for the streaming engine the passes, rows streamed, chunks and
-    chunk size."""
+    chunk size; a baseline of ``repro_torch.core.baselines`` reports its
+    own extras there."""
 
     centroids: Any  # [K, d] torch.Tensor
     distances: float  # total distance computations (the paper's cost unit)
     iterations: int
     stop_reason: str
-    engine: str
+    engine: str  # "incore" | "streaming" | "baseline:<name>"
     trace: list = dataclasses.field(default_factory=list)
     metadata: dict = dataclasses.field(default_factory=dict)
 
     @property
     def k(self) -> int:
         return int(self.centroids.shape[0])
+
+    def schema(self) -> tuple[str, ...]:
+        """The field names every engine and baseline reports."""
+        return tuple(f.name for f in dataclasses.fields(FitResult))
 
 
 def from_driver_result(res: Any, engine: str) -> FitResult:

@@ -10,6 +10,7 @@ Counterpart of ``repro.core.bwkm``. The algorithm itself lives once in
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import torch
@@ -23,10 +24,19 @@ __all__ = ["BWKMConfig", "BWKMResult", "fit_incore", "seed_centroids"]
 
 def seed_centroids(name: str, key, reps: torch.Tensor, w: torch.Tensor, k: int) -> torch.Tensor:
     """Seed K centroids from the weighted representatives through the named
-    strategy of ``repro_torch.api.inits``."""
+    strategy of ``repro_torch.api.inits``; a strategy that ignores the
+    weights warns."""
     from repro_torch.api.inits import resolve_init
 
-    return resolve_init(name).seed_centroids(key, reps, w, k)
+    strategy = resolve_init(name)
+    if not strategy.supports_weights:
+        warnings.warn(
+            f"init strategy {strategy.name!r} ignores point weights; BWKM "
+            "representatives are seeded as if unweighted",
+            UserWarning,
+            stacklevel=2,
+        )
+    return strategy.seed_centroids(key, reps, w, k)
 
 
 @dataclasses.dataclass(frozen=True)

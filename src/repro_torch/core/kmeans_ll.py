@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import as_points
+
 __all__ = ["KMeansLLResult", "default_oversampling", "kmeans_parallel"]
 
 #: parking coordinate for unfilled candidate rows: far enough that no real
@@ -66,9 +68,7 @@ def kmeans_parallel(
     from repro_torch.engine import driver
     from repro_torch.engine.incore import InCoreLLSession
 
-    x = torch.as_tensor(x, device=x.device if isinstance(x, torch.Tensor) else "cuda")
-    if x.dtype != torch.bfloat16:  # the kernels load f32 or bf16 and compute in f32
-        x = x.float()
+    x = as_points(x)
     w = torch.ones(x.shape[0], device=x.device) if w is None else torch.as_tensor(
         w, dtype=torch.float32, device=x.device)
     l, r, cap_round = driver.resolve_ll_params(k, oversampling, rounds)  # noqa: E741

@@ -1,8 +1,9 @@
 """Weighted Lloyd's algorithm, dense and drift-bound pruned.
 
-Counterpart of ``repro.core.lloyd`` (``weighted_lloyd`` and its helpers).
-The reference's ``while_loop`` is a Python loop here. Its state stays on the
-device; the stop test is the one host sync per iteration.
+Counterpart of ``repro.core.lloyd``: :func:`weighted_lloyd`, its traced
+twin :func:`weighted_lloyd_trace` and the unweighted :func:`lloyd` of the
+baselines. The reference's ``while_loop`` is a Python loop here. Its state
+stays on the device; the stop test is the one host sync per iteration.
 
 * dense — each iteration is one ``ops.assign_update`` pass (kernel B2).
 * pruned (default) — per-row bounds carried across iterations (an upper
@@ -27,8 +28,10 @@ from repro_torch.kernels import ops
 __all__ = [
     "LloydResult",
     "drift_bound_update",
+    "lloyd",
     "stats_error",
     "weighted_lloyd",
+    "weighted_lloyd_trace",
 ]
 
 
@@ -134,3 +137,99 @@ def weighted_lloyd(
         fin = ops.assign_update(x, w, c)
         return LloydResult(c, fin.err, it, fin.assign, fin.d1, fin.d2, dists + fin.n_dist, max_shift)
     return LloydResult(c, err, it, assign, row1, row2, dists, max_shift)
+
+
+def weighted_lloyd_trace(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    init_centroids: torch.Tensor,
+    *,
+    max_iters: int = 100,
+    epsilon: float = 1e-4,
+    prune: bool | None = None,
+) -> tuple[LloydResult, list[dict]]:
+    """:func:`weighted_lloyd` with per-iteration cost telemetry:
+    ``(result, trace)``, one trace row per pass with ``iteration``,
+    ``active_rows``, ``rows``, ``pruned_fraction``, ``n_dist`` and
+    ``error`` (the pruned path's dense finishing pass adds
+    ``finishing_pass``). It runs the same seams and bound helpers, reading
+    each pass's counts back to the host; use :func:`weighted_lloyd` unless
+    the trajectory is wanted."""
+    prune = prune is None or bool(prune)
+    w = w.float()
+    n_rows = int((w > 0).sum())
+
+    fu = ops.assign_update(x, w, init_centroids)
+    c = init_centroids
+    err, prev_err = fu.err, float("inf")
+    assign, sums, counts = fu.assign, fu.sums, fu.counts
+    dists = float(fu.n_dist)
+    w2sum = (w * (x.float() ** 2).sum(-1)).sum()
+    ub, lb = _sqrt0(fu.d1), _sqrt0(fu.d2)
+    d1, d2 = fu.d1, fu.d2
+    max_shift = float("inf")
+
+    trace = [{
+        "iteration": 0, "active_rows": n_rows, "rows": n_rows,
+        "pruned_fraction": 0.0, "n_dist": float(fu.n_dist), "error": float(err),
+    }]
+    it = 0
+    while it < max_iters and abs(float(prev_err) - float(err)) > epsilon * max(float(err), 1e-30):
+        c_new = _next_centroids(sums, counts, c)
+        drift = torch.linalg.vector_norm(c_new - c, dim=-1)
+        max_shift = float(drift.max())
+        if prune:
+            ub, lb = drift_bound_update(ub, lb, assign, drift)
+            active = ub >= lb
+            fu = ops.assign_update_pruned(x, w, c_new, assign, active)
+            sums, counts = fu.sums, fu.counts
+            prev_err, err = err, stats_error(w2sum, c_new, sums, counts)
+            ub = torch.where(active, _sqrt0(fu.d1), ub)
+            lb = torch.where(active, _sqrt0(fu.d2), lb)
+            n_active = int((active & (w > 0)).sum())
+        else:
+            fu = ops.assign_update(x, w, c_new)
+            sums, counts = fu.sums, fu.counts
+            prev_err, err = err, fu.err
+            d1, d2 = fu.d1, fu.d2
+            n_active = n_rows
+        assign = fu.assign
+        c = c_new
+        dists += float(fu.n_dist)
+        it += 1
+        trace.append({
+            "iteration": it, "active_rows": n_active, "rows": n_rows,
+            "pruned_fraction": 1.0 - n_active / max(n_rows, 1),
+            "n_dist": float(fu.n_dist), "error": float(err),
+        })
+
+    if prune:
+        fin = ops.assign_update(x, w, c)
+        dists += float(fin.n_dist)
+        err, assign, d1, d2 = fin.err, fin.assign, fin.d1, fin.d2
+        trace.append({
+            "iteration": it, "active_rows": n_rows, "rows": n_rows,
+            "pruned_fraction": 0.0, "n_dist": float(fin.n_dist),
+            "error": float(err), "finishing_pass": True,
+        })
+    f32 = dict(dtype=torch.float32, device=x.device)
+    result = LloydResult(
+        c, torch.as_tensor(err, **f32), it, assign, d1, d2, torch.tensor(dists, **f32),
+        torch.tensor(max_shift, **f32),
+    )
+    return result, trace
+
+
+def lloyd(
+    x: torch.Tensor,
+    init_centroids: torch.Tensor,
+    *,
+    max_iters: int = 100,
+    epsilon: float = 1e-4,
+    prune: bool | None = None,
+) -> LloydResult:
+    """Unweighted Lloyd, the baselines' refinement stage."""
+    return weighted_lloyd(
+        x, torch.ones(x.shape[0], device=x.device), init_centroids,
+        max_iters=max_iters, epsilon=epsilon, prune=prune,
+    )

@@ -1,7 +1,9 @@
 """Misassignment function and boundary sampling (paper Section 2).
 
 Counterpart of ``repro.core.misassignment``. Definition 3:
-``ε(B) = max{0, 2·l_B − δ_P(C)}`` with ``δ_P(C) = ‖P̄ − c₂‖ − ‖P̄ − c₁‖``.
+``ε(B) = max{0, 2·l_B − δ_P(C)}`` with ``δ_P(C) = ‖P̄ − c₂‖ − ‖P̄ − c₁‖``;
+Definition 4: the boundary ``F = {B : ε(B) > 0}``; Eq. 5: blocks are cut
+with probability ∝ ε.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from repro_torch import random as rnd
 from repro_torch.core import partition as part_mod
 from repro_torch.core.partition import Partition
 
-__all__ = ["misassignment", "sample_boundary"]
+__all__ = ["boundary_mask", "cutting_probabilities", "misassignment", "sample_boundary"]
 
 
 def misassignment(part: Partition, d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
@@ -23,6 +25,17 @@ def misassignment(part: Partition, d1: torch.Tensor, d2: torch.Tensor) -> torch.
     delta = torch.sqrt(torch.clamp(d2, min=0.0)) - torch.sqrt(torch.clamp(d1, min=0.0))
     eps = torch.clamp(2.0 * l_b - delta, min=0.0)
     return torch.where(occupied, eps, 0.0)
+
+
+def boundary_mask(eps: torch.Tensor) -> torch.Tensor:
+    """The blocks that may not be well assigned (Definition 4)."""
+    return eps > 0.0
+
+
+def cutting_probabilities(eps_sum: torch.Tensor) -> torch.Tensor:
+    """``Pr(B)`` ∝ accumulated misassignment (Eq. 5); all zero when it sums to 0."""
+    total = eps_sum.sum()
+    return torch.where(total > 0, eps_sum / torch.clamp(total, min=1e-30), 0.0)
 
 
 def sample_boundary(key, eps: torch.Tensor, num_draws) -> torch.Tensor:

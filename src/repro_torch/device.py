@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["as_points", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -21,3 +21,11 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def as_points(x) -> torch.Tensor:
+    """``x [n, d]`` as the kernels take points: a tensor stays on its
+    device, anything else goes to CUDA (or raises without it); f32 unless
+    it is bf16, which the kernels also load."""
+    x = torch.as_tensor(x, device=x.device if isinstance(x, torch.Tensor) else resolve_device())
+    return x if x.dtype == torch.bfloat16 else x.float()

@@ -2,11 +2,12 @@
 
 The port calls :func:`split` and :func:`fold_in` exactly where the reference
 calls ``jax.random.split`` and ``jax.random.fold_in``, and draws through
-:func:`randint`, :func:`categorical`, :func:`uniform` and :func:`gumbel`
-where the reference draws through their ``jax.random`` namesakes. Each
-function delegates to its key, so any object with the methods of
-:class:`Key` can stand in for the production :class:`TorchKey` (the tests
-use one that calls ``jax.random`` to follow the reference's draws).
+:func:`randint`, :func:`categorical`, :func:`uniform`, :func:`gumbel` and
+:func:`choice` where the reference draws through their ``jax.random``
+namesakes (:func:`choice` without replacement). Each function delegates to
+its key, so any object with the methods of :class:`Key` can stand in for
+the production :class:`TorchKey` (the tests use one that calls
+``jax.random`` to follow the reference's draws).
 
 :class:`TorchKey` is an integer; each draw seeds a fresh ``torch.Generator``
 on the device of the tensors it makes, and :meth:`TorchKey.split` and
@@ -24,12 +25,16 @@ from typing import Protocol
 import numpy as np
 import torch
 
+from repro_torch.scan import prefix_sum
+
 __all__ = [
-    "Key", "TorchKey", "categorical", "fold_in", "gumbel", "key", "key_from_words",
+    "Key", "TorchKey", "categorical", "choice", "fold_in", "gumbel", "key", "key_from_words",
     "key_to_words", "randint", "split", "uniform",
 ]
 
 _MASK64 = (1 << 64) - 1
+#: the most categories ``torch.multinomial`` takes
+_MULTINOMIAL_MAX = 1 << 24
 
 
 class Key(Protocol):
@@ -44,6 +49,8 @@ class Key(Protocol):
     def uniform(self, shape, device) -> torch.Tensor: ...
 
     def gumbel(self, shape, device) -> torch.Tensor: ...
+
+    def choice(self, n: int, shape, device) -> torch.Tensor: ...
 
 
 def _splitmix64(z: int) -> int:
@@ -84,12 +91,29 @@ class TorchKey:
         )
 
     def categorical(self, logits: torch.Tensor, shape=None) -> torch.Tensor:
-        """Draws ∝ ``exp(logits)`` over the last axis of a 1-D ``logits``;
-        ``shape=(m,)`` draws m times from the same distribution in O(m)
-        memory."""
-        probs = torch.softmax(logits.float(), dim=-1)
+        """Draws ∝ ``exp(logits)`` over the last axis of a 1-D ``logits`` of
+        any length n; ``shape=(m,)`` draws m times from the same
+        distribution in O(n + m) memory. One draw, and every draw on the
+        CPU, over up to 2^24 categories is ``torch.multinomial``'s, whose
+        input check reads a scalar back to the host. Past its limit, and
+        for several draws on CUDA (where its prefix sum is not the same from
+        run to run), it is an inverse-CDF draw: a float64
+        :func:`~repro_torch.scan.prefix_sum`, then ``searchsorted`` of m
+        uniforms."""
         num = 1 if shape is None else int(torch.Size(shape).numel())
-        out = torch.multinomial(probs, num, replacement=True, generator=self._gen(logits.device))
+        gen = self._gen(logits.device)
+        n = logits.shape[-1]
+        if n <= _MULTINOMIAL_MAX and (num == 1 or logits.device.type != "cuda"):
+            probs = torch.softmax(logits.float(), dim=-1)
+            out = torch.multinomial(probs, num, replacement=True, generator=gen)
+        else:
+            probs = torch.softmax(logits.double(), dim=-1)
+            cdf = prefix_sum(probs)
+            u = torch.rand(num, dtype=torch.float64, generator=gen, device=logits.device)
+            out = torch.searchsorted(cdf, u * cdf[-1], right=True)
+            # u·cdf[-1] can round up to cdf[-1]: stay on the last drawable category
+            last = torch.where(probs > 0, torch.arange(n, device=logits.device), 0).max()
+            out = torch.minimum(out, last)
         return out[0] if shape is None else out.reshape(tuple(shape))
 
     def uniform(self, shape, device) -> torch.Tensor:
@@ -99,6 +123,14 @@ class TorchKey:
         tiny = torch.finfo(torch.float32).tiny
         u = self.uniform(shape, device).clamp(min=tiny, max=1.0 - 2.0**-24)
         return -torch.log(-torch.log(u))
+
+    def choice(self, n, shape, device) -> torch.Tensor:
+        """``prod(shape)`` distinct indices of ``range(n)``, uniformly."""
+        k = int(torch.Size(shape).numel())
+        if k > n:
+            raise ValueError(f"cannot draw {k} distinct indices from {n}")
+        perm = torch.randperm(int(n), generator=self._gen(device), device=device)
+        return perm[:k].reshape(tuple(shape))
 
 
 def key(seed: int) -> TorchKey:
@@ -139,3 +171,9 @@ def uniform(key: Key, shape, *, device) -> torch.Tensor:
 
 def gumbel(key: Key, shape, *, device) -> torch.Tensor:
     return key.gumbel(shape, device)
+
+
+def choice(key: Key, n: int, shape, *, device) -> torch.Tensor:
+    """Indices of ``range(n)`` without replacement, as
+    ``jax.random.choice(key, n, shape, replace=False)`` draws them."""
+    return key.choice(n, shape, device)

@@ -64,6 +64,10 @@ class JaxKey:
     def gumbel(self, shape, device):
         return torch.as_tensor(np.array(jax.random.gumbel(self.key, tuple(shape))), device=device)
 
+    def choice(self, n, shape, device):
+        out = jax.random.choice(self.key, n, shape=tuple(shape), replace=False)
+        return torch.as_tensor(np.array(out), device=device).long()
+
 
 def _weighted_points(seed=0, n=300, d=4, k=5):
     rng = np.random.RandomState(seed)
@@ -234,10 +238,9 @@ def test_entry_point_raises_without_cuda_unless_asked_for_the_cpu(monkeypatch):
 
 def test_unported_options_name_their_roadmap_item():
     assert repro_torch.BWKM(k=2, device="cpu", init="kmeans||").config.init == "kmeans||"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        repro_torch.BWKM(k=2, device="cpu", init="afkmc2")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        repro_torch.BWKM(k=2, device="cpu", init="kmc2")
+    # queue A item 10 brought AFK-MC² (both names resolve now)
+    assert repro_torch.BWKM(k=2, device="cpu", init="afkmc2").init == "afkmc2"
+    assert repro_torch.BWKM(k=2, device="cpu", init="kmc2").init == "kmc2"
     assert repro_torch.BWKM(k=2, device="cpu", engine="streaming").engine == "streaming"
     assert repro_torch.BWKM(k=2, device="cpu", init="reservoir").init == "reservoir"
     with pytest.raises(NotImplementedError, match="item 13"):

@@ -381,6 +381,9 @@ class _CpuDrawKey:
     def gumbel(self, shape, device):
         return self.key.gumbel(shape, "cpu").to(device)
 
+    def choice(self, n, shape, device):
+        return self.key.choice(n, shape, "cpu").to(device)
+
 
 def _separated(n, d, k, seed):
     rng = np.random.RandomState(seed)
@@ -532,3 +535,86 @@ def test_batched_predictor_labels_are_assign_top2_on_the_card(cuda):
     for r, t in zip(reqs, tickets):
         want = ops.assign_top2(torch.from_numpy(r).cuda(), c)[0].cpu().numpy()
         np.testing.assert_array_equal(t.result(timeout=0), want)
+
+
+def _gmm(n=2000, d=4, k=5, seed=0):
+    """The data of ``tests/test_torch_baselines.py``."""
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(k, d) * 8
+    return (centers[rng.randint(0, k, n)] + rng.randn(n, d)).astype(np.float32)
+
+
+def _baseline_cases():
+    from repro_torch.core import baselines
+
+    return {
+        "forgy": lambda key, x: baselines.forgy_kmeans(key, x, 5),
+        "kmeans++": lambda key, x: baselines.kmeanspp_kmeans(key, x, 5),
+        "kmeans++_init": lambda key, x: baselines.kmeanspp_kmeans(key, x, 5, init_only=True),
+        "kmc2": lambda key, x: baselines.kmc2_kmeans(key, x, 5, chain_length=20),
+        "minibatch": lambda key, x: baselines.minibatch_kmeans(key, x, 5, batch=50, iters=30),
+        "grid-rpkm": lambda key, x: baselines.grid_rpkm(key, x, 5, max_level=4),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["forgy", "kmeans++", "kmeans++_init", "kmc2", "minibatch",
+                                  "grid-rpkm"])
+def test_baselines_on_the_card_are_the_baselines_on_the_cpu(cuda, name):
+    """Each baseline on the card against the same baseline on the CPU, with
+    the draws made on the CPU, on the data, keys and tolerances of
+    ``tests/test_torch_baselines.py``, where the port is held against the
+    reference draw for draw. The two devices take the same decisions only
+    away from f32 near-ties of the kernels' and the plain distances (on
+    ``_separated(2000, 4, 5, seed=0)`` grid-RPKM meets one at level 4, where
+    B1 and B2 agree with float64 and the plain version does not).
+    Mini-batch and grid-RPKM also run twice on the card, bit-equal."""
+    from repro_torch import random as rnd
+
+    x = _gmm()
+    fit = _baseline_cases()[name]
+    key = {"minibatch": 4, "grid-rpkm": 5}.get(name, 3)
+    want = fit(_CpuDrawKey(rnd.key(key)), torch.from_numpy(x))
+    got = fit(_CpuDrawKey(rnd.key(key)), torch.from_numpy(x).cuda())
+    assert got.centroids.is_cuda
+    assert (got.engine, got.iterations, got.stop_reason, got.distances) == (
+        want.engine, want.iterations, want.stop_reason, want.distances)
+    tol = 1e-4 if name in ("minibatch", "grid-rpkm") else 1e-5
+    torch.testing.assert_close(got.centroids.cpu(), want.centroids, rtol=tol, atol=tol)
+    if name in ("minibatch", "grid-rpkm"):
+        assert got.metadata == want.metadata
+        again = fit(_CpuDrawKey(rnd.key(key)), torch.from_numpy(x).cuda())
+        assert torch.equal(again.centroids, got.centroids)
+
+
+@pytest.mark.cuda
+def test_kmeans_error_on_the_card_is_the_error_on_the_cpu(cuda):
+    from repro_torch.core import metrics
+
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy((rng.randn(70_000, 4) * 3).astype(np.float32))
+    c = x[:5].clone()
+    got = metrics.kmeans_error(x.cuda(), c.cuda())
+    assert got.is_cuda and got.dtype == torch.float32 and got.dim() == 0
+    torch.testing.assert_close(got.cpu(), metrics.kmeans_error(x, c), rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5_000_000, (1 << 24) + 1])
+def test_categorical_draws_repeat_on_the_card(cuda, n):
+    """The same key draws the same numbers on the card: several draws take
+    a prefix sum, whose 1-D CUDA form (``torch.cumsum``, and
+    ``torch.multinomial``'s) varies its bits from run to run past about
+    10^5 elements; the port's runs along rows."""
+    from repro_torch import random as rnd
+
+    logits = torch.rand(n, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    first = rnd.key(5).categorical(logits, shape=(100,))
+    for _ in range(10):
+        assert torch.equal(rnd.key(5).categorical(logits, shape=(100,)), first)
+    from repro_torch.scan import prefix_sum
+
+    p = logits.double()
+    assert torch.equal(prefix_sum(p), prefix_sum(p))
+    rows = p[: 19 * 100_000].view(19, -1)
+    assert torch.equal(prefix_sum(rows), prefix_sum(rows))
