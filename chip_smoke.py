@@ -142,6 +142,27 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    beside their plain versions, library calls and bounds. Its launches join
    the JSON line's.
 
+9. (after phase 8) the distributed engine on the same SUSY array. 9a, in
+   this process, one rank over NCCL (``init_process_group``, then
+   ``init_device_mesh(..., mesh_dim_names=("data",))`` and ``use_mesh``):
+   ``engine="auto"`` must pick ``distributed``; ``BWKM(k=27,
+   engine="distributed", checkpoint_dir=...).fit`` with its wall and peak
+   memory beside phase 4's in-core fit, B1–B3 launched, its initial
+   statistics bit-equal to ``block_stats`` over all rows with the plane's
+   memberships, ``score`` within 1e-4 of float64 and the last checkpoint
+   restoring the result; ``dist_lloyd`` from its centroids pruned ≡ dense
+   bit for bit; ``dist_kmeans_parallel`` at K = 27 launching B5, its φ
+   within 1e-5 of the float64 fold. 9b, four ranks spawned on the same card
+   over gloo, rank r loading phase 6's shards 5r to 5r + 4 (its contiguous
+   1,250,000 rows): on every rank the fit bit-equal to 9a's (centroids,
+   stop reason, blocks, distances), ``dist_lloyd`` pruned ≡ dense and equal
+   on every rank, ``dist_kmeans_parallel`` twice bit-equal and equal on
+   every rank, ``shard_faults={1: [2]}`` completing with one lost shard, one
+   degraded round and a lost mass of 0.25, and ``max_shard_loss_frac=0.2``
+   raising ``ShardLossError`` on all four. The ranks are joined under a
+   deadline; each prints its wall and peak memory, and their launches join
+   the JSON line's. Four ranks on one card check correctness, not scaling.
+
 Then the card's name and power limit, one JSON line of kernel records, and
 the result line ``{"ok": true, "device": {...}}`` last. Without a CUDA
 device, or without the rest of the repository beside it, it prints no
@@ -155,6 +176,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -621,7 +643,7 @@ def phase_fit(torch, repro_torch, ref, da, fau, x, parent):
     check(worst <= 1e-5, "a label is farther than f32 rounding (1e-5·‖x‖²) from the float64 argmin")
     for name, cnt in launches.items():
         check(cnt > 0, f"kernel {name} was not launched on the main path")
-    return launches, score
+    return launches, score, (t_fit, peak)
 
 
 def _weighting_sums_vs_f64(torch, x, au):
@@ -947,13 +969,12 @@ def _stream_kmeans_ll(torch, rnd, ops, ref, fau, counters, glob, x, k):
     return launches
 
 
-def phase_stream(torch, repro_torch, rnd, ops, ref, fau, partition, counters, xs):
+def phase_stream(torch, repro_torch, rnd, ops, ref, fau, partition, counters, xs, tmp):
     """Phase 6: the streaming engine over the SUSY profile written as 20
-    ``.npy`` shards, run before the data goes on the card so that the
-    fit's peak memory is its own. Returns the launches of its paths summed,
-    the data on the card, and the streamed fit's score."""
-    import tempfile
-
+    ``.npy`` shards into ``tmp`` (phase 9 reads them again), run before the
+    data goes on the card so that the fit's peak memory is its own. Returns
+    the launches of its paths summed, the data on the card, and the
+    streamed fit's score."""
     import numpy as np
 
     from repro_torch import streaming
@@ -965,100 +986,99 @@ def phase_stream(torch, repro_torch, rnd, ops, ref, fau, partition, counters, xs
 
     n = xs.shape[0]
     total = dict.fromkeys(counters, 0)
-    with tempfile.TemporaryDirectory(prefix="bwkm_shards_") as tmp:
-        t0 = time.perf_counter()
-        paths = write_npy_shards(xs, tmp, rows_per_shard=STREAM_SHARD_ROWS)
-        glob = f"{tmp}/*.npy"
-        check(len(paths) == 20, f"{len(paths)} shards written, not 20")
-        print(f"[stream] {len(paths)} shards of {STREAM_SHARD_ROWS:,} rows written in "
-              f"{time.perf_counter() - t0:.1f} s; streamed by glob in {CHUNK:,}-row chunks")
-        # 1. the fit
-        planes = []
-        model, wall, peak, launches = _stream_fit(torch, repro_torch, glob, counters, planes)
-        res, md = model.result_, model.result_.metadata
-        print(f"[stream] BWKM(k={SUSY_K}).fit(glob): engine={model.engine_} "
-              f"stop_reason={res.stop_reason} iterations={res.iterations} "
-              f"blocks={md['n_blocks'][-1]} passes={md['passes']} "
-              f"points_streamed={md['points_streamed']} chunks={md['n_chunks']} wall_s={wall:.3f} "
-              f"peak_mem_MiB={peak / 2**20:.1f} launches={launches}")
-        check(model.engine_ == "streaming", f"fit(glob) took engine {model.engine_!r}")
-        check(md["n_chunks"] == -(-n // CHUNK) == 77 and md["chunk_size"] == CHUNK,
-              f"{md['n_chunks']} chunks of {md['chunk_size']}")
-        check(md["points_streamed"] == md["passes"] * n,
-              f"points_streamed {md['points_streamed']} != passes {md['passes']} × n")
-        check(peak < STREAM_PEAK_LIMIT, f"streaming fit peak {peak / 2**20:.1f} MiB ≥ 256 MiB")
-        c = model.centroids_
-        check(tuple(c.shape) == (SUSY_K, xs.shape[1]) and bool(torch.isfinite(c).all()),
-              "streamed centroids not finite [27, 19]")
-        for b in ("B1", "B2", "B3"):
-            check(launches[b] > 0, f"streaming fit: kernel {b} was not launched")
+    t0 = time.perf_counter()
+    paths = write_npy_shards(xs, tmp, rows_per_shard=STREAM_SHARD_ROWS)
+    glob = f"{tmp}/*.npy"
+    check(len(paths) == 20, f"{len(paths)} shards written, not 20")
+    print(f"[stream] {len(paths)} shards of {STREAM_SHARD_ROWS:,} rows written in "
+          f"{time.perf_counter() - t0:.1f} s; streamed by glob in {CHUNK:,}-row chunks")
+    # 1. the fit
+    planes = []
+    model, wall, peak, launches = _stream_fit(torch, repro_torch, glob, counters, planes)
+    res, md = model.result_, model.result_.metadata
+    print(f"[stream] BWKM(k={SUSY_K}).fit(glob): engine={model.engine_} "
+          f"stop_reason={res.stop_reason} iterations={res.iterations} "
+          f"blocks={md['n_blocks'][-1]} passes={md['passes']} "
+          f"points_streamed={md['points_streamed']} chunks={md['n_chunks']} wall_s={wall:.3f} "
+          f"peak_mem_MiB={peak / 2**20:.1f} launches={launches}")
+    check(model.engine_ == "streaming", f"fit(glob) took engine {model.engine_!r}")
+    check(md["n_chunks"] == -(-n // CHUNK) == 77 and md["chunk_size"] == CHUNK,
+          f"{md['n_chunks']} chunks of {md['chunk_size']}")
+    check(md["points_streamed"] == md["passes"] * n,
+          f"points_streamed {md['points_streamed']} != passes {md['passes']} × n")
+    check(peak < STREAM_PEAK_LIMIT, f"streaming fit peak {peak / 2**20:.1f} MiB ≥ 256 MiB")
+    c = model.centroids_
+    check(tuple(c.shape) == (SUSY_K, xs.shape[1]) and bool(torch.isfinite(c).all()),
+          "streamed centroids not finite [27, 19]")
+    for b in ("B1", "B2", "B3"):
+        check(launches[b] > 0, f"streaming fit: kernel {b} was not launched")
+    for b in total:
+        total[b] += launches[b]
+    # 2. the streamed statistics against one recomputation over all rows
+    x = torch.from_numpy(xs).cuda()
+    part = md["partition"]
+    bids = torch.from_numpy(np.concatenate(planes[0].bids)).cuda()
+    check(bids.shape[0] == n, f"{bids.shape[0]} host memberships, not {n}")
+    one = partition.block_stats(x, bids, part.capacity)
+    check(torch.equal(one.count, part.count), "streamed block counts differ from one pass")
+    check(float(part.count.double().sum()) == n, "streamed block counts do not add up to n")
+    check(torch.equal(one.lo, part.lo) and torch.equal(one.hi, part.hi),
+          "streamed block boxes differ from one pass")
+    absum = partition.block_stats(x.abs(), bids, part.capacity).psum.double()
+    psum_gap = float(((part.psum.double() - one.psum.double()).abs()
+                      / absum.clamp(min=1e-30)).max())
+    check(psum_gap <= 1e-5, f"streamed block sums {psum_gap:.3e} of Σ|x| off one pass")
+    print(f"[stream] block statistics vs one pass over all {n:,} rows: counts and boxes "
+          f"bit-equal over {int(part.n_blocks)} blocks, sums within {psum_gap:.3e} of Σ|x|")
+    del one, absum, bids
+    # 3. out-of-core predict/score against in memory
+    _zero(counters)
+    t0 = time.perf_counter()
+    lab_glob = model.predict(glob)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_glob = model.score(glob)
+    t_score = time.perf_counter() - t0
+    launches = _read(counters)
+    check(launches["B1"] == 2 * md["n_chunks"], f"out-of-core predict/score launches {launches}")
+    total["B1"] += launches["B1"]
+    lab_x, s_x = model.predict(x), model.score(x)
+    check(torch.equal(lab_glob, lab_x), "predict(glob) differs from predict(x)")
+    check(s_glob == s_x, f"score(glob) {s_glob!r} != score(x) {s_x!r}")
+    ref_score = _score_f64(torch, x, c)
+    check(abs(s_glob - ref_score) <= 1e-4 * abs(ref_score),
+          f"score(glob) {s_glob} vs float64 {ref_score}")
+    print(f"[stream] predict(glob) bit-equal to predict(x), score(glob) == score(x) = "
+          f"{s_glob!r} (vs float64 {(s_glob - ref_score) / ref_score:+.3e}); "
+          f"predict_s={t_pred:.3f} score_s={t_score:.3f}")
+    # 4. streaming k-means||
+    for k in (27, 100):
+        launches = _stream_kmeans_ll(torch, rnd, ops, ref, fau, counters, glob, x, k)
         for b in total:
             total[b] += launches[b]
-        # 2. the streamed statistics against one recomputation over all rows
-        x = torch.from_numpy(xs).cuda()
-        part = md["partition"]
-        bids = torch.from_numpy(np.concatenate(planes[0].bids)).cuda()
-        check(bids.shape[0] == n, f"{bids.shape[0]} host memberships, not {n}")
-        one = partition.block_stats(x, bids, part.capacity)
-        check(torch.equal(one.count, part.count), "streamed block counts differ from one pass")
-        check(float(part.count.double().sum()) == n, "streamed block counts do not add up to n")
-        check(torch.equal(one.lo, part.lo) and torch.equal(one.hi, part.hi),
-              "streamed block boxes differ from one pass")
-        absum = partition.block_stats(x.abs(), bids, part.capacity).psum.double()
-        psum_gap = float(((part.psum.double() - one.psum.double()).abs()
-                          / absum.clamp(min=1e-30)).max())
-        check(psum_gap <= 1e-5, f"streamed block sums {psum_gap:.3e} of Σ|x| off one pass")
-        print(f"[stream] block statistics vs one pass over all {n:,} rows: counts and boxes "
-              f"bit-equal over {int(part.n_blocks)} blocks, sums within {psum_gap:.3e} of Σ|x|")
-        del one, absum, bids
-        # 3. out-of-core predict/score against in memory
+    # 5. full-stream Lloyd, pruned and dense
+    src = as_chunk_source(glob, CHUNK)
+    runs = {}
+    for prune in (True, False):
         _zero(counters)
-        t0 = time.perf_counter()
-        lab_glob = model.predict(glob)
         torch.cuda.synchronize()
-        t_pred = time.perf_counter() - t0
         t0 = time.perf_counter()
-        s_glob = model.score(glob)
-        t_score = time.perf_counter() - t0
+        runs[prune] = streaming.streaming_lloyd(src, c, max_iters=10, prune=prune)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         launches = _read(counters)
-        check(launches["B1"] == 2 * md["n_chunks"], f"out-of-core predict/score launches {launches}")
-        total["B1"] += launches["B1"]
-        lab_x, s_x = model.predict(x), model.score(x)
-        check(torch.equal(lab_glob, lab_x), "predict(glob) differs from predict(x)")
-        check(s_glob == s_x, f"score(glob) {s_glob!r} != score(x) {s_x!r}")
-        ref_score = _score_f64(torch, x, c)
-        check(abs(s_glob - ref_score) <= 1e-4 * abs(ref_score),
-              f"score(glob) {s_glob} vs float64 {ref_score}")
-        print(f"[stream] predict(glob) bit-equal to predict(x), score(glob) == score(x) = "
-              f"{s_glob!r} (vs float64 {(s_glob - ref_score) / ref_score:+.3e}); "
-              f"predict_s={t_pred:.3f} score_s={t_score:.3f}")
-        # 4. streaming k-means||
-        for k in (27, 100):
-            launches = _stream_kmeans_ll(torch, rnd, ops, ref, fau, counters, glob, x, k)
-            for b in total:
-                total[b] += launches[b]
-        # 5. full-stream Lloyd, pruned and dense
-        src = as_chunk_source(glob, CHUNK)
-        runs = {}
-        for prune in (True, False):
-            _zero(counters)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            runs[prune] = streaming.streaming_lloyd(src, c, max_iters=10, prune=prune)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = _read(counters)
-            r = runs[prune]
-            print(f"[stream] streaming_lloyd prune={prune}: wall_s={wall:.3f} iters={r.iters} "
-                  f"error={r.error!r} distances={r.distances:.0f} launches={launches} "
-                  f"active fractions {[round(a, 4) for a in r.active_fractions]}")
-            check(launches["B2" if not prune else "B3"] > 0, f"streaming_lloyd launches {launches}")
-            for b in total:
-                total[b] += launches[b]
-        pr, de = runs[True], runs[False]
-        check(pr.iters == de.iters, f"streaming_lloyd: {pr.iters} pruned iterations, {de.iters} dense")
-        check(torch.equal(pr.centroids, de.centroids), "streaming_lloyd: pruned != dense centroids")
-        check(pr.distances < de.distances, "streaming_lloyd: pruning saved no distance")
+        r = runs[prune]
+        print(f"[stream] streaming_lloyd prune={prune}: wall_s={wall:.3f} iters={r.iters} "
+              f"error={r.error!r} distances={r.distances:.0f} launches={launches} "
+              f"active fractions {[round(a, 4) for a in r.active_fractions]}")
+        check(launches["B2" if not prune else "B3"] > 0, f"streaming_lloyd launches {launches}")
+        for b in total:
+            total[b] += launches[b]
+    pr, de = runs[True], runs[False]
+    check(pr.iters == de.iters, f"streaming_lloyd: {pr.iters} pruned iterations, {de.iters} dense")
+    check(torch.equal(pr.centroids, de.centroids), "streaming_lloyd: pruned != dense centroids")
+    check(pr.distances < de.distances, "streaming_lloyd: pruning saved no distance")
     # 6. faults, on the first 500,000 rows (8 chunks)
     base = ArrayChunkSource(xs[:500_000], CHUNK)
     sched = seeded_fault_schedule(base.n_chunks, rate=0.4, seed=1, fails=2)
@@ -2157,6 +2177,350 @@ def phase_tradeoff(torch, repro_torch, rnd, ref, da, fau, cu, counters, x, smi):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+DIST_WORLD = 4  # ranks of 9b, all on the one card
+DIST_LLOYD_ITERS = 20
+DIST_RANK_SECONDS = 240  # the parent's deadline for 9b's ranks: a hang fails the phase
+
+
+def _kernel_counters():
+    from repro_torch.kernels import cluster_update as cu
+    from repro_torch.kernels import distance_assign as da
+    from repro_torch.kernels import fused_assign_update as fau
+    from repro_torch.kernels import min_sqdist_update as msu
+
+    return {"B1": da.assign_top2_cuda, "B2": fau.fused_assign_update_cuda,
+            "B3": fau.fused_assign_update_pruned_cuda, "B4": cu.cluster_sums_cuda,
+            "B5": msu.min_sqdist_update_cuda}
+
+
+class _DistRecorder:
+    """Swaps ``engine.sharded``'s plane and k-means|| session for subclasses
+    that keep every instance and each statistics round's memberships and
+    result, and times the plane's routing of all rows into the sample's
+    boxes and its statistics rounds (``spans``, seconds between two
+    synchronizes), so the phase can read them after a run."""
+
+    def __init__(self):
+        from repro_torch.engine import sharded
+
+        self.sharded, self.planes, self.sessions = sharded, [], []
+        self.spans = {"route": 0.0, "stats": 0.0}
+
+    def _timed(self, name, fn):
+        import torch
+
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.spans[name] += time.perf_counter() - t0
+            return out
+
+        return run
+
+    def __enter__(self):
+        sharded, planes, sessions = self.sharded, self.planes, self.sessions
+        self.saved_fns = sharded._route_into_boxes, sharded._recompute_stats_ok
+        sharded._route_into_boxes = self._timed("route", sharded._route_into_boxes)
+        sharded._recompute_stats_ok = self._timed("stats", sharded._recompute_stats_ok)
+
+        class Plane(sharded.ShardedPlane):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                self.rounds = []
+                planes.append(self)
+
+            def _stats_round(self, part_in, bid_in, round_index):
+                out = super()._stats_round(part_in, bid_in, round_index)
+                self.rounds.append((bid_in, out))
+                return out
+
+        class Session(sharded.ShardedLLSession):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                sessions.append(self)
+
+        self.saved = sharded.ShardedPlane, sharded.ShardedLLSession
+        sharded.ShardedPlane, sharded.ShardedLLSession = Plane, Session
+        return self
+
+    def __exit__(self, *exc):
+        self.sharded.ShardedPlane, self.sharded.ShardedLLSession = self.saved
+        self.sharded._route_into_boxes, self.sharded._recompute_stats_ok = self.saved_fns
+
+
+def _timed_path(torch, counters, fn):
+    """``(result, wall seconds, launches)`` of ``fn()``, the counts set to 0
+    just before and read just after."""
+    _zero(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _read(counters)
+
+
+def _dist_lloyd_pair(torch, dist_bwkm, counters, x, c):
+    """``dist_lloyd`` from ``c`` pruned and dense: ``({prune: result}, launches)``."""
+    runs, launches = {}, dict.fromkeys(counters, 0)
+    for prune in (True, False):
+        runs[prune], wall, got = _timed_path(
+            torch, counters,
+            lambda: dist_bwkm.dist_lloyd(x, c, max_iters=DIST_LLOYD_ITERS, prune=prune))
+        runs[prune] = (runs[prune], wall)
+        for b in launches:
+            launches[b] += got[b]
+    return runs, launches
+
+
+def _dist_rank(rank: int, world: int, init: str, shard_dir: str, out_dir: str) -> None:
+    """One rank of 9b: a gloo group on the one card, rank ``rank`` loading
+    shards ``5·rank`` to ``5·rank + 4`` (its contiguous 1,250,000 rows) and
+    running the distributed engine's paths; what it saw goes to
+    ``out_dir/rank<r>.pt``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import random as rnd
+    from repro_torch.core.bwkm import BWKMConfig
+    from repro_torch.distributed import dist_bwkm, dist_kmeans_ll
+    from repro_torch.distributed import sharding as sh
+
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counters = _kernel_counters()
+    paths = sorted(pathlib.Path(shard_dir).glob("*.npy"))
+    per = len(paths) // world
+    x = torch.from_numpy(np.concatenate([np.load(p) for p in paths[rank * per:(rank + 1) * per]]))
+    x = x.cuda()
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    out = {"rank": rank, "rows": x.shape[0], "launches": dict.fromkeys(counters, 0)}
+
+    def add(launches):
+        for b in out["launches"]:
+            out["launches"][b] += launches[b]
+
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=("data",))
+        cfg = BWKMConfig(k=SUSY_K)
+        with sh.use_mesh(mesh):
+            torch.cuda.reset_peak_memory_stats()
+            res, out["fit_s"], launches = _timed_path(
+                torch, counters, lambda: dist_bwkm.fit_distributed(rnd.key(0), x, cfg))
+            add(launches)
+            out["fit_launches"] = launches
+            out["fit"] = (res.centroids.cpu(), res.stop_reason, res.iterations, res.n_blocks,
+                          res.distances)
+            runs, launches = _dist_lloyd_pair(torch, dist_bwkm, counters, x, res.centroids)
+            add(launches)
+            out["lloyd"] = {p: (r.centroids.cpu(), r.iters, r.distances, wall)
+                            for p, (r, wall) in runs.items()}
+            seeds, out["ll_s"], launches = _timed_path(torch, counters, lambda: [
+                dist_kmeans_ll.dist_kmeans_parallel(rnd.key(0), x, SUSY_K).cpu()
+                for _ in range(2)])
+            add(launches)
+            out["ll"] = seeds
+            res, out["fault_s"], launches = _timed_path(torch, counters, lambda: dist_bwkm.fit_distributed(
+                rnd.key(0), x, cfg, shard_faults={1: [2]}))
+            add(launches)
+            out["fault"] = (res.health.as_dict(), res.stop_reason,
+                            bool(torch.isfinite(res.centroids).all()))
+            try:
+                dist_bwkm.fit_distributed(rnd.key(0), x, cfg, shard_faults={1: [2]},
+                                          max_shard_loss_frac=0.2)
+                out["abort"] = None
+            except dist_bwkm.ShardLossError as e:
+                out["abort"] = str(e)
+            out["peak"] = torch.cuda.max_memory_allocated()
+        out["wall_s"] = time.perf_counter() - t_start
+        torch.save(out, pathlib.Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(torch, shard_dir: str, tmp: str) -> list[dict]:
+    """9b's four ranks, joined under :data:`DIST_RANK_SECONDS`: a hang or a
+    rank's failure fails the phase, and every rank is stopped."""
+    import torch.multiprocessing as mp
+
+    out_dir = pathlib.Path(tmp) / "ranks"
+    out_dir.mkdir()
+    ctx = mp.start_processes(
+        _dist_rank, args=(DIST_WORLD, f"file://{tmp}/rendezvous_gloo", shard_dir, str(out_dir)),
+        nprocs=DIST_WORLD, join=False, start_method="spawn",
+    )
+    deadline = time.monotonic() + DIST_RANK_SECONDS
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"9b: the {DIST_WORLD} ranks did not finish in {DIST_RANK_SECONDS} s")
+    except mp.ProcessRaisedException as e:
+        raise SmokeFailure(f"9b: a rank failed:\n{e}") from e
+    except mp.ProcessExitedException as e:
+        raise SmokeFailure(f"9b: a rank exited: {e}") from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+
+
+def phase_distributed(torch, repro_torch, rnd, partition, counters, x, shard_dir, incore, smi):
+    """Phase 9: the distributed engine on SUSY. 9a in this process, one
+    rank over NCCL; 9b four ranks spawned on the same card over gloo.
+    ``incore`` is phase 4's ``(fit seconds, peak bytes)``. Returns the
+    launches of both."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.api import engines
+    from repro_torch.distributed import dist_bwkm, dist_kmeans_ll
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(counters, 0)
+
+    def add(launches):
+        for b in total:
+            total[b] += launches[b]
+
+    with tempfile.TemporaryDirectory(prefix="bwkm_dist_") as tmp:
+        # 9a: one rank over NCCL, in this process
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous_nccl", rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            with sh.use_mesh(mesh):
+                check(engines.select_engine(x) == "distributed",
+                      "engine='auto' did not pick the distributed engine under use_mesh")
+                torch.cuda.reset_peak_memory_stats()
+                with _DistRecorder() as rec:
+                    model, wall, launches = _timed_path(torch, counters, lambda: repro_torch.BWKM(
+                        k=SUSY_K, engine="distributed", checkpoint_dir=f"{tmp}/ckpt").fit(x))
+                peak = torch.cuda.max_memory_allocated()
+                add(launches)
+                res, c = model.result_, model.centroids_
+                n_blocks = res.metadata["n_blocks"]
+                print(f"[dist] 9a BWKM(k={SUSY_K}, engine='distributed').fit over NCCL, 1 rank: "
+                      f"engine={model.engine_} stop_reason={res.stop_reason} "
+                      f"iterations={res.iterations} distances={res.distances:.0f} "
+                      f"blocks={n_blocks[-1]} fit_s={wall:.3f} peak_mem_GiB={peak / 2**30:.3f} "
+                      f"launches={launches}; phase 4's in-core fit: fit_s={incore[0]:.3f} "
+                      f"peak_mem_GiB={incore[1] / 2**30:.3f} ({smi})")
+                check(model.engine_ == "distributed", f"the fit took engine {model.engine_!r}")
+                check(tuple(c.shape) == (SUSY_K, x.shape[1]) and bool(torch.isfinite(c).all()),
+                      "9a centroids not finite [27, 19]")
+                for b in ("B1", "B2", "B3"):
+                    check(launches[b] > 0, f"9a: kernel {b} was not launched by the fit")
+                bid0, st0 = rec.planes[0].rounds[0]
+                one = partition.block_stats(x, bid0, st0.capacity)
+                check(all(torch.equal(a, b) for a, b in zip(
+                    (st0.psum, st0.count, st0.lo, st0.hi), one)),
+                      "9a: the initial round's statistics differ from block_stats over all rows")
+                del one
+                score = model.score(x)
+                ref_score = _score_f64(torch, x, c)
+                check(abs(score - ref_score) <= 1e-4 * abs(ref_score),
+                      f"9a score {score} vs float64 {ref_score}")
+                n_rounds = len(rec.planes[0].rounds)
+                print(f"[dist] 9a fit breakdown (host clock between synchronizes): routing all "
+                      f"rows into the sample's boxes {rec.spans['route']:.3f} s, {n_rounds} "
+                      f"statistics rounds {rec.spans['stats']:.3f} s, the rest (Algorithms 2–4 "
+                      f"on the sample, Lloyd over the representatives, splits) "
+                      f"{wall - rec.spans['route'] - rec.spans['stats']:.3f} s")
+                print(f"[dist] 9a: initial statistics bit-equal to block_stats over all "
+                      f"{x.shape[0]:,} rows ({int(st0.n_blocks)} blocks); score={score!r} "
+                      f"(vs float64 {(score - ref_score) / ref_score:+.3e}; phase 4's in-core "
+                      f"fit starts from another partition, so the two are not compared)")
+                step = checkpoint.latest_step(f"{tmp}/ckpt")
+                part = res.metadata["partition"]
+                template = {"centroids": c, "boxes": {"lo": part.lo, "hi": part.hi,
+                                                      "active": part.active,
+                                                      "n_blocks": part.n_blocks}}
+                state, _ = checkpoint.restore(f"{tmp}/ckpt", step, template)
+                check(step == res.iterations and torch.equal(state["centroids"], c)
+                      and all(torch.equal(state["boxes"][f], template["boxes"][f])
+                              for f in template["boxes"]),
+                      f"9a: checkpoint step {step} does not restore the result")
+                runs, launches = _dist_lloyd_pair(torch, dist_bwkm, counters, x, c)
+                add(launches)
+                (pr, pr_s), (de, de_s) = runs[True], runs[False]
+                check(pr.iters == de.iters and torch.equal(pr.centroids, de.centroids),
+                      "9a: dist_lloyd pruned != dense")
+                check(pr.distances < de.distances, "9a: dist_lloyd pruning saved no distance")
+                check(launches["B2"] > 0 and launches["B3"] > 0, f"9a: dist_lloyd launches {launches}")
+                print(f"[dist] 9a: checkpoint step {step} restores the result; dist_lloyd from the "
+                      f"fit: {pr.iters} iterations, pruned == dense bit for bit, distances "
+                      f"{pr.distances:.0f} pruned / {de.distances:.0f} dense, wall_s "
+                      f"{pr_s:.3f} / {de_s:.3f}, launches={launches}")
+                with _DistRecorder() as rec:
+                    seeds, ll_s, launches = _timed_path(
+                        torch, counters,
+                        lambda: dist_kmeans_ll.dist_kmeans_parallel(rnd.key(0), x, SUSY_K))
+                add(launches)
+                sess = rec.sessions[0]
+                phi = float(sess.phi)
+                phi64 = _cost_f64(torch, x, sess.cand[sess.cvalid > 0])
+                check(launches["B5"] > 0, f"9a: dist_kmeans_parallel launches {launches}")
+                check(abs(phi - phi64) <= 1e-5 * phi64, f"9a: φ {phi} vs float64 fold {phi64}")
+                check(tuple(seeds.shape) == (SUSY_K, x.shape[1]) and bool(torch.isfinite(seeds).all()),
+                      "9a: k-means|| seeds not finite [27, 19]")
+                print(f"[dist] 9a: dist_kmeans_parallel k={SUSY_K}: wall_s={ll_s:.3f} "
+                      f"candidates={int(sess.cvalid.sum())} φ={phi!r} (vs float64 fold "
+                      f"{(phi - phi64) / phi64:+.3e}) launches={launches}")
+        finally:
+            dist.destroy_process_group()
+        # 9b: four ranks on the one card over gloo
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(torch, shard_dir, tmp)
+        t_9b = time.perf_counter() - t0
+    for r in ranks:
+        rc, stop, iters, blocks, distances = r["fit"]
+        check(torch.equal(rc, c.cpu()) and stop == res.stop_reason and iters == res.iterations
+              and blocks == n_blocks and distances == res.distances,
+              f"9b rank {r['rank']}: the fit differs from 9a's")
+        check(torch.equal(r["lloyd"][True][0], r["lloyd"][False][0])
+              and r["lloyd"][True][1] == r["lloyd"][False][1]
+              and r["lloyd"][True][2] < r["lloyd"][False][2],
+              f"9b rank {r['rank']}: dist_lloyd pruned != dense")
+        check(torch.equal(r["ll"][0], r["ll"][1]), f"9b rank {r['rank']}: k-means|| did not repeat")
+        for other in ("lloyd", "ll"):
+            mine = r[other][True][0] if other == "lloyd" else r[other][0]
+            first = ranks[0][other][True][0] if other == "lloyd" else ranks[0][other][0]
+            check(torch.equal(mine, first), f"9b rank {r['rank']}: {other} differs from rank 0's")
+        health, stop, finite = r["fault"]
+        check(finite and (health["lost_shards"], health["degraded_rounds"],
+                          health["lost_mass_frac"]) == (1, 1, 0.25),
+              f"9b rank {r['rank']}: shard_faults={{1: [2]}} gave {health}")
+        check(r["abort"] is not None and "aborting" in r["abort"],
+              f"9b rank {r['rank']}: max_shard_loss_frac=0.2 did not raise ShardLossError")
+        for b in ("B1", "B2", "B3"):
+            check(r["fit_launches"][b] > 0, f"9b rank {r['rank']}: kernel {b} not launched by the fit")
+        check(r["launches"]["B5"] > 0, f"9b rank {r['rank']}: B5 not launched")
+        add(r["launches"])
+        print(f"[dist] 9b rank {r['rank']}/{DIST_WORLD} (gloo, {r['rows']:,} rows): wall_s="
+              f"{r['wall_s']:.1f} (fit_s={r['fit_s']:.3f}, dist_lloyd_s "
+              f"{r['lloyd'][True][3]:.3f} / {r['lloyd'][False][3]:.3f}, k-means||×2_s="
+              f"{r['ll_s']:.3f}, faulted fit_s={r['fault_s']:.3f}) peak_mem_GiB="
+              f"{r['peak'] / 2**30:.3f} launches={r['launches']} ({smi})")
+    print(f"[dist] 9b: {DIST_WORLD} gloo ranks on one card ({smi}; this checks correctness, not "
+          f"scaling): fit bit-equal to 9a on every rank ({res.stop_reason}, {res.iterations} "
+          f"iterations, {n_blocks[-1]} blocks), dist_lloyd pruned == dense, k-means|| twice "
+          f"bit-equal, shard_faults={{1: [2]}} -> lost_shards 1, degraded_rounds 1, "
+          f"lost_mass_frac 0.25; max_shard_loss_frac=0.2 raised ShardLossError on all "
+          f"{DIST_WORLD} ranks; 9b took {t_9b:.1f} s")
+    print(f"[dist] phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 # ---------------------------------------------------------------- walls
 def _walls_child(src: str, reps: int) -> int:
     """``--walls SRC REPS``, run by :func:`phase_walls` in a process of its
@@ -2358,6 +2722,14 @@ def main(argv) -> int:
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    # the SUSY shards of phase 6 live until phase 9 has read them
+    with tempfile.TemporaryDirectory(prefix="bwkm_shards_") as shard_dir:
+        return _phases(torch, argv, shard_dir)
+
+
+def _phases(torch, argv, shard_dir: str) -> int:
     import repro_torch
     from repro_torch import random as rnd
     from repro_torch.core import kmeans_ll, partition
@@ -2368,8 +2740,6 @@ def main(argv) -> int:
     from repro_torch.kernels import fused_assign_update as fau
     from repro_torch.kernels import min_sqdist_update as msu
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
-    torch.backends.cudnn.allow_tf32 = False
     # phase 1
     t0 = time.perf_counter()
     parent = (_Parent.start(_build, argv[argv.index("--parent") + 1])
@@ -2407,16 +2777,14 @@ def main(argv) -> int:
     print(f"[kernels] wide rows (d = {WIDE_D[0]:,} and {WIDE_D[1]:,}, 300 rows, K = 5; B2/B3 "
           f"at K = 1, d = {WIDE_D[0]:,}) match their plain versions (f32 tol 1e-5, sums to "
           "Σ|terms|); max abs err: " + ", ".join(f"{b} {v:.3g}" for b, v in wide.items()))
-    counters = {"B1": da.assign_top2_cuda, "B2": fau.fused_assign_update_cuda,
-                "B3": fau.fused_assign_update_pruned_cuda, "B4": cu.cluster_sums_cuda,
-                "B5": msu.min_sqdist_update_cuda}
+    counters = _kernel_counters()
     # phase 6 first: the streaming engine over the data as shards, before the
     # data goes on the card; it leaves the data on the card for phases 3–5
     t0 = time.perf_counter()
     xs = paper_dataset("SUSY", seed=0)
     print(f"[data] SUSY profile {xs.shape} made in {time.perf_counter() - t0:.1f} s")
     stream_launches, x, stream_score = phase_stream(torch, repro_torch, rnd, ops, ref, fau,
-                                                    partition, counters, xs)
+                                                    partition, counters, xs, shard_dir)
     del xs
     # phase 3
     phase_determinism(torch, ops, da, fau, cu, msu, partition, x, kmeans_ll._FAR)
@@ -2425,7 +2793,7 @@ def main(argv) -> int:
           "18,000); two B2 runs at each of those shapes, two full-n B1, B4 and B5 runs and two "
           "full-n block_stats runs bit-equal; full-n B5 over 400 slots == B5 over its valid ones")
     # phase 4
-    launches, incore_score = phase_fit(torch, repro_torch, ref, da, fau, x, parent)
+    launches, incore_score, incore = phase_fit(torch, repro_torch, ref, da, fau, x, parent)
     print(f"[stream] the streamed fit's score against the in-core fit's: "
           f"{(stream_score - incore_score) / incore_score:+.3e} (reported, not gated)")
     ll_launches, ll_path, rep_folds = phase_kmeans_ll(torch, repro_torch, rnd, kmeans_ll, ops,
@@ -2447,6 +2815,11 @@ def main(argv) -> int:
     tradeoff_launches = phase_tradeoff(torch, repro_torch, rnd, ref, da, fau, cu, counters, x, smi)
     for b in launches:
         launches[b] += tradeoff_launches[b]
+    # phase 9
+    dist_launches = phase_distributed(torch, repro_torch, rnd, partition, counters, x, shard_dir,
+                                      incore, smi)
+    for b in launches:
+        launches[b] += dist_launches[b]
     if parent is not None:
         phase_walls(argv[argv.index("--parent") + 1])
     if "--profile" in argv:

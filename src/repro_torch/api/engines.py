@@ -1,21 +1,23 @@
 """Engine registry and auto-selection. Counterpart of ``repro.api.engines``.
 
-One BWKM algorithm (``engine.driver.fit_plane``), two planes so far:
+One BWKM algorithm (``engine.driver.fit_plane``), three planes:
 
 * ``incore`` — :class:`~repro_torch.engine.incore.InCorePlane` over a
   resident tensor;
 * ``streaming`` — :class:`~repro_torch.engine.streaming.StreamingPlane` over
-  a chunk source; O(chunk + M·d) device memory, several passes.
+  a chunk source; O(chunk + M·d) device memory, several passes;
+* ``distributed`` — :class:`~repro_torch.engine.sharded.ShardedPlane` over
+  the rows of a mesh (``repro_torch.distributed.sharding.use_mesh``), each
+  rank holding its own block; one shard without a mesh.
 
-The reference's ``distributed`` engine is named here so that asking for it
-says which ROADMAP item brings it. Rules of ``engine="auto"``, the
-reference's without its mesh rule (the port has no mesh yet):
+Rules of ``engine="auto"``, the reference's:
 
 1. an explicit engine name wins;
 2. out-of-core data (a path, glob, directory, shard list or chunk source)
    goes to ``streaming``;
-3. data in memory larger than ``incore_limit_bytes`` goes to ``streaming``;
-4. everything else to ``incore``.
+3. data in memory with an active mesh goes to ``distributed``;
+4. data in memory larger than ``incore_limit_bytes`` goes to ``streaming``;
+5. everything else to ``incore``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import warnings
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from repro_torch.api import adapters
 from repro_torch.api.result import FitResult, from_driver_result
@@ -42,7 +45,8 @@ INCORE_LIMIT_BYTES = 1 << 30
 class Engine:
     name: str
     description: str
-    fit: Callable[..., FitResult]  # (key, data, config, *, chunk_size, trace_centroids, device)
+    # (key, data, config, *, chunk_size, trace_centroids, device, checkpoint_dir)
+    fit: Callable[..., FitResult]
 
 
 def _warn_dropped(engine: str, **options: Any) -> None:
@@ -57,9 +61,9 @@ def _warn_dropped(engine: str, **options: Any) -> None:
             )
 
 
-def _fit_incore(key, data, config, *, chunk_size, trace_centroids, device) -> FitResult:
+def _fit_incore(key, data, config, *, chunk_size, trace_centroids, device, checkpoint_dir) -> FitResult:
     del chunk_size
-    _warn_dropped("incore", init_sample_size=config.init_sample_size)
+    _warn_dropped("incore", checkpoint_dir=checkpoint_dir, init_sample_size=config.init_sample_size)
     from repro_torch.engine import driver, incore
 
     x = adapters.to_array(data, device)
@@ -67,7 +71,8 @@ def _fit_incore(key, data, config, *, chunk_size, trace_centroids, device) -> Fi
     return from_driver_result(res, "incore")
 
 
-def _fit_streaming(key, data, config, *, chunk_size, trace_centroids, device) -> FitResult:
+def _fit_streaming(key, data, config, *, chunk_size, trace_centroids, device, checkpoint_dir) -> FitResult:
+    _warn_dropped("streaming", checkpoint_dir=checkpoint_dir)
     from repro_torch.engine import driver, streaming
 
     source = adapters.to_chunk_source(data, chunk_size)
@@ -77,8 +82,21 @@ def _fit_streaming(key, data, config, *, chunk_size, trace_centroids, device) ->
     return from_driver_result(res, "streaming")
 
 
+def _fit_distributed(key, data, config, *, chunk_size, trace_centroids, device, checkpoint_dir) -> FitResult:
+    del chunk_size
+    _warn_dropped("distributed", trace_centroids=trace_centroids,  # keeps no trace
+                  init_sample_size=config.init_sample_size)
+    from repro_torch.engine import driver, sharded
+
+    # only this rank's block goes to the device
+    rows = data if isinstance(data, torch.Tensor) else adapters.to_array(data, "cpu")
+    plane = sharded.ShardedPlane(
+        sharded.shard_points(rows, device=device), checkpoint_dir=checkpoint_dir
+    )
+    return from_driver_result(driver.fit_plane(key, plane, config), "distributed")
+
+
 _REGISTRY: dict[str, Engine] = {}
-_NOT_PORTED = {"distributed": "queue A item 13 (distributed)"}
 
 
 def register_engine(engine: Engine) -> Engine:
@@ -95,10 +113,6 @@ def list_engines() -> dict[str, str]:
 def get_engine(name: str) -> Engine:
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"engine {name!r} is not ported to repro_torch yet: ROADMAP {_NOT_PORTED[name]}"
-        )
     raise ValueError(f"unknown engine {name!r}; known: {sorted(_REGISTRY)} (or 'auto')")
 
 
@@ -110,6 +124,10 @@ def select_engine(
         return get_engine(requested).name
     if adapters.is_out_of_core(data):
         return "streaming"
+    from repro_torch.distributed import sharding as sh
+
+    if sh.current_mesh() is not None:
+        return "distributed"
     nbytes = getattr(data, "nbytes", None)
     if nbytes is None:
         nbytes = np.asarray(data).nbytes
@@ -121,4 +139,10 @@ register_engine(Engine(
     "streaming",
     "out-of-core Algorithm 5 over fixed-size chunks; device memory stays O(chunk + M·d)",
     _fit_streaming,
+))
+register_engine(Engine(
+    "distributed",
+    "Algorithm 5 over the rows of a mesh; points stay on their rank, block statistics "
+    "combine exactly over the ranks",
+    _fit_distributed,
 ))

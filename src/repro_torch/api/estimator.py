@@ -5,6 +5,8 @@
     >>> labels = model.predict("shards/*.npy")    # int32 tensor on the model's device
     >>> model.score(x), model.result_.stop_reason, model.engine_
     >>> model = BWKM(k=27).partial_fit(batch)     # one mini-batch of a stream: the service
+    >>> with use_mesh(mesh):                      # every rank of a process group:
+    ...     model = BWKM(k=27).fit(x)             # the distributed engine, on its rows of x
 
 ``fit`` takes a tensor, an array or nested lists, a ``.npy`` path, a glob or
 a directory of shards, a list of shard paths, or any ``ChunkSource``
@@ -51,7 +53,10 @@ class BWKM:
     """Boundary Weighted K-means estimator (paper Algorithm 5).
 
     ``k`` clusters; ``device`` where the model and its data live; ``engine``
-    ``"auto"``, ``"incore"`` or ``"streaming"``; ``init`` a name of
+    ``"auto"``, ``"incore"``, ``"streaming"`` or ``"distributed"``;
+    ``checkpoint_dir`` where the distributed engine writes its driver state
+    after every iteration (rank 0; the other engines warn and ignore it);
+    ``init`` a name of
     ``repro_torch.api.inits``; ``chunk_size`` rows per chunk of the
     streaming engine and of predict/score/transform; ``seed`` the default
     key (``fit(..., key=...)`` overrides it); ``trace`` records
@@ -73,6 +78,7 @@ class BWKM:
         chunk_size: int = DEFAULT_CHUNK_SIZE,
         seed: int = 0,
         trace: bool = False,
+        checkpoint_dir: str | None = None,
         incore_limit_bytes: int = engines.INCORE_LIMIT_BYTES,
         config: BWKMConfig | None = None,
         service: ServiceConfig | None = None,
@@ -80,7 +86,7 @@ class BWKM:
     ):
         self.device = resolve_device(device)
         if engine != "auto":
-            engines.get_engine(engine)  # fail fast on typos and unported engines
+            engines.get_engine(engine)  # fail fast on typos
         if service is not None:
             if config is not None:
                 raise ValueError(
@@ -114,6 +120,7 @@ class BWKM:
         self.chunk_size = int(chunk_size)
         self.seed = int(seed)
         self.trace = bool(trace)
+        self.checkpoint_dir = checkpoint_dir
         self.incore_limit_bytes = int(incore_limit_bytes)
         self.service = service
         self.result_: FitResult | None = None
@@ -148,6 +155,7 @@ class BWKM:
         res = engines.get_engine(name).fit(
             key, data, self.config,
             chunk_size=self.chunk_size, trace_centroids=self.trace, device=self.device,
+            checkpoint_dir=self.checkpoint_dir,
         )
         self.result_ = res
         self.centroids_ = res.centroids

@@ -19,7 +19,13 @@ The streaming plane folds statistics chunk by chunk: :func:`block_stats`
 masks a chunk's padding rows through ``valid``, and
 :func:`combine_block_stats` adds the chunks' sums in f32 in chunk order and
 takes their minima and maxima exactly, as the reference does, so a streamed
-fit is deterministic too. :func:`route_into_boxes` routes a chunk into the
+fit is deterministic too. The sharded plane keeps the fixed point across
+ranks instead: each rank folds its rows into :class:`FixedBlockStats`
+under one scale from the global row count and per-feature maximum
+(:func:`fixed_point_scale`), the int64 sums and counts add exactly and the
+boxes combine as integers (:func:`box_keys`), so its statistics are
+bit-equal to one :func:`block_stats` over all rows, whatever the number of
+ranks. :func:`route_into_boxes` routes a chunk into the
 boxes of a partition built from a sample, tiled so that its ``[rows, M, d]``
 temporaries stay under a byte budget. The online service decays block mass
 (:func:`decay_stats`) and splits blocks without a data pass
@@ -35,12 +41,17 @@ import torch
 __all__ = [
     "Partition",
     "BlockStats",
+    "FixedBlockStats",
     "SplitPlan",
     "create_partition",
     "block_stats",
+    "boxes_from_keys",
+    "box_keys",
     "combine_block_stats",
     "decay_stats",
     "empty_block_stats",
+    "fixed_point_scale",
+    "from_fixed",
     "recompute_stats",
     "route_into_boxes",
     "split_plan",
@@ -133,23 +144,49 @@ def _from_orderable(u: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int32).view(torch.float32)
 
 
-def block_stats(
-    x: torch.Tensor, bid: torch.Tensor, m: int, valid: torch.Tensor | None = None
-) -> BlockStats:
-    """Segment sums, counts, minima and maxima of the rows of ``x [n, d]``
-    over ``m`` block rows, bit-identical from run to run (module docs).
-    ``valid [n]`` bool masks rows out (a streamed chunk's padding): they go
-    to a scratch segment ``m`` that is dropped."""
-    n, d = x.shape
-    if n == 0:
-        raise ValueError("block_stats needs at least one row")
-    dev = x.device
+class FixedBlockStats(NamedTuple):
+    """:class:`BlockStats` before the sums leave fixed point: ``qsum [M, d]``
+    int64 sums of ``round(x · scale)``, ``count [M]`` int64, and the boxes.
+    Two of them over disjoint rows under one ``scale`` add exactly
+    (:func:`from_fixed` converts), which is how the ranks of the sharded
+    plane combine their statistics."""
+
+    qsum: torch.Tensor  # [M, d] int64
+    count: torch.Tensor  # [M] int64
+    lo: torch.Tensor  # [M, d]
+    hi: torch.Tensor  # [M, d]
+
+
+def fixed_point_scale(amax: torch.Tensor, n: int) -> torch.Tensor:
+    """The per-feature power-of-two scale ``float64 [d]`` of the fixed-point
+    sums over ``n`` rows whose largest magnitudes are ``amax [d]``:
+    ``|x| < 2^e`` gives ``|x·scale| < 2^_fixed_bits(n)``."""
+    one = torch.ones(amax.shape[0], dtype=torch.float64, device=amax.device)
+    return torch.ldexp(one, (_fixed_bits(n) - torch.frexp(amax).exponent).to(torch.float64))
+
+
+def _masked(x: torch.Tensor, bid: torch.Tensor, m: int, valid: torch.Tensor | None):
+    """``(x f32, bid, segments)``: masked rows go to a scratch segment ``m``
+    with value 0, so they set no scale."""
     x = x.float()
-    seg = m
-    if valid is not None:
-        bid = torch.where(valid, bid.to(torch.int64), m)
-        x = torch.where(valid[:, None], x, 0.0)  # masked rows set no scale
-        seg = m + 1
+    if valid is None:
+        return x, bid, m
+    bid = torch.where(valid, bid.to(torch.int64), m)
+    return torch.where(valid[:, None], x, 0.0), bid, m + 1
+
+
+def _fixed(x, bid, seg: int, m: int, scale: torch.Tensor) -> FixedBlockStats:
+    """The statistics of :func:`block_stats` over :func:`_masked`'s rows
+    with the sums left in fixed point under ``scale``; no rows give the
+    empty statistics."""
+    n, d = x.shape
+    dev = x.device
+    if n == 0:
+        return FixedBlockStats(
+            torch.zeros(m, d, dtype=torch.int64, device=dev),
+            torch.zeros(m, dtype=torch.int64, device=dev),
+            torch.full((m, d), _BIG, device=dev), torch.full((m, d), -_BIG, device=dev),
+        )
     # one sort per feature of (block id << 32 | orderable value): each block
     # is a run, sorted by value inside it
     keys = (bid.to(torch.int64)[None, :] << 32) | _orderable(x.T.contiguous())
@@ -162,22 +199,49 @@ def block_stats(
     vals = _from_orderable(keys & 0xFFFFFFFF)  # [d, n] f32, grouped by block
     lo = torch.where(empty, _BIG, vals[:, starts[:-1].clamp(max=n - 1)].T)
     hi = torch.where(empty, -_BIG, vals[:, (starts[1:] - 1).clamp(min=0)].T)
-    # exact sums in fixed point with a power-of-two scale per feature, one
-    # running sum per feature (n terms each, _fixed_bits)
-    amax = x.abs().amax(0)
-    scale = torch.ldexp(
-        torch.ones(d, dtype=torch.float64, device=dev),
-        (_fixed_bits(n) - torch.frexp(amax).exponent).to(torch.float64),
-    )  # |x| < 2^e  =>  |x·scale| < 2^bits
+    # exact sums in fixed point, one running sum per feature
     q = torch.round(vals.double() * scale[:, None]).to(torch.int64)
     csum = torch.zeros(d, n + 1, dtype=torch.int64, device=dev)
     for j in range(d):  # a 1-D scan each: PyTorch's scan along dim 1 of [d, n] is slow on CUDA
         torch.cumsum(q[j], 0, out=csum[j, 1:])
     seg_sum = csum[:, starts[1:]] - csum[:, starts[:-1]]  # [d, seg]
-    psum = (seg_sum.double() / scale[:, None]).float().T
-    return BlockStats(
-        psum[:m].contiguous(), count_i[:m].float(), lo[:m].contiguous(), hi[:m].contiguous()
+    return FixedBlockStats(
+        seg_sum.T[:m].contiguous(), count_i[:m].contiguous(),
+        lo[:m].contiguous(), hi[:m].contiguous(),
     )
+
+
+def from_fixed(st: FixedBlockStats, scale: torch.Tensor) -> BlockStats:
+    """:class:`BlockStats` from fixed-point statistics under ``scale``."""
+    psum = (st.qsum.double() / scale[None, :]).float()
+    return BlockStats(psum, st.count.float(), st.lo, st.hi)
+
+
+def box_keys(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``int64 [2, M, d]`` keys of the boxes ``lo, hi [M, d]``: the
+    elementwise minimum of several statistics' keys is the key of their
+    union box (:func:`boxes_from_keys`). Exact, signed zeros included."""
+    return torch.stack([_orderable(lo), 0xFFFFFFFF - _orderable(hi)])
+
+
+def boxes_from_keys(keys: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(lo, hi)`` of :func:`box_keys`' keys."""
+    return _from_orderable(keys[0]), _from_orderable(0xFFFFFFFF - keys[1])
+
+
+def block_stats(
+    x: torch.Tensor, bid: torch.Tensor, m: int, valid: torch.Tensor | None = None
+) -> BlockStats:
+    """Segment sums, counts, minima and maxima of the rows of ``x [n, d]``
+    over ``m`` block rows, bit-identical from run to run (module docs).
+    ``valid [n]`` bool masks rows out (a streamed chunk's padding): they go
+    to a scratch segment ``m`` that is dropped."""
+    n = x.shape[0]
+    if n == 0:
+        raise ValueError("block_stats needs at least one row")
+    x, bid, seg = _masked(x, bid, m, valid)
+    scale = fixed_point_scale(x.abs().amax(0), n)
+    return from_fixed(_fixed(x, bid, seg, m, scale), scale)
 
 
 def empty_block_stats(m: int, d: int, device) -> BlockStats:

@@ -1,4 +1,5 @@
-"""The plane and session protocols, the driver, and the in-core and streaming planes."""
+"""The plane and session protocols, the driver, and the in-core, streaming
+and sharded planes."""
 
 from repro_torch.engine.driver import (
     fit_plane,
@@ -9,6 +10,7 @@ from repro_torch.engine.driver import (
 )
 from repro_torch.engine.incore import InCoreLLSession, InCorePlane
 from repro_torch.engine.plane import DataPlane, LLSession, LloydSession, global_extent
+from repro_torch.engine.sharded import ShardedPlane
 from repro_torch.engine.streaming import StreamingLloydSession, StreamingPlane, StreamLLSession
 
 __all__ = [
@@ -17,6 +19,7 @@ __all__ = [
     "InCorePlane",
     "LLSession",
     "LloydSession",
+    "ShardedPlane",
     "StreamLLSession",
     "StreamingLloydSession",
     "StreamingPlane",

@@ -3,9 +3,8 @@
 Counterpart of ``repro.health``. A clean run reports all-zero counters. The
 in-core plane counts the non-finite rows it quarantines; the streaming plane
 reports the ledger of a :class:`~repro_torch.data.resilient.ResilientChunkSource`
-(retries, deadline hits, lost chunks, quarantined rows). The shard counters
-belong to the distributed plane, which the port does not have yet, and stay
-zero.
+(retries, deadline hits, lost chunks, quarantined rows); the sharded plane
+counts lost shards, degraded rounds and the largest mass fraction lost.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Seeded, deterministic fault injectors for chunk sources: the failure
-modes :class:`~repro_torch.data.resilient.ResilientChunkSource` survives."""
+"""Seeded, deterministic fault injectors for chunk sources (the failure
+modes :class:`~repro_torch.data.resilient.ResilientChunkSource` survives)
+and the row mask of a lost data shard."""
 
 from repro_torch.testing.faults import (
     CorruptChunkSource,
@@ -9,6 +10,7 @@ from repro_torch.testing.faults import (
     InjectedCrash,
     StragglerSource,
     seeded_fault_schedule,
+    shard_loss_rows_mask,
 )
 
 __all__ = [
@@ -19,4 +21,5 @@ __all__ = [
     "InjectedCrash",
     "StragglerSource",
     "seeded_fault_schedule",
+    "shard_loss_rows_mask",
 ]

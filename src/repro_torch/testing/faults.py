@@ -1,9 +1,10 @@
-"""Deterministic fault injectors for chunk sources.
+"""Deterministic fault injectors for chunk sources and shard rounds.
 
 Counterpart of ``repro.testing.faults``. Each injector wraps a
 :class:`~repro_torch.data.chunks.ChunkSource` and presents the same protocol
 (including ``chunk_at`` random access, which the retry path in
-``repro_torch.data.resilient`` relies on).
+``repro_torch.data.resilient`` relies on); :func:`shard_loss_rows_mask`
+encodes the loss of a data shard's statistics for the sharded plane.
 Fault schedules are **seeded and explicit** — a test that injects
 ``{2: 1, 5: 2}`` transient failures can assert that
 ``RunHealth.retries == 3`` exactly, and two runs with the same schedule see
@@ -33,6 +34,7 @@ __all__ = [
     "InjectedCrash",
     "StragglerSource",
     "seeded_fault_schedule",
+    "shard_loss_rows_mask",
 ]
 
 
@@ -44,6 +46,25 @@ def seeded_fault_schedule(
     rng = np.random.RandomState(seed)
     hit = rng.random_sample(n_chunks) < rate
     return {int(i): int(fails) for i in np.flatnonzero(hit)}
+
+
+def shard_loss_rows_mask(n: int, n_shards: int, lost: "tuple[int, ...] | list[int]") -> np.ndarray:
+    """Row-level alive mask (f32 0/1) for "shard s's stats are missing".
+
+    Rows are sharded contiguously (``shard_points`` row order), so shard
+    ``s`` of ``S`` owns rows ``[s·n/S, (s+1)·n/S)``. Zeroing a shard's rows
+    in the stats fold is exactly losing that shard's ``BlockStats``
+    contribution for the round.
+    """
+    if n % n_shards != 0:
+        raise ValueError(f"n={n} not divisible by n_shards={n_shards}")
+    mask = np.ones(n, np.float32)
+    per = n // n_shards
+    for s in lost:
+        if not 0 <= s < n_shards:
+            raise ValueError(f"shard {s} out of range [0, {n_shards})")
+        mask[s * per : (s + 1) * per] = 0.0
+    return mask
 
 
 class FakeClock:

@@ -8,7 +8,8 @@ the sorted keys, a CRC-32 per array under ``checksums``, and the caller's
 ``jax.tree_util.tree_flatten_with_path`` builds it: a dict's keys in sorted
 order, a NamedTuple's field names. Leaves are tensors or numpy arrays;
 :func:`restore` gives each back as its template leaf is, a tensor on the
-``device`` asked for or a numpy array.
+``device`` asked for or a numpy array; ``shardings=`` places leaves one by
+one (a tree of ``torch.device``s shaped like the template).
 
 Integrity: :func:`restore` re-hashes every array it loads and raises
 :class:`CheckpointCorruptionError` naming the first bad key, so a truncated
@@ -19,8 +20,10 @@ the debris of a save that died mid-write. ``keep_last_n`` deletes older
 steps but never the newest one that verifies. Checkpoints written before
 checksums existed (no ``checksums`` field) verify and restore.
 
-The reference's ``shardings=`` (elastic resharding onto a mesh) belongs to
-the distributed plane, which the port does not have yet.
+The reference's ``shardings=`` is a tree of ``NamedSharding``s, one
+placement per leaf; the port's is a tree of ``torch.device``s. The state
+the sharded plane checkpoints (centroids and boxes) is replicated, so each
+rank restores it whole onto its own device.
 """
 
 from __future__ import annotations
@@ -185,11 +188,15 @@ def _like(arr: np.ndarray, leaf: Any, device: torch.device) -> Any:
     return arr.astype(np.asarray(leaf).dtype)
 
 
-def _rebuild(tree: Any, prefix: str, load) -> Any:
+def _rebuild(tree: Any, prefix: str, load, place: Any = None) -> Any:
+    """``tree`` with each leaf loaded; ``place`` is the matching subtree of
+    placements (or ``None``)."""
     kids = _children(tree)
     if kids is None:
-        return load(prefix, tree)
-    vals = [_rebuild(v, f"{prefix}{_SEP}{k}", load) for k, v in kids]
+        return load(prefix, tree, place)
+    places = dict(_children(place) or ())
+    vals = [_rebuild(v, f"{prefix}{_SEP}{k}" if prefix else k, load, places.get(k))
+            for k, v in kids]
     if isinstance(tree, dict):
         return dict(zip((k for k, _ in kids), vals))
     return type(tree)(*vals)
@@ -199,13 +206,16 @@ def restore(
     directory: str | pathlib.Path,
     step: int,
     state_template: dict[str, Any],
+    shardings: dict[str, Any] | None = None,
     *,
     device: str | torch.device = "cuda",
 ) -> tuple[dict[str, Any], dict]:
     """Restore ``step`` into the structure of ``state_template``, tensors
-    on ``device``. Every array is checked against its manifest checksum
-    first; a mismatch raises :class:`CheckpointCorruptionError` naming the
-    key."""
+    on ``device``. ``shardings`` (the template's structure, a
+    ``torch.device`` or device name per leaf) places each leaf it names as
+    a tensor on that device instead. Every array is checked against its
+    manifest checksum first; a mismatch raises
+    :class:`CheckpointCorruptionError` naming the key."""
     device = resolve_device(device)
     directory = pathlib.Path(directory) / f"step_{step:08d}"
     try:
@@ -215,7 +225,7 @@ def restore(
         raise CheckpointCorruptionError(f"checkpoint {directory} is unreadable: {e}") from e
     sums = manifest.get("checksums")  # absent on checkpoints from before checksums
 
-    def load(key: str, leaf: Any) -> Any:
+    def load(key: str, leaf: Any, place: Any) -> Any:
         try:
             arr = data[key]
         except (KeyError, OSError, ValueError, zipfile.BadZipFile, zlib.error) as e:
@@ -233,11 +243,19 @@ def restore(
                 f"checkpoint {directory}: array {key!r} has shape {arr.shape}, the "
                 f"template {tuple(leaf.shape)}"
             )
-        return _like(arr, leaf, device)
+        if place is None:
+            return _like(arr, leaf, device)
+        return _like(arr, torch.as_tensor(leaf), resolve_device(place))
 
+    shardings = shardings or {}
     try:
+        # keys as save writes them: a leaf at the top is "<name>§"
         out = {
-            name: _rebuild(tree, name, load) for name, tree in state_template.items()
+            name: _rebuild(
+                tree, "", lambda k, leaf, place, name=name: load(f"{name}{_SEP}{k}", leaf, place),
+                shardings.get(name),
+            )
+            for name, tree in state_template.items()
         }
     finally:
         data.close()

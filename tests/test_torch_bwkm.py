@@ -243,8 +243,8 @@ def test_unported_options_name_their_roadmap_item():
     assert repro_torch.BWKM(k=2, device="cpu", init="kmc2").init == "kmc2"
     assert repro_torch.BWKM(k=2, device="cpu", engine="streaming").engine == "streaming"
     assert repro_torch.BWKM(k=2, device="cpu", init="reservoir").init == "reservoir"
-    with pytest.raises(NotImplementedError, match="item 13"):
-        repro_torch.BWKM(k=2, device="cpu", engine="distributed")
+    # queue A item 13 brought the distributed engine
+    assert repro_torch.BWKM(k=2, device="cpu", engine="distributed").engine == "distributed"
     with pytest.raises(ValueError, match="unknown engine"):
         repro_torch.BWKM(k=2, device="cpu", engine="nope")
     with pytest.raises(ValueError, match="unknown init"):
