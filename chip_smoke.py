@@ -37,8 +37,10 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    shapes, two B1, B4 and B5 runs and two ``block_stats`` runs over the full
    dataset bit-equal, and B5 over 400 slots of which about half are valid
    bit-equal to B5 over the valid ones alone;
-4. ``repro_torch.BWKM(k=27).fit`` on the SUSY-profile 5,000,000 × 19 array,
-   then ``predict`` and ``score`` over all of it and ``transform`` over one
+4. ``repro_torch.BWKM(k=27).fit`` on the SUSY-profile 5,000,000 × 19 array
+   (after a first fit and predict whose wall and peak memory, with the
+   autotune tuning the keys still cold, are printed apart), then
+   ``predict`` and ``score`` over all of it and ``transform`` over one
    chunk, with the kernels' launch counts (each must be > 0) and ``score``
    held against a float64 computation; then k-means|| seeding on the same
    array — ``kmeans_parallel`` at K = 27 (weighting pass through B2) and
@@ -53,7 +55,8 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    is printed beside the plain version's on the same centroids (and the
    first, with ``--parent``, beside the parent's kernel's);
 5. per-kernel times from CUDA events over CUDA-graph replays, beside the
-   plain version, one PyTorch yardstick and the card's bound: each kernel
+   plain version, one PyTorch yardstick and the card's bound (from
+   ``repro_torch.roofline.analysis``'s seam bounds): each kernel
    at the shape of most of its launches, then B1, B2 and B5 at the
    k-means|| runs' own inputs, with the two-pass route (B1 + B4) beside B2
    at 561 candidates and B2's scratch bytes there, then B5's other eight
@@ -163,6 +166,24 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    deadline; each prints its wall and peak memory, and their launches join
    the JSON line's. Four ranks on one card check correctness, not scaling.
 
+10. (after phase 9) the measured autotune (``repro_torch.kernels.autotune``)
+   from a fresh cache at the main path's shapes: B1 at the predict chunk
+   [65,536, 19] × 27 (its seam ``assign_update``), B2 and B3 at the
+   representatives [14,528, 19] × 27, B2 at the k-means|| weighting pass
+   [5,000,000, 19] × 561 and B5 at a k-means|| round [5,000,000, 19], L =
+   112. Each candidate's time (at the key's bucket shape), the analytic
+   plan's and the choice, beside the card's name and power limit; every
+   candidate plan and the choice give the analytic plan's outputs bit for
+   bit on the real inputs; a second call is a cache hit that times nothing;
+   after ``clear_memo`` every key comes back from the file. Then
+   ``BWKM(k=27).fit`` from a fresh cache bit-equal to the fit with
+   ``REPRO_AUTOTUNE=0`` (centroids, stop reason, iterations, distances),
+   with its wall and peak memory, and the drivers as a user runs them:
+   ``python -m repro_torch.launch.cluster --dataset SUSY --k 27 --compare``
+   and ``python -m repro_torch.launch.serve --task clusters``.
+
+The whole run keeps its autotune cache in a fresh temporary file
+(``REPRO_AUTOTUNE_CACHE``), so every key is tuned on this card in this run.
 Then the card's name and power limit, one JSON line of kernel records, and
 the result line ``{"ok": true, "device": {...}}`` last. Without a CUDA
 device, or without the rest of the repository beside it, it prints no
@@ -173,6 +194,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -180,8 +202,6 @@ import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=1e-3, atol=1e-3)}
 BIG = 3.0e38  # the masked-distance sentinel of the kernels
 SUSY_K = 27
@@ -593,8 +613,25 @@ def _labels_vs_f64(torch, x, c, labels):
 
 
 def phase_fit(torch, repro_torch, ref, da, fau, x, parent):
+    from repro_torch.kernels import autotune
+
     counters = (da.assign_top2_cuda, fau.fused_assign_update_cuda,
                 fau.fused_assign_update_pruned_cuda)
+    # the first fit and predict on this process's cache tune the keys that
+    # phases 3 and 6 left cold: their wall and peak are printed apart, and
+    # the fit below is timed with the cache warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = sum(e.get("source") == "measured" for e in autotune._memo.values())
+    t0 = time.perf_counter()
+    first = repro_torch.BWKM(k=SUSY_K).fit(x)
+    first.predict(x)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    tuned = sum(e.get("source") == "measured" for e in autotune._memo.values()) - before
+    print(f"[fit] first fit and predict, autotune tuning {tuned} cold keys: "
+          f"wall_s={t_first:.3f} peak_mem_GiB={torch.cuda.max_memory_allocated() / 2**30:.3f}")
+    del first
     for f in counters:
         f.launches = 0
     torch.cuda.synchronize()
@@ -1547,15 +1584,11 @@ def _clock_under_load(torch, what, fn, seconds=2.0):
           f"{watts[len(watts) // 2]:.1f} W over {len(rows)} samples")
 
 
-def _bound(nbytes, flops):
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
 class _Parent:
     """An earlier commit's kernel libraries, built from its sources with the
-    same flags. The C interface is the same, so while :meth:`active` the
-    port's wrappers launch the parent's kernels."""
+    same flags. The C interface must be the same (the ``_ex`` entry points
+    that take a launch plan), so while :meth:`active` the port's wrappers
+    launch the parent's kernels."""
 
     def __init__(self, build, procs):
         self.build, self.procs, self.libs = build, procs, None
@@ -1611,6 +1644,8 @@ def _timed(torch, fn, reps, parent):
 def _b5_row(torch, ref, msu, args, what, parent, reps=10, plain_reps=10):
     """A B5 record on one fold's own inputs ``(x, w, cand, cvalid, mind2)``.
     Its bound counts the valid candidates' operations."""
+    from repro_torch.roofline import analysis
+
     fx, fw, fc, fv, fm = args
     n, d = fx.shape
     l, n_valid = fc.shape[0], int(fv.sum())
@@ -1626,7 +1661,7 @@ def _b5_row(torch, ref, msu, args, what, parent, reps=10, plain_reps=10):
         plain_ms=_time_graph(torch, lambda: ref.min_sqdist_update(fx, fw, fc, fv, fm),
                              reps=plain_reps),
         library_ms=_time_graph(torch, lib, reps=plain_reps),
-        bound=_bound(4 * n * d + 12 * n + 4 * l * (d + 1) + 4, n * n_valid * (2 * d + 3)),
+        bound=analysis.min_sqdist_bound(n, d, l, n_valid),
     )
 
 
@@ -1698,20 +1733,22 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
     seeded fit (``rep_folds``). Where a plain version or a library call does
     not fit at full n (an [n, K] matrix), it is timed on the first 65,536
     rows beside the kernel on the same rows. Given ``parent``, every row but
-    B4's times the parent's kernel too, in turns."""
+    B4's times the parent's kernel too, in turns. The bounds come from
+    ``repro_torch.roofline.analysis``."""
+    from repro_torch.roofline import analysis
+
     d, k = 19, SUSY_K
     out = {}
     # B1 at the predict/score chunk, the shape that carries most of its launches
     x, w, c = _data(torch, CHUNK, d, k, torch.float32, seed=11)
     n = CHUNK
     lib = lambda: torch.topk(torch.cdist(x, c) ** 2, 2, dim=1, largest=False)  # noqa: E731
-    fl = n * k * (2 * d + 3)
     out["B1"] = dict(
         shape=f"x[{n},{d}] c[{k},{d}] f32",
         **_timed(torch, lambda: da.assign_top2_cuda(x, c), 20, parent),
         plain_ms=_time_graph(torch, lambda: ref.assign_top2(x, c)),
         library_ms=_time_graph(torch, lib),
-        bound=_bound(4 * n * d + 4 * k * d + 12 * n, fl),
+        bound=analysis.assign_top2_bound(n, d, k),
     )
     # B2/B3 at the partition's representatives
     n = CAPACITY_REPS
@@ -1724,13 +1761,12 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
         counts = torch.zeros(k, device="cuda").index_add_(0, a, w)
         return sums, counts, (w * dist[:, 0]).sum()
 
-    io2 = 4 * n * d + 4 * n + 4 * k * d + 12 * n + 4 * k * d + 4 * k + 4
     out["B2"] = dict(
         shape=f"x[{n},{d}] c[{k},{d}] f32",
         **_timed(torch, lambda: fau.fused_assign_update_cuda(x, w, c), 20, parent),
         plain_ms=_time_graph(torch, lambda: ref.assign_update(x, w, c)),
         library_ms=_time_graph(torch, lib2),
-        bound=_bound(io2, n * k * (2 * d + 3) + 2 * n * d),
+        bound=analysis.assign_update_bound(n, d, k),
     )
     g = torch.Generator(device="cuda").manual_seed(13)
     cached = fau.fused_assign_update_cuda(x, w, c)[0]
@@ -1750,7 +1786,7 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
                  parent),
         plain_ms=_time_graph(torch, lambda: ref.assign_update_pruned(x, w, c, cached, act)),
         library_ms=_time_graph(torch, lib3),
-        bound=_bound(io2 + 5 * n, n_act * k * (2 * d + 3) + 2 * n * d),
+        bound=analysis.assign_update_pruned_bound(n, d, k, n_act),
     )
     # B4 at the K = 100 weighting pass: every row, 2,001 candidates; its plain
     # version (a dense [n, K] one-hot) is timed on the first 65,536 rows
@@ -1769,7 +1805,7 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
         plain_ms=_time_graph(torch, lambda: ref.cluster_sums(
             x_full[:CHUNK], ones[:CHUNK], a[:CHUNK], k), reps=10),
         library_ms=_time_graph(torch, lib4, reps=10),
-        bound=_bound(4 * n * d + 8 * n + 4 * k * (d + 1), 2 * n * (d + 1)),
+        bound=analysis.cluster_sums_bound(n, d, k),
     )
     fold_ms = _time_graph(torch, lambda: cu.cluster_sums_cuda(x_full, ones, a, k, _phases=1),
                           reps=10)
@@ -1800,7 +1836,7 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
         plain_ms=_time_graph(torch, lambda: ref.assign_top2(xc, c), reps=5),
         library_ms=_time_graph(
             torch, lambda: torch.topk(torch.cdist(xc, c) ** 2, 2, dim=1, largest=False), reps=5),
-        bound=_bound(4 * n * d + 4 * k * d + 12 * n, n * k * (2 * d + 3)),
+        bound=analysis.assign_top2_bound(n, d, k),
     )
     _clock_under_load(torch, "B1@2001", lambda: da.assign_top2_cuda(x_full, c))
     # B2 over the K = 27 weighting pass's 561 candidates, unit weights
@@ -1822,8 +1858,7 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
         chunk_ms=_time_graph(torch, lambda: fau.fused_assign_update_cuda(xc, oc, c), reps=5),
         plain_ms=_time_graph(torch, lambda: ref.assign_update(xc, oc, c), reps=5),
         library_ms=_time_graph(torch, lambda: lib_b2(xc, oc, c), reps=5),
-        bound=_bound(4 * n * d + 4 * n + 4 * k * d + 12 * n + 4 * k * (d + 1) + 4,
-                     n * k * (2 * d + 3) + 2 * n * d),
+        bound=analysis.assign_update_bound(n, d, k),
     )
     # the two-pass route at the same shape, B1 then B4 (what ops.assign_update
     # runs beyond the fused limit), and the fused pass's scratch there
@@ -1860,8 +1895,8 @@ def phase_times(torch, ref, da, fau, cu, msu, x_full, path, rep_folds, parent):
         parent_s = (f", parent {r['parent_ms'][0]:.4f} / {r['parent_ms'][1]:.4f} ms"
                     if "parent_ms" in r else "")
         print(f"[time] {name} {r['shape']}: kernel {r['ms']:.4f}{again_s} ms{chunk_s}{parent_s}, "
-              f"plain {r['plain_ms']:.4f} ms, library {lib_s} ms, bound {r['bound'][0]:.5f} ms "
-              f"({r['bound'][1]})")
+              f"plain {r['plain_ms']:.4f} ms, library {lib_s} ms, bound {r['bound'].ms:.5f} ms "
+              f"({r['bound'].by})")
     return out
 
 
@@ -2032,6 +2067,7 @@ def _tradeoff_times(torch, ref, da, fau, cu, x, k, mb_c, rpkm, tally):
     level-1 cells, beside the plain version, the library call and the
     bound, with the phase's launches at each shape."""
     from repro_torch.core import baselines
+    from repro_torch.roofline import analysis
 
     d = x.shape[1]
     g = torch.Generator(device="cuda").manual_seed(81)
@@ -2052,14 +2088,14 @@ def _tradeoff_times(torch, ref, da, fau, cu, x, k, mb_c, rpkm, tally):
                      _time_graph(torch, lambda xb=xb, c=c: ref.assign_top2(xb, c)),
                      _time_graph(torch, lambda xb=xb, c=c: torch.topk(
                          torch.cdist(xb, c) ** 2, 2, dim=1, largest=False)),
-                     _bound(4 * b * d + 4 * k * d + 12 * b, b * k * (2 * d + 3))))
+                     analysis.assign_top2_bound(b, d, k)))
         rows.append((f"B4 MB{b}", f"x[{b},{d}] f32, K={k}", tally.get(("B4", b, k), 0),
                      _time_graph(torch, lambda xb=xb, a=a, ones=ones: cu.cluster_sums_cuda(
                          xb, ones, a, k)),
                      _time_graph(torch, lambda xb=xb, a=a, ones=ones: ref.cluster_sums(
                          xb, ones, a, k)),
                      _time_graph(torch, lib4),
-                     _bound(4 * b * d + 8 * b + 4 * k * (d + 1), 2 * b * (d + 1))))
+                     analysis.cluster_sums_bound(b, d, k)))
     lo, hi = x.min(0).values, x.max(0).values
     span = torch.where(hi > lo, hi - lo, 1.0)
     _, inverse, counts = baselines.grid_cells(x, lo, span, 1)
@@ -2077,11 +2113,10 @@ def _tradeoff_times(torch, ref, da, fau, cu, x, k, mb_c, rpkm, tally):
                  _time_graph(torch, lambda: fau.fused_assign_update_cuda(reps, w, c)),
                  _time_graph(torch, lambda: ref.assign_update(reps, w, c)),
                  _time_graph(torch, lib2),
-                 _bound(4 * m * d + 4 * m + 4 * k * d + 12 * m + 4 * k * (d + 1) + 4,
-                        m * k * (2 * d + 3) + 2 * m * d)))
+                 analysis.assign_update_bound(m, d, k)))
     for name, shape, launches, ms, plain, lib, bound in rows:
         print(f"[time] {name} {shape}: kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-              f"{lib:.4f} ms, bound {bound[0]:.6f} ms ({bound[1]}), phase 8 launches at this "
+              f"{lib:.4f} ms, bound {bound.ms:.6f} ms ({bound.by}), phase 8 launches at this "
               f"shape {launches}")
 
 
@@ -2707,6 +2742,150 @@ def _profile_stream(torch, repro_torch, rnd, x, out_dir: pathlib.Path):
                      }, out_dir / "susy_stream_kmeans_ll_profile.txt")
 
 
+# ---------------------------------------------------------------- phase 10
+def _tune_case(torch, autotune, label, seam, x, k, run, smi, sms):
+    """Tune one seam at ``x``'s shape with a cold key, print every
+    candidate's time, then check that every candidate (and the choice) gives
+    the analytic plan's outputs bit for bit on ``run``'s inputs, and that a
+    second call is a cache hit that times nothing. Returns the entry."""
+    n, d = x.shape
+    blk = autotune.blocking(seam, n=n, d=d, k=k, dtype=x.dtype)
+    check(blk["source"] == "measured", f"{label}: autotune gave a {blk['source']} plan, not a "
+          "measured one, for a cold key on the card")
+    nb = autotune.n_bucket(n)
+    for knobs, sec in blk["timings"]:
+        print(f"[autotune] {label} {seam} x[{n},{d}] K={k} timed at n={nb}: "
+              f"{json.dumps(knobs) if knobs else 'analytic'} {sec * 1e3:.4f} ms ({smi})")
+    print(f"[autotune] {label} {seam} x[{n},{d}] K={k} timed at n={nb}: "
+          f"{blk['candidates_timed']} candidates timed, {blk['candidates_refused']} refused; "
+          f"analytic {blk['analytic_seconds'] * 1e3:.4f} ms, tuned {blk['seconds'] * 1e3:.4f} ms "
+          f"({json.dumps(blk['knobs']) if blk['knobs'] else 'the analytic plan'}), speedup "
+          f"{blk['speedup_vs_analytic']:.3f}x ({smi})")
+    cands = autotune.candidate_blockings(seam, d, k, n=n, dtype_bytes=x.element_size(), sms=sms)
+    base = run(cands[0])
+    for cand in [*cands[1:], blk]:
+        out = run(cand)
+        check(all(torch.equal(u, v) for u, v in zip(out, base)),
+              f"{label}: the plan {cand['knobs']} changes an output bit")
+    calls = []
+    hit = autotune.blocking(seam, n=n, d=d, k=k, dtype=x.dtype,
+                            measure=lambda plan: calls.append(plan) or 0.0)
+    check(hit["source"] == "cache" and not calls and hit["knobs"] == blk["knobs"],
+          f"{label}: the second call was not a cache hit that times nothing")
+    print(f"[autotune] {label}: {len(cands)} candidate plans at x[{n},{d}] K={k} bit-equal to "
+          "the analytic plan; a second call hit the cache with 0 measure calls")
+    return blk, cands[0]
+
+
+def phase_autotune(torch, repro_torch, x, ll_path, smi):
+    """Phase 10: the measured autotune at the main path's shapes, from a
+    fresh cache, each candidate's time beside the card; every candidate
+    bit-equal; cache hits; the file reloaded; a fit tuned from a fresh cache
+    bit-equal to one with ``REPRO_AUTOTUNE=0``; and the clustering drivers
+    (``launch.cluster --compare``, ``launch.serve --task clusters``) run as
+    a user runs them."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import distance_assign as da
+    from repro_torch.kernels import fused_assign_update as fau
+    from repro_torch.kernels import min_sqdist_update as msu
+
+    t_phase = time.perf_counter()
+    n, d = x.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(101)
+    ones = torch.ones(n, device="cuda")
+    reps = x[torch.randint(0, n, (CAPACITY_REPS,), generator=g, device="cuda")]
+    wr = torch.rand(CAPACITY_REPS, generator=g, device="cuda") * 50
+    c27 = x[torch.randint(0, n, (SUSY_K,), generator=g, device="cuda")]
+    cached = da.assign_top2_cuda(reps, c27)[0]
+    act = torch.rand(CAPACITY_REPS, generator=g, device="cuda") < 0.1
+    c561 = ll_path[27][0]
+    cand = x[torch.randint(0, n, (112,), generator=g, device="cuda")]
+    cv = torch.ones(112, device="cuda")
+    mind2 = msu.min_sqdist_update_cuda(x, ones, x[:1], cv[:1],
+                                       torch.full((n,), BIG, device="cuda"))[0]
+    chunk = x[:CHUNK]
+    cases = [
+        ("B1", "assign_update", chunk, SUSY_K,
+         lambda plan: da.assign_top2_cuda(chunk, c27, plan=plan)),
+        ("B2", "assign_update", reps, SUSY_K,
+         lambda plan: fau.fused_assign_update_cuda(reps, wr, c27, plan=plan)),
+        ("B3", "assign_update_pruned", reps, SUSY_K,
+         lambda plan: fau.fused_assign_update_pruned_cuda(reps, wr, c27, cached, act, plan=plan)),
+        ("B2@561", "assign_update", x, c561.shape[0],
+         lambda plan: fau.fused_assign_update_cuda(x, ones, c561, plan=plan)),
+        ("B5@112", "min_sqdist_update", x, 112,
+         lambda plan: msu.min_sqdist_update_cuda(x, ones, cand, cv, mind2, plan=plan)),
+    ]
+    with tempfile.TemporaryDirectory(prefix="bwkm_phase10_") as tmp:
+        cache = pathlib.Path(tmp) / "autotune.json"
+        os.environ["REPRO_AUTOTUNE_CACHE"] = str(cache)
+        autotune.clear_memo()
+        entries = {}
+        for label, seam, xx, k, run in cases:
+            entries[label] = _tune_case(torch, autotune, label, seam, xx, k, run, smi, sms)
+        # B1 takes the scan part of the assign_update plan tuned above
+        blk, ana = entries["B1"]
+        print(f"[autotune] B1 alone at x[{CHUNK},{d}] K={SUSY_K} (CUDA-graph replays): analytic "
+              f"plan {_time_graph(torch, lambda: da.assign_top2_cuda(chunk, c27, plan=ana)):.4f} "
+              f"ms, tuned plan "
+              f"{_time_graph(torch, lambda: da.assign_top2_cuda(chunk, c27, plan=blk)):.4f} ms "
+              f"({smi})")
+        autotune.clear_memo()  # as a new process: the file is read back
+        for label, seam, xx, k, _ in cases:
+            hit = autotune.blocking(seam, n=xx.shape[0], d=d, k=k, dtype=xx.dtype,
+                                    measure=lambda plan: check(False, "a reloaded hit timed"))
+            check(hit["source"] == "cache" and hit["knobs"] == entries[label][0]["knobs"],
+                  f"{label}: the cache file did not give back the tuned plan")
+        print(f"[autotune] after clear_memo every key came back from {cache.name} "
+              f"({len(json.loads(cache.read_text())['entries'])} entries) without timing")
+
+        # phase 4's fit from a fresh cache, against the fit with autotune off
+        os.environ["REPRO_AUTOTUNE_CACHE"] = str(pathlib.Path(tmp) / "fit.json")
+        autotune.clear_memo()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tuned = repro_torch.BWKM(k=SUSY_K).fit(x)
+        torch.cuda.synchronize()
+        wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        measured = sum(e.get("source") == "measured" for e in autotune._memo.values())
+        os.environ["REPRO_AUTOTUNE"] = "0"
+        try:
+            plain = repro_torch.BWKM(k=SUSY_K).fit(x)
+        finally:
+            del os.environ["REPRO_AUTOTUNE"]
+        rt, rp = tuned.result_, plain.result_
+        check(torch.equal(tuned.centroids_, plain.centroids_)
+              and (rt.stop_reason, rt.iterations, rt.distances)
+              == (rp.stop_reason, rp.iterations, rp.distances),
+              "the fit tuned from a fresh cache differs from the fit with REPRO_AUTOTUNE=0")
+        print(f"[autotune] BWKM(k={SUSY_K}).fit from a fresh cache ({measured} keys measured): "
+              f"wall_s={wall:.3f} peak_mem_GiB={peak / 2**30:.3f}; centroids, stop reason "
+              f"({rt.stop_reason}), iterations ({rt.iterations}) and distances bit-equal to "
+              f"the fit with REPRO_AUTOTUNE=0 ({smi})")
+
+        # the clustering system's own drivers, as a user runs them
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_AUTOTUNE_CACHE=str(cache))
+        for argv, marker in (
+            (["-m", "repro_torch.launch.cluster", "--dataset", "SUSY", "--k", "27", "--compare"],
+             "[cluster] relative errors:"),
+            (["-m", "repro_torch.launch.serve", "--task", "clusters"], "[serve:clusters] served"),
+        ):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            check(r.returncode == 0 and marker in r.stdout,
+                  f"python {' '.join(argv)} failed ({r.returncode}):\n{r.stdout[-3000:]}\n"
+                  f"{r.stderr[-3000:]}")
+            for line in r.stdout.splitlines():
+                print(f"[launch] {line}")
+            print(f"[launch] python {' '.join(argv)}: exit 0 in {wall:.1f} s, process start "
+                  f"included ({smi})")
+    print(f"[autotune] phase 10 took {time.perf_counter() - t_phase:.1f} s")
+
+
 # ---------------------------------------------------------------- main
 def main(argv) -> int:
     import torch
@@ -2724,8 +2903,11 @@ def main(argv) -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
-    # the SUSY shards of phase 6 live until phase 9 has read them
-    with tempfile.TemporaryDirectory(prefix="bwkm_shards_") as shard_dir:
+    # the SUSY shards of phase 6 live until phase 9 has read them; the
+    # autotune cache starts empty in a directory of its own
+    with tempfile.TemporaryDirectory(prefix="bwkm_shards_") as shard_dir, \
+            tempfile.TemporaryDirectory(prefix="bwkm_autotune_") as tune_dir:
+        os.environ["REPRO_AUTOTUNE_CACHE"] = str(pathlib.Path(tune_dir) / "autotune.json")
         return _phases(torch, argv, shard_dir)
 
 
@@ -2820,6 +3002,8 @@ def _phases(torch, argv, shard_dir: str) -> int:
                                       incore, smi)
     for b in launches:
         launches[b] += dist_launches[b]
+    # phase 10
+    phase_autotune(torch, repro_torch, x, ll_path, smi)
     if parent is not None:
         phase_walls(argv[argv.index("--parent") + 1])
     if "--profile" in argv:
@@ -2843,7 +3027,7 @@ def _phases(torch, argv, shard_dir: str) -> int:
         records.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[key], "max_abs_err": errs[key, "float32"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"].ms, "bound_by": t["bound"].by,
             "library_ms": t["library_ms"],
         })
     print(json.dumps({"kernels": records}))

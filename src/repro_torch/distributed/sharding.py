@@ -22,6 +22,11 @@ Every f32 combine gathers the W partials and adds them in rank order
 (:func:`_sum_over_ranks`), so a result does not depend on the backend's
 reduction order and is the same from run to run at a given W.
 
+Each collective issued here is counted by kind in
+:data:`COLLECTIVE_COUNTS` (its bytes and calls), which
+``repro_torch.roofline.analysis.collective_bytes`` reads in the shape of the
+reference's ``parse_collective_bytes``.
+
 The reference's model-placement helpers (``shard``, ``named_sharding``,
 ``logical_to_spec``, ``shard_map``) serve its models and come with them
 (ROADMAP A15). The port splits rows only: there is no ``"model"`` axis.
@@ -41,6 +46,11 @@ __all__ = ["axis_size", "batch_axes", "current_mesh", "use_mesh"]
 DATA = "data"
 
 _local = threading.local()
+
+#: bytes and calls of the collectives issued in this process, by kind: a
+#: reduction is an ``all-reduce``; a gather, one ``all_reduce`` of a
+#: ``[W, ...]`` buffer, an ``all-gather`` (each call is counted once)
+COLLECTIVE_COUNTS = {kind: {"bytes": 0, "count": 0} for kind in ("all-gather", "all-reduce")}
 
 
 @contextlib.contextmanager
@@ -86,14 +96,18 @@ def _mesh_rank() -> int:
 _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
 
 
-def _all_reduce(t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, op: str = "sum", kind: str = "all-reduce") -> torch.Tensor:
     """``t`` reduced over the ranks in place (``op`` one of sum, min, max);
-    ``t`` itself without a mesh. Integer and min/max reductions are exact."""
+    ``t`` itself without a mesh. Integer and min/max reductions are exact.
+    The call is counted under ``kind``."""
     mesh = current_mesh()
     if mesh is None:
         return t
     import torch.distributed as dist
 
+    tally = COLLECTIVE_COUNTS[kind]
+    tally["bytes"] += t.numel() * t.element_size()
+    tally["count"] += 1
     dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]), group=mesh.get_group(DATA))
     return t
 
@@ -102,7 +116,7 @@ def _gather(t: torch.Tensor) -> torch.Tensor:
     """``[W, *t.shape]``: every rank's ``t`` in rank order, exactly."""
     buf = torch.zeros((axis_size(DATA), *t.shape), dtype=t.dtype, device=t.device)
     buf[_mesh_rank()] = t
-    return _all_reduce(buf)
+    return _all_reduce(buf, kind="all-gather")
 
 
 def _sum_over_ranks(*parts: torch.Tensor) -> tuple[torch.Tensor, ...]:

@@ -90,23 +90,30 @@ struct Shape {
   int smem;          // dynamic shared bytes
 };
 
+// A fold's plan as the host passes it: clusters and columns of a CTA's
+// shared partial (kt, cw: both 0, or both given with kt·cw <= PART_FLOATS)
+// and tiles in the ring (2 to MAX_STAGES). 0 is the kernel's own choice.
+// None of them changes a bit: every partial element is summed in row order
+// by one thread whatever the tiling and the ring. The row grid, row_ctas(n)
+// CTAs summed in CTA order, is not a knob.
+struct FoldPlan {
+  int kt;
+  int cw;
+  int stages;
+};
+
 // The fold of n rows of d features of `xsize` bytes into K clusters, with
-// the error (`err`) and an active mask (`act`). `part_floats` caps the
-// partial (0, or anything above PART_FLOATS: PART_FLOATS); a smaller cap
-// only tiles the clusters and columns more finely, which leaves every bit
-// as it is.
-inline Shape fold_shape(long long n, int d, int K, int xsize, bool err, bool act,
-                        int part_floats) {
+// the error (`err`) and an active mask (`act`), in [kt, cw] partials.
+inline Shape fold_shape_at(long long n, int d, int K, int xsize, bool err, bool act, int kt,
+                           int cw) {
   Shape s;
-  const int D1 = d + 1;
-  const int cap = part_floats > 0 ? std::min(part_floats, PART_FLOATS) : PART_FLOATS;
   s.n = n;
   s.d = d;
   s.K = K;
   s.tiles = (n + TILE - 1) / TILE;
-  s.stride = (long long)K * D1 + (err ? 1 : 0);
-  s.cw = std::min(D1, cap);
-  s.kt = std::max(1, std::min(K, cap / s.cw));
+  s.stride = (long long)K * (d + 1) + (err ? 1 : 0);
+  s.cw = cw;
+  s.kt = kt;
   s.pbytes = (4 * s.kt * s.cw + 15) / 16 * 16;
   const long long xb = span_bytes((long long)TILE * d * xsize);
   const int fb = (int)span_bytes(4 * TILE);
@@ -126,6 +133,42 @@ inline Shape fold_shape(long long n, int d, int K, int xsize, bool err, bool act
   s.stages = (int)std::min<long long>(std::min(MAX_STAGES, budget / s.sbytes), per_cta + 1);
   s.smem = s.pbytes + s.stages * s.sbytes;
   return s;
+}
+
+// The same with the partial capped at `part_floats` floats (0, or anything
+// above PART_FLOATS: PART_FLOATS): one column chunk where d + 1 fits, as
+// many clusters as fit beside it. A smaller cap only tiles the clusters and
+// columns more finely, which leaves every bit as it is.
+inline Shape fold_shape(long long n, int d, int K, int xsize, bool err, bool act,
+                        int part_floats) {
+  const int cap = part_floats > 0 ? std::min(part_floats, PART_FLOATS) : PART_FLOATS;
+  const int cw = std::min(d + 1, cap);
+  return fold_shape_at(n, d, K, xsize, err, act, std::max(1, std::min(K, cap / cw)), cw);
+}
+
+// Fills `s` for plan `p`, or returns cudaErrorInvalidValue for a plan that
+// does not fit: a partial outside [1, K] × [1, d + 1] or past PART_FLOATS,
+// stages outside [2, MAX_STAGES] or past the shared memory the partial
+// leaves, a negative knob. It never adjusts a plan.
+inline int fold_plan(long long n, int d, int K, int xsize, bool err, bool act, const FoldPlan& p,
+                     Shape* s) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (K < 1 || d < 1 || n < 0 || p.kt < 0 || p.cw < 0 || p.stages < 0) return bad;
+  if ((p.kt == 0) != (p.cw == 0)) return bad;
+  if (p.kt == 0) {
+    *s = fold_shape(n, d, K, xsize, err, act, 0);
+  } else {
+    if (p.kt > K || p.cw > d + 1 || (long long)p.kt * p.cw > PART_FLOATS) return bad;
+    *s = fold_shape_at(n, d, K, xsize, err, act, p.kt, p.cw);
+  }
+  if (p.stages != 0) {
+    if (p.stages < 2 || p.stages > MAX_STAGES ||
+        (long long)p.stages * s->sbytes > SMEM - STATIC_SMEM - s->pbytes)
+      return bad;
+    s->stages = p.stages;
+    s->smem = s->pbytes + s->stages * s->sbytes;
+  }
+  return (int)cudaSuccess;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -431,20 +474,23 @@ inline int row_ctas(long long n) {
 
 // Folds and reduces: sums, counts and, given d1 (then err too), err of x
 // [n, d] weighted by w under assign. `part` holds row_ctas(n)·(K·(d + 1) +
-// (d1 ? 1 : 0)) floats. Needs K >= 1 and d >= 1. `part_floats` caps the
-// shared partial (0: PART_FLOATS); `phases` says what runs: 1 the fold, 2
-// the reduction (to time each alone), 3 both. Returns a cudaError_t.
+// (d1 ? 1 : 0)) floats. `p` is the fold's plan (FoldPlan; zeros: the
+// kernel's own); `phases` says what runs: 1 the fold, 2 the reduction (to
+// time each alone), 3 both. Returns a cudaError_t, cudaErrorInvalidValue
+// for a plan that does not fit.
 template <typename TX>
 int fold_and_reduce(const TX* x, const float* w, const int* assign, const float* d1,
                     const unsigned char* active, long long n, int d, int K, float* sums,
                     float* counts, float* err, float* part, cudaStream_t st,
-                    int part_floats = 0, int phases = 3) {
-  const Shape s = fold_shape(n, d, K, (int)sizeof(TX), d1 != nullptr,
-                             d1 != nullptr && active != nullptr, part_floats);
+                    const FoldPlan& p = FoldPlan{0, 0, 0}, int phases = 3) {
+  Shape s;
+  int rc = fold_plan(n, d, K, (int)sizeof(TX), d1 != nullptr,
+                     d1 != nullptr && active != nullptr, p, &s);
+  if (rc != 0) return rc;
   const int g = row_ctas(n);
   if ((phases & 1) && g > 0) {
-    int rc = (int)cudaFuncSetAttribute(fold_kernel<TX>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, s.smem);
+    rc = (int)cudaFuncSetAttribute(fold_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   s.smem);
     if (rc != 0) return rc;
     const dim3 grid((unsigned)g, (unsigned)((K + s.kt - 1) / s.kt),
                     (unsigned)((d + 1 + s.cw - 1) / s.cw));

@@ -28,28 +28,56 @@ using namespace bwkm;
 
 // sums [K, d] and counts [K] of x [n, d] under assign [n] (ids outside
 // [0, K) add nothing). `part` holds min(128, ceil(n/256))·K·(d + 1) floats
-// of scratch. `part_floats` caps the shared partial (0: the fold's 40,960
-// floats; a smaller cap tiles the clusters and columns more finely and
-// leaves every bit as it is), and `phases` says what runs (1 the fold, 2
-// the reduction, 3 both): both only to test and time the fold. dtype codes:
-// 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// of scratch. `kt`, `cw` and `stages` are the fold's plan
+// (cluster_fold.cuh::FoldPlan; 0: the kernel's own choice; a finer [kt, cw]
+// tiling leaves every bit as it is), and `phases` says what runs (1 the
+// fold, 2 the reduction, 3 both: to test and time the fold). A plan that
+// does not fit returns cudaErrorInvalidValue and launches nothing. dtype
+// codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
 extern "C" int bwkm_cluster_sums_ex(const void* x, int x_dtype, const float* w,
                                     const int* assign, long long n, int d, int K, float* sums,
-                                    float* counts, float* part, int part_floats, int phases,
-                                    void* stream) {
-  if (K < 1 || d < 1 || part_floats < 0) return (int)cudaErrorInvalidValue;
+                                    float* counts, float* part, int kt, int cw, int stages,
+                                    int phases, void* stream) {
+  if (K < 1 || d < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const fold::FoldPlan p{kt, cw, stages};
   if (x_dtype == 0)
     return fold::fold_and_reduce(static_cast<const float*>(x), w, assign, nullptr, nullptr, n,
-                                 d, K, sums, counts, nullptr, part, s, part_floats, phases);
+                                 d, K, sums, counts, nullptr, part, s, p, phases);
   return fold::fold_and_reduce(static_cast<const __nv_bfloat16*>(x), w, assign, nullptr,
-                               nullptr, n, d, K, sums, counts, nullptr, part, s, part_floats,
-                               phases);
+                               nullptr, n, d, K, sums, counts, nullptr, part, s, p, phases);
 }
 
-// The fold and its reduction at the default partial.
+// The fold and its reduction at the kernel's own plan.
 extern "C" int bwkm_cluster_sums(const void* x, int x_dtype, const float* w, const int* assign,
                                  long long n, int d, int K, float* sums, float* counts,
                                  float* part, void* stream) {
-  return bwkm_cluster_sums_ex(x, x_dtype, w, assign, n, d, K, sums, counts, part, 0, 3, stream);
+  return bwkm_cluster_sums_ex(x, x_dtype, w, assign, n, d, K, sums, counts, part, 0, 0, 0, 3,
+                              stream);
+}
+
+// What the statistics fold (B2/B3's and B4's) launches with for plan (kt,
+// cw, stages) over n rows of d features of `xsize` bytes into K clusters,
+// with the error (err != 0) and an active mask (act != 0), written to
+// out[0..8]: kt, cw, stages, x staged (0/1), bytes of a stage, bytes of the
+// partial, dynamic shared bytes, CTAs along the rows, row tiles. Needs no
+// device; the host's plan (repro_torch.roofline.analysis) is held against
+// it. Returns a cudaError_t: cudaErrorInvalidValue for a plan the kernels
+// refuse.
+extern "C" int bwkm_fold_plan(long long n, int d, int K, int xsize, int err, int act, int kt,
+                              int cw, int stages, long long* out) {
+  fold::Shape s;
+  const int rc = fold::fold_plan(n, d, K, xsize, err != 0, act != 0,
+                                 fold::FoldPlan{kt, cw, stages}, &s);
+  if (rc != 0) return rc;
+  out[0] = s.kt;
+  out[1] = s.cw;
+  out[2] = s.stages;
+  out[3] = s.xstaged;
+  out[4] = s.sbytes;
+  out[5] = s.pbytes;
+  out[6] = s.smem;
+  out[7] = fold::row_ctas(n);
+  out[8] = s.tiles;
+  return (int)cudaSuccess;
 }

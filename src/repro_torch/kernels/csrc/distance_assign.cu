@@ -21,15 +21,51 @@
 
 using namespace bwkm;
 
-// dtype codes: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
-extern "C" int bwkm_assign_top2(const void* x, int x_dtype, const void* c, int c_dtype,
-                                long long n, int d, int K, int* assign, float* d1,
-                                float* d2, void* stream) {
+// dtype codes: 0 = float32, 1 = bfloat16. `rpt`, `kc` and `ctas` are the
+// scan's plan (top2.cuh::ScanPlan; 0: the kernel's own choice); a plan that
+// does not fit returns cudaErrorInvalidValue and launches nothing. Returns a
+// cudaError_t.
+extern "C" int bwkm_assign_top2_ex(const void* x, int x_dtype, const void* c, int c_dtype,
+                                   long long n, int d, int K, int* assign, float* d1,
+                                   float* d2, int rpt, int kc, int ctas, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Assign o{assign, d1, d2, nullptr, nullptr};
-  if (x_dtype == 0 && c_dtype == 0) return launch_top2<float, float>(x, c, n, d, K, o, s);
-  if (x_dtype == 0) return launch_top2<float, __nv_bfloat16>(x, c, n, d, K, o, s);
-  if (c_dtype == 0) return launch_top2<__nv_bfloat16, float>(x, c, n, d, K, o, s);
-  return launch_top2<__nv_bfloat16, __nv_bfloat16>(x, c, n, d, K, o, s);
+  const ScanPlan p{rpt, kc, ctas};
+  if (x_dtype == 0 && c_dtype == 0) return launch_top2<float, float>(x, c, n, d, K, o, s, p);
+  if (x_dtype == 0) return launch_top2<float, __nv_bfloat16>(x, c, n, d, K, o, s, p);
+  if (c_dtype == 0) return launch_top2<__nv_bfloat16, float>(x, c, n, d, K, o, s, p);
+  return launch_top2<__nv_bfloat16, __nv_bfloat16>(x, c, n, d, K, o, s, p);
+}
+
+// The scan at the kernel's own plan.
+extern "C" int bwkm_assign_top2(const void* x, int x_dtype, const void* c, int c_dtype,
+                                long long n, int d, int K, int* assign, float* d1,
+                                float* d2, void* stream) {
+  return bwkm_assign_top2_ex(x, x_dtype, c, c_dtype, n, d, K, assign, d1, d2, 0, 0, 0, stream);
+}
+
+// What the scan of every kernel (B1–B3, B5) launches with for plan (rpt,
+// kc) over n rows of d features of `xsize` bytes against K slots, written to
+// out[0..7]: wide-row form (0/1), rows a thread, rows a tile, kc, the staged
+// x tile's bytes, dynamic shared bytes, features per register chunk, row
+// tiles. Needs no device; the host's plan (repro_torch.roofline.analysis)
+// is held against it. Returns a cudaError_t: cudaErrorInvalidValue for a
+// plan the kernels refuse.
+extern "C" int bwkm_scan_plan(long long n, int d, int K, int xsize, int rpt, int kc,
+                              long long* out) {
+  ScanShape s;
+  size_t smem = 0;
+  bool wide = false;
+  const int rc = scan_plan(n, d, K, xsize, ScanPlan{rpt, kc, 0}, &s, &smem, &wide);
+  if (rc != 0) return rc;
+  out[0] = wide ? 1 : 0;
+  out[1] = s.rows / SCAN_THREADS;
+  out[2] = s.rows;
+  out[3] = s.kc;
+  out[4] = s.xbytes;
+  out[5] = (long long)smem;
+  out[6] = scan_dx(d);
+  out[7] = s.tiles;
+  return (int)cudaSuccess;
 }

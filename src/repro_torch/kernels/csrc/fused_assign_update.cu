@@ -45,34 +45,60 @@ template <typename TX, typename TC>
 static int launch(const void* x, const float* w, const void* c, const int* cached,
                   const unsigned char* active, long long n, int d, int K, int* assign,
                   float* d1, float* d2, float* sums, float* counts, float* err, float* part,
-                  cudaStream_t s) {
+                  cudaStream_t s, const ScanPlan& sp, const fold::FoldPlan& fp) {
+  // check both plans before anything launches
+  ScanShape shape;
+  size_t smem = 0;
+  bool wide = false;
+  int rc = scan_plan(n, d, K, (int)sizeof(TX), sp, &shape, &smem, &wide);
+  fold::Shape fs;
+  if (rc == 0)
+    rc = fold::fold_plan(n, d, K, (int)sizeof(TX), true, active != nullptr, fp, &fs);
+  if (rc != 0) return rc;
   if (n > 0) {
-    const int rc = launch_top2<TX, TC>(x, c, n, d, K, Assign{assign, d1, d2, cached, active}, s);
+    rc = launch_top2<TX, TC>(x, c, n, d, K, Assign{assign, d1, d2, cached, active}, s, sp);
     if (rc != 0) return rc;
   }
   return fold::fold_and_reduce(static_cast<const TX*>(x), w, assign, d1, active, n, d, K, sums,
-                               counts, err, part, s);
+                               counts, err, part, s, fp);
 }
 
 // One dense (cached == active == nullptr) or pruned pass. `part` holds
 // min(128, ceil(n/256))·(K·(d + 1) + 1) floats of scratch. dtype codes:
-// 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// 0 = float32, 1 = bfloat16. `rpt`, `kc`, `ctas` are the scan's plan
+// (top2.cuh::ScanPlan), `kt`, `cw`, `stages` the fold's
+// (cluster_fold.cuh::FoldPlan); 0 is the kernel's own choice, and a plan
+// that does not fit returns cudaErrorInvalidValue before anything launches.
+// Returns a cudaError_t.
+extern "C" int bwkm_assign_update_ex(const void* x, int x_dtype, const float* w, const void* c,
+                                     int c_dtype, const int* cached,
+                                     const unsigned char* active, long long n, int d, int K,
+                                     int* assign, float* d1, float* d2, float* sums,
+                                     float* counts, float* err, float* part, int rpt, int kc,
+                                     int ctas, int kt, int cw, int stages, void* stream) {
+  if (K < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ScanPlan sp{rpt, kc, ctas};
+  const fold::FoldPlan fp{kt, cw, stages};
+  if (x_dtype == 0 && c_dtype == 0)
+    return launch<float, float>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums, counts,
+                                err, part, s, sp, fp);
+  if (x_dtype == 0)
+    return launch<float, __nv_bfloat16>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums,
+                                        counts, err, part, s, sp, fp);
+  if (c_dtype == 0)
+    return launch<__nv_bfloat16, float>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums,
+                                        counts, err, part, s, sp, fp);
+  return launch<__nv_bfloat16, __nv_bfloat16>(x, w, c, cached, active, n, d, K, assign, d1, d2,
+                                              sums, counts, err, part, s, sp, fp);
+}
+
+// The pass at the kernels' own plans.
 extern "C" int bwkm_assign_update(const void* x, int x_dtype, const float* w, const void* c,
                                   int c_dtype, const int* cached,
                                   const unsigned char* active, long long n, int d, int K,
                                   int* assign, float* d1, float* d2, float* sums,
                                   float* counts, float* err, float* part, void* stream) {
-  if (K < 1 || d < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && c_dtype == 0)
-    return launch<float, float>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums, counts,
-                                err, part, s);
-  if (x_dtype == 0)
-    return launch<float, __nv_bfloat16>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums,
-                                        counts, err, part, s);
-  if (c_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, w, c, cached, active, n, d, K, assign, d1, d2, sums,
-                                        counts, err, part, s);
-  return launch<__nv_bfloat16, __nv_bfloat16>(x, w, c, cached, active, n, d, K, assign, d1, d2,
-                                              sums, counts, err, part, s);
+  return bwkm_assign_update_ex(x, x_dtype, w, c, c_dtype, cached, active, n, d, K, assign, d1,
+                               d2, sums, counts, err, part, 0, 0, 0, 0, 0, 0, stream);
 }

@@ -115,24 +115,24 @@ sum_partials(const float* __restrict__ part, long long nb, float* __restrict__ c
 template <typename TX, typename TC>
 int launch(const void* x, const float* w, const void* cand, const float* cvalid,
            const float* mind2, long long n, int d, int L, float* out, float* cost,
-           float* costpart, cudaStream_t st) {
+           float* costpart, cudaStream_t st, const ScanPlan& p) {
   ScanShape s;
   size_t smem = 0;
+  bool wide = false;
+  int rc = scan_plan(n, d, L, (int)sizeof(TX), p, &s, &smem, &wide);
+  if (rc != 0) return rc;
   const TX* xt = static_cast<const TX*>(x);
   const TC* ct = static_cast<const TC*>(cand);
   const Fold o{w, mind2, out, costpart};
-  int rc;
-  if (scan_shape(n, d, L, (int)sizeof(TX), &s, &smem)) {
-    const bool wide = s.rows == 4 * SCAN_THREADS;
-    rc = scan_dx(d) == 32
-             ? launch_scan(min_sqdist_kernel<32, 1, TX, TC>, s, smem, st, xt, ct, cvalid, s, o)
-         : wide ? launch_scan(min_sqdist_kernel<19, 4, TX, TC>, s, smem, st, xt, ct, cvalid, s, o)
-                : launch_scan(min_sqdist_kernel<19, 1, TX, TC>, s, smem, st, xt, ct, cvalid, s, o);
-  } else {  // rows too wide for four resident candidates
-    if (L < 1 || d < 1) return (int)cudaErrorInvalidValue;
-    s = wide_rows_shape(n, d, L);
-    rc = launch_scan(wide_rows_kernel<TX, TC, Fold>, s, WIDE_SMEM, st, xt, ct, cvalid, s, o);
-  }
+  if (wide)  // rows too wide for four resident candidates
+    rc = launch_scan(wide_rows_kernel<TX, TC, Fold>, s, WIDE_SMEM, p.ctas, st, xt, ct, cvalid, s,
+                     o);
+  else if (scan_dx(d) == 32)
+    rc = launch_scan(min_sqdist_kernel<32, 1, TX, TC>, s, smem, p.ctas, st, xt, ct, cvalid, s, o);
+  else if (s.rows == 4 * SCAN_THREADS)
+    rc = launch_scan(min_sqdist_kernel<19, 4, TX, TC>, s, smem, p.ctas, st, xt, ct, cvalid, s, o);
+  else
+    rc = launch_scan(min_sqdist_kernel<19, 1, TX, TC>, s, smem, p.ctas, st, xt, ct, cvalid, s, o);
   if (rc != 0) return rc;
   sum_partials<<<1, SUM_THREADS, 0, st>>>(costpart, s.tiles, cost);
   return (int)cudaGetLastError();
@@ -142,21 +142,36 @@ int launch(const void* x, const float* w, const void* cand, const float* cvalid,
 
 // One fold. `costpart` holds ceil(n/128) floats of scratch (one per row
 // tile, at least 128 rows each); `cost` is one float. dtype codes:
-// 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// 0 = float32, 1 = bfloat16. `rpt`, `kc` and `ctas` are the scan's plan
+// (top2.cuh::ScanPlan; 0: the kernel's own choice). Each row tile writes one
+// cost partial, so the rows a thread set the order φ is summed in: a plan
+// that keeps φ's bits passes rpt = 0. A plan that does not fit returns
+// cudaErrorInvalidValue and launches nothing. Returns a cudaError_t.
+extern "C" int bwkm_min_sqdist_update_ex(const void* x, int x_dtype, const float* w,
+                                         const void* cand, int c_dtype, const float* cvalid,
+                                         const float* mind2, long long n, int d, int L,
+                                         float* out, float* cost, float* costpart, int rpt,
+                                         int kc, int ctas, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ScanPlan p{rpt, kc, ctas};
+  if (x_dtype == 0 && c_dtype == 0)
+    return launch<float, float>(x, w, cand, cvalid, mind2, n, d, L, out, cost, costpart, s, p);
+  if (x_dtype == 0)
+    return launch<float, __nv_bfloat16>(x, w, cand, cvalid, mind2, n, d, L, out, cost, costpart,
+                                        s, p);
+  if (c_dtype == 0)
+    return launch<__nv_bfloat16, float>(x, w, cand, cvalid, mind2, n, d, L, out, cost, costpart,
+                                        s, p);
+  return launch<__nv_bfloat16, __nv_bfloat16>(x, w, cand, cvalid, mind2, n, d, L, out, cost,
+                                              costpart, s, p);
+}
+
+// The fold at the kernel's own plan.
 extern "C" int bwkm_min_sqdist_update(const void* x, int x_dtype, const float* w,
                                       const void* cand, int c_dtype, const float* cvalid,
                                       const float* mind2, long long n, int d, int L,
                                       float* out, float* cost, float* costpart,
                                       void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 0 && c_dtype == 0)
-    return launch<float, float>(x, w, cand, cvalid, mind2, n, d, L, out, cost, costpart, s);
-  if (x_dtype == 0)
-    return launch<float, __nv_bfloat16>(x, w, cand, cvalid, mind2, n, d, L, out, cost, costpart,
-                                        s);
-  if (c_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, w, cand, cvalid, mind2, n, d, L, out, cost, costpart,
-                                        s);
-  return launch<__nv_bfloat16, __nv_bfloat16>(x, w, cand, cvalid, mind2, n, d, L, out, cost,
-                                              costpart, s);
+  return bwkm_min_sqdist_update_ex(x, x_dtype, w, cand, c_dtype, cvalid, mind2, n, d, L, out,
+                                   cost, costpart, 0, 0, 0, stream);
 }

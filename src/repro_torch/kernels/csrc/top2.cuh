@@ -102,18 +102,29 @@ struct ScanShape {
   int kc;           // candidates per resident chunk, a multiple of 4
 };
 
+// The wide-row form (wide_rows_kernel below): 128-row tiles, one row a
+// thread, candidate features staged WIDE_FC at a time.
+constexpr int WIDE_FC = 1024;
+constexpr int WIDE_SMEM = 16 * WIDE_FC;  // dynamic shared bytes
+
+inline ScanShape wide_rows_shape(long long n, int d, int K) {
+  return ScanShape{n, (n + SCAN_THREADS - 1) / SCAN_THREADS, d, K, SCAN_THREADS, 0, 4};
+}
+
 // Features per register chunk, padded with zeros: 19 up to d = 19, one
 // chunk; else 32, as many chunks as d needs.
 inline int scan_dx(int d) { return d <= 19 ? 19 : 32; }
 
 // Fills `s` and the dynamic shared bytes for n rows of d features of
-// `xsize` bytes against K candidate slots. False when K < 1, d < 1, or not
+// `xsize` bytes against K candidate slots, `r` rows a thread (0: four from
+// SCAN_WIDE_N rows on at d <= 19, else one). False when K < 1, d < 1, or not
 // even four candidates fit beside the x tile: past d = 14,432, where four
 // candidates alone fill SCAN_SMEM (the launches then take the wide-row
 // form, wide_rows_kernel).
-inline bool scan_shape(long long n, int d, int K, int xsize, ScanShape* s, size_t* smem) {
+inline bool scan_shape(long long n, int d, int K, int xsize, ScanShape* s, size_t* smem,
+                       int r = 0) {
   const int dx = scan_dx(d);
-  const int r = (dx < 32 && n >= SCAN_WIDE_N) ? 4 : 1;
+  if (r == 0) r = (dx < 32 && n >= SCAN_WIDE_N) ? 4 : 1;
   s->n = n;
   s->d = d;
   s->K = K;
@@ -127,6 +138,50 @@ inline bool scan_shape(long long n, int d, int K, int xsize, ScanShape* s, size_
   s->kc = (int)kc;
   *smem = (size_t)s->xbytes + (size_t)(per * kc);
   return true;
+}
+
+// A scan's plan as the host passes it: rows a thread (1 or 4), candidates
+// per resident chunk (a multiple of 4) and a cap on the persistent grid.
+// 0 is the kernel's own choice for each: scan_shape's, and as many CTAs as
+// are resident at once. None of them changes a bit of any output: each row
+// sees every candidate in increasing id whatever the tile, the chunk or the
+// CTA that walks it.
+struct ScanPlan {
+  int rpt;
+  int kc;
+  int ctas;
+};
+
+// Fills `s`, the dynamic shared bytes and `wide` (the wide-row form) for
+// plan `p`, or returns cudaErrorInvalidValue for a plan that does not fit:
+// an R with no instantiation, kc not a multiple of 4 in [4, K rounded up to
+// 4], shared bytes past SCAN_SMEM, a negative knob. It never adjusts a
+// plan.
+inline int scan_plan(long long n, int d, int K, int xsize, const ScanPlan& p, ScanShape* s,
+                     size_t* smem, bool* wide) {
+  const int bad = (int)cudaErrorInvalidValue;
+  if (K < 1 || d < 1 || n < 0 || p.rpt < 0 || p.kc < 0 || p.ctas < 0) return bad;
+  *wide = !scan_shape(n, d, K, xsize, s, smem);
+  if (*wide) {
+    if ((p.rpt != 0 && p.rpt != 1) || (p.kc != 0 && p.kc != 4)) return bad;
+    *s = wide_rows_shape(n, d, K);
+    *smem = WIDE_SMEM;
+    return (int)cudaSuccess;
+  }
+  const int dx = scan_dx(d);
+  if (p.rpt != 0) {
+    if (p.rpt != 1 && !(p.rpt == 4 && dx < 32)) return bad;
+    if (!scan_shape(n, d, K, xsize, s, smem, p.rpt)) return bad;
+  }
+  if (p.kc != 0) {
+    const long long per = 4LL * ((d + dx - 1) / dx * dx + 1);
+    if (p.kc % 4 != 0 || p.kc < 4 || p.kc > (K + 3) / 4 * 4 ||
+        s->xbytes + per * p.kc > SCAN_SMEM)
+      return bad;
+    s->kc = p.kc;
+    *smem = (size_t)s->xbytes + (size_t)(per * p.kc);
+  }
+  return (int)cudaSuccess;
 }
 
 // CTAs of `fn` resident on the current device at once with `smem` dynamic
@@ -164,15 +219,16 @@ inline int scan_ctas(const void* fn, size_t smem, long long* ctas) {
   return (int)cudaSuccess;
 }
 
-// Launches `kernel` over min(tiles, the CTAs resident at once) CTAs.
-// Returns a cudaError_t.
+// Launches `kernel` over min(tiles, the CTAs resident at once) CTAs, or
+// min(tiles, cap) given a cap. Returns a cudaError_t.
 template <typename... P, typename... A>
-inline int launch_scan(void (*kernel)(P...), const ScanShape& s, size_t smem, cudaStream_t stream,
-                       A... args) {
+inline int launch_scan(void (*kernel)(P...), const ScanShape& s, size_t smem, int cap,
+                       cudaStream_t stream, A... args) {
   if (s.tiles == 0) return (int)cudaSuccess;
   long long ctas = 0;
   const int rc = scan_ctas(reinterpret_cast<const void*>(kernel), smem, &ctas);
   if (rc != 0) return rc;
+  if (cap > 0) ctas = cap;
   kernel<<<(unsigned)std::min(s.tiles, ctas), SCAN_THREADS, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
@@ -429,13 +485,6 @@ __device__ __forceinline__ void scan_rows(const TX* __restrict__ x, const TC* __
 // Then the reducer gets p = ‖c‖² − 2·x·c of the group's candidates in
 // increasing id: given `cvalid` (B5), of its valid ones only, and a group
 // with none is skipped. Every thread of the CTA runs it.
-constexpr int WIDE_FC = 1024;
-constexpr int WIDE_SMEM = 16 * WIDE_FC;  // dynamic shared bytes
-
-inline ScanShape wide_rows_shape(long long n, int d, int K) {
-  return ScanShape{n, (n + SCAN_THREADS - 1) / SCAN_THREADS, d, K, SCAN_THREADS, 0, 4};
-}
-
 template <typename TX, typename TC, typename Op>
 __global__ void __launch_bounds__(SCAN_THREADS)
 wide_rows_kernel(const TX* __restrict__ x, const TC* __restrict__ c,
@@ -547,25 +596,26 @@ top2_kernel(const TX* __restrict__ x, const TC* __restrict__ c, ScanShape s, Ass
   scan_rows<DX, R>(x, c, static_cast<const float*>(nullptr), s, o);
 }
 
-// The top-2 scan of x [n, d] against c [K, d] into `o`. Returns a
-// cudaError_t.
+// The top-2 scan of x [n, d] against c [K, d] into `o`, launched with plan
+// `p`. Returns a cudaError_t.
 template <typename TX, typename TC>
 inline int launch_top2(const void* x, const void* c, long long n, int d, int K, Assign o,
-                       cudaStream_t stream) {
+                       cudaStream_t stream, const ScanPlan& p) {
   ScanShape s;
   size_t smem = 0;
+  bool wide = false;
+  const int rc = scan_plan(n, d, K, (int)sizeof(TX), p, &s, &smem, &wide);
+  if (rc != 0) return rc;
   const TX* xt = static_cast<const TX*>(x);
   const TC* ct = static_cast<const TC*>(c);
-  if (!scan_shape(n, d, K, (int)sizeof(TX), &s, &smem)) {
-    if (K < 1 || d < 1) return (int)cudaErrorInvalidValue;
-    s = wide_rows_shape(n, d, K);
-    return launch_scan(wide_rows_kernel<TX, TC, Assign>, s, WIDE_SMEM, stream, xt, ct,
+  if (wide)
+    return launch_scan(wide_rows_kernel<TX, TC, Assign>, s, WIDE_SMEM, p.ctas, stream, xt, ct,
                        static_cast<const float*>(nullptr), s, o);
-  }
-  const bool wide = s.rows == 4 * SCAN_THREADS;
-  if (scan_dx(d) == 32) return launch_scan(top2_kernel<32, 1, TX, TC>, s, smem, stream, xt, ct, s, o);
-  return wide ? launch_scan(top2_kernel<19, 4, TX, TC>, s, smem, stream, xt, ct, s, o)
-              : launch_scan(top2_kernel<19, 1, TX, TC>, s, smem, stream, xt, ct, s, o);
+  if (scan_dx(d) == 32)
+    return launch_scan(top2_kernel<32, 1, TX, TC>, s, smem, p.ctas, stream, xt, ct, s, o);
+  return s.rows == 4 * SCAN_THREADS
+             ? launch_scan(top2_kernel<19, 4, TX, TC>, s, smem, p.ctas, stream, xt, ct, s, o)
+             : launch_scan(top2_kernel<19, 1, TX, TC>, s, smem, p.ctas, stream, xt, ct, s, o);
 }
 
 }  // namespace bwkm

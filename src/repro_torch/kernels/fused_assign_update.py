@@ -18,6 +18,11 @@ The plain versions are :func:`repro_torch.kernels.ref.assign_update` and
 At the main path's shapes (≤ 14,528 representatives, d = 19, K = 27) the
 pass moves about 1 MB and is bound by launch latency; at the k-means||
 weighting pass (every row, 561 candidates) by the scan's operations.
+Both launch with an explicit plan for the scan and the fold
+(:func:`repro_torch.roofline.analysis.assign_update_blocking`); every plan
+the C side takes gives the same bits, and one it refuses raises
+:class:`~repro_torch.kernels.distance_assign.PlanError`. B3's rows a thread
+are not a knob: a row tile sets which inactive rows skip together.
 ``fused_assign_update_cuda.launches`` and
 ``fused_assign_update_pruned_cuda.launches`` count launches.
 """
@@ -25,12 +30,21 @@ weighting pass (every row, 561 candidates) by the scan's operations.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.cluster_update import fold_ctas
-from repro_torch.kernels.distance_assign import DTYPE_CODES, check_operand, stream_of
+from repro_torch.kernels.cluster_update import fold_args, fold_ctas
+from repro_torch.kernels.distance_assign import (
+    DTYPE_CODES,
+    check_operand,
+    check_rc,
+    scan_args,
+    stream_of,
+)
+from repro_torch.roofline import analysis
+from repro_torch.roofline.analysis import FUSED_MAX_KD1
 
 __all__ = [
     "FUSED_MAX_KD1",
@@ -40,19 +54,20 @@ __all__ = [
     "fused_assign_update_pruned_cuda",
     "fused_scratch_floats",
     "fused_supported",
+    "launch_pass",
 ]
 
 #: fewest rows a row tile of the scan in ``csrc/top2.cuh`` holds
-ROWS_PER_CTA = 128
-#: largest K·(d + 1) the fused kernels take (a 64 KB shared partial)
-FUSED_MAX_KD1 = 16_384
+ROWS_PER_CTA = analysis.SCAN_THREADS
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
+@functools.lru_cache(maxsize=None)
 def fused_supported(d: int, k: int) -> bool:
-    """Whether ``[K, d]`` fits the fused kernels' per-CTA partial."""
-    return k * (d + 1) <= FUSED_MAX_KD1
+    """Whether ``[K, d]`` fits the fused kernels' per-CTA partial: the
+    plan's ``fused_ok`` (K·(d + 1) ≤ :data:`FUSED_MAX_KD1`)."""
+    return analysis.assign_update_blocking(d, k)["fused_ok"]
 
 
 def fused_scratch_floats(n: int, d: int, k: int) -> int:
@@ -71,13 +86,16 @@ def check_fused(d: int, k: int) -> None:
 
 
 def _fn():
-    f = _build.library("fused_assign_update").bwkm_assign_update
-    f.argtypes = [_P, _I, _P, _P, _I, _P, _P, _L, _I, _I] + [_P] * 8
+    f = _build.library("fused_assign_update").bwkm_assign_update_ex
+    f.argtypes = [_P, _I, _P, _P, _I, _P, _P, _L, _I, _I] + [_P] * 7 + [_I] * 6 + [_P]
     f.restype = ctypes.c_int
     return f
 
 
-def _launch(x, w, c, cached, active):
+def launch_pass(x, w, c, cached, active, plan):
+    """One dense (``cached`` and ``active`` None) or pruned pass without the
+    launch counts: the wrappers below count, the autotune's timing runs do
+    not (they are not launches of the caller's path)."""
     if x.device.type != "cuda":
         raise ValueError(f"the fused kernels take CUDA tensors, got {x.device}")
     dev = x.device
@@ -96,6 +114,11 @@ def _launch(x, w, c, cached, active):
         check_operand("active", active, dev, (torch.bool,), 1)
         if cached.shape[0] != n or active.shape[0] != n:
             raise ValueError("assign and active must have one entry per row of x")
+    pruned = cached is not None
+    if plan is None:
+        plan = analysis.assign_update_blocking(d, k, n=n, dtype_bytes=x.element_size(),
+                                               pruned=pruned)
+    scan = scan_args(plan, n=n, d=d) if pruned else scan_args(plan)
     f32 = dict(dtype=torch.float32, device=dev)
     assign = torch.empty(n, dtype=torch.int32, device=dev)
     d1, d2 = torch.empty(n, **f32), torch.empty(n, **f32)
@@ -109,28 +132,33 @@ def _launch(x, w, c, cached, active):
             None if cached is None else cached.data_ptr(),
             None if active is None else active.data_ptr(),
             n, d, k, assign.data_ptr(), d1.data_ptr(), d2.data_ptr(), sums.data_ptr(),
-            counts.data_ptr(), err.data_ptr(), part.data_ptr(), stream_of(dev),
+            counts.data_ptr(), err.data_ptr(), part.data_ptr(), *scan,
+            *fold_args(plan["fold"]), stream_of(dev),
         )
-    if rc != 0:
-        raise RuntimeError(f"fused assign+update kernel launch failed: cudaError_t {rc}")
+    check_rc(rc, "fused assign+update")
     return assign, d1, d2, sums, counts, err
 
 
-def fused_assign_update_cuda(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor):
+def fused_assign_update_cuda(
+    x: torch.Tensor, w: torch.Tensor, c: torch.Tensor, *, plan: dict | None = None
+):
     """Dense pass: ``(assign, d1, d2, sums, counts, err)``; rows with
-    ``w == 0`` get an assignment but add nothing."""
-    out = _launch(x, w, c, None, None)
+    ``w == 0`` get an assignment but add nothing. ``plan`` (``None``: the
+    analytic one) is an ``analysis.assign_update_blocking`` plan."""
+    out = launch_pass(x, w, c, None, None, plan)
     fused_assign_update_cuda.launches += 1
     return out
 
 
 def fused_assign_update_pruned_cuda(
     x: torch.Tensor, w: torch.Tensor, c: torch.Tensor, assign: torch.Tensor,
-    active: torch.Tensor,
+    active: torch.Tensor, *, plan: dict | None = None,
 ):
     """Pruned pass: as the dense one, with ``assign`` the cached ids and
-    ``active`` the rows whose bounds could not prove them unchanged."""
-    out = _launch(x, w, c, assign, active)
+    ``active`` the rows whose bounds could not prove them unchanged;
+    ``plan`` an ``assign_update_blocking(..., pruned=True)`` plan whose rows
+    a thread are the kernel's own at this n."""
+    out = launch_pass(x, w, c, assign, active, plan)
     fused_assign_update_pruned_cuda.launches += 1
     return out
 

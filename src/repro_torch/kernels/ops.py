@@ -12,6 +12,14 @@ on CUDA where their ``[K, d + 1]`` partial fits (``fused_supported``), and
 otherwise — on the CPU always — through the one two-pass body,
 ``ref.two_pass``, run with this module's seams: :func:`assign_top2` (B1),
 then :func:`cluster_sums` (B4) under the (composed) assignment.
+
+On CUDA, B1, B2, B3 and B5 launch with the plan that
+:func:`repro_torch.kernels.autotune.blocking` gives for the call's shape
+(the seams ``assign_update``, ``assign_update_pruned`` and
+``min_sqdist_update``, as the reference's ``_gpu_blocking``): a cache hit
+is a dict lookup, and every plan it may give leaves every output bit as
+the analytic plan has it. B4 has no seam in the reference and launches
+with its analytic plan. The CPU path never consults autotune.
 """
 
 from __future__ import annotations
@@ -47,6 +55,15 @@ def _on_cuda(x: torch.Tensor, *others: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
+def _cuda_plan(seam: str, x: torch.Tensor, k: int) -> dict:
+    """The (tuned > analytic) launch plan of ``seam`` for ``x [n, d]``
+    against ``k`` candidates, see :mod:`repro_torch.kernels.autotune`."""
+    from repro_torch.kernels import autotune
+
+    return autotune.blocking(seam, n=x.shape[0], d=x.shape[1], k=k, dtype=x.dtype,
+                             backend="cuda")
+
+
 def assign_top2(
     x: torch.Tensor, c: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -54,7 +71,9 @@ def assign_top2(
     if _on_cuda(x, c):
         from repro_torch.kernels import distance_assign
 
-        return distance_assign.assign_top2_cuda(x.contiguous(), c.contiguous())
+        return distance_assign.assign_top2_cuda(
+            x.contiguous(), c.contiguous(), plan=_cuda_plan("assign_update", x, c.shape[0])
+        )
     return ref.assign_top2(x, c)
 
 
@@ -114,7 +133,8 @@ def assign_update(x: torch.Tensor, w: torch.Tensor, c: torch.Tensor) -> AssignUp
         from repro_torch.kernels import fused_assign_update as fau
 
         out = AssignUpdate(*fau.fused_assign_update_cuda(
-            x.contiguous(), w.float().contiguous(), c.contiguous()
+            x.contiguous(), w.float().contiguous(), c.contiguous(),
+            plan=_cuda_plan("assign_update", x, c.shape[0]),
         ))
     else:
         out = AssignUpdate(*ref.two_pass(assign_top2, cluster_sums, x, w, c))
@@ -151,6 +171,7 @@ def assign_update_pruned(
         out = PrunedAssignUpdate(*fau.fused_assign_update_pruned_cuda(
             x.contiguous(), w.float().contiguous(), c.contiguous(),
             assign.to(torch.int32).contiguous(), active.bool().contiguous(),
+            plan=_cuda_plan("assign_update_pruned", x, c.shape[0]),
         ))
     else:
         out = PrunedAssignUpdate(
@@ -197,6 +218,7 @@ def min_sqdist_update(
         out = MinSqDistUpdate(*msu.min_sqdist_update_cuda(
             x.contiguous(), w.float().contiguous(), cand.contiguous(),
             cvalid.float().contiguous(), mind2.float().contiguous(),
+            plan=_cuda_plan("min_sqdist_update", x, cand.shape[0]),
         ))
     else:
         out = ref.min_sqdist_update(x, w, cand, cvalid, mind2)

@@ -28,8 +28,10 @@ SRC = ROOT / "src" / "repro_torch"
 #: modules of the port that have no counterpart in the reference
 PORT_ONLY = {"convert", "device", "random", "scan", "kernels._build"}
 #: names whose ROADMAP A item is still open; ``distributed.sharding``'s
-#: model-placement helpers come with the models (queue A item 15)
-NOT_YET = {"vq", "TokenStream", "shard", "named_sharding", "logical_to_spec", "shard_map"}
+#: model-placement helpers and ``launch.mesh``'s production mesh come with
+#: the models (queue A item 15)
+NOT_YET = {"vq", "TokenStream", "shard", "named_sharding", "logical_to_spec", "shard_map",
+           "make_production_mesh"}
 #: names dropped by design: the port selects no impl and has no prune knob
 #: (``*_pallas`` entry points are matched by suffix)
 BY_DESIGN = {"backend", "pallas_available", "resolve_impl", "set_default_impl",

@@ -618,3 +618,179 @@ def test_categorical_draws_repeat_on_the_card(cuda, n):
     assert torch.equal(prefix_sum(p), prefix_sum(p))
     rows = p[: 19 * 100_000].view(19, -1)
     assert torch.equal(prefix_sum(rows), prefix_sum(rows))
+
+
+# ------------------------------------------------------- launch plans and autotune
+PLAN_N = (1, 127, 131_071, 131_072, 5_000_000)
+PLAN_D = (1, 19, 20, 14_432, 14_433)
+PLAN_K = (1, 27, 561, 2_001)
+
+
+@pytest.fixture
+def plans():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the kernels' libraries build only beside one")
+    from repro_torch.kernels import cluster_update, distance_assign
+    from repro_torch.roofline import analysis
+
+    return analysis, distance_assign, cluster_update
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype_bytes", [4, 2])
+def test_python_plans_are_the_kernels_plans(plans, dtype_bytes):
+    """``roofline.analysis``'s plans against ``bwkm_scan_plan`` and
+    ``bwkm_fold_plan`` over the grid of shapes, for the analytic plan and
+    every candidate of every seam; plans the one refuses the other refuses."""
+    from repro_torch.kernels import autotune
+
+    analysis, da, cu = plans
+    scan_keys = ("wide", "rows_per_thread", "bn", "xbytes", "smem_bytes", "scan_dx", "tiles")
+    fold_keys = ("kt", "cw", "stages", "xstaged", "sbytes", "pbytes", "smem_bytes", "ctas", "tiles")
+    checked = 0
+    for n in PLAN_N:
+        for d in PLAN_D:
+            for k in PLAN_K:
+                for seam in autotune.SEAMS:
+                    tile = "bl" if seam == "min_sqdist_update" else "bk"
+                    for cand in autotune.candidate_blockings(seam, d, k, n=n,
+                                                             dtype_bytes=dtype_bytes):
+                        got = da.kernel_scan_plan(n, d, k, dtype_bytes=dtype_bytes,
+                                                  rows_per_thread=cand["rows_per_thread"],
+                                                  kc=cand[tile])
+                        assert got["bk"] == cand[tile], (seam, n, d, k, cand["knobs"])
+                        for key in scan_keys:
+                            assert got[key] == cand[key], (key, seam, n, d, k, cand["knobs"])
+                        if "fold" in cand:
+                            f = cand["fold"]
+                            got = cu.kernel_fold_plan(
+                                n, d, k, dtype_bytes=dtype_bytes, err=True,
+                                act=seam == "assign_update_pruned", kt=f["kt"], cw=f["cw"],
+                                stages=f["stages"])
+                            for key in fold_keys:
+                                assert got[key] == f[key], (key, seam, n, d, k, cand["knobs"])
+                        checked += 1
+                # the kernels' own choices (zeros) are the analytic plans
+                ana = analysis.scan_plan(n, d, k, dtype_bytes=dtype_bytes)
+                got = da.kernel_scan_plan(n, d, k, dtype_bytes=dtype_bytes)
+                assert all(got[key] == ana[key] for key in scan_keys) and got["bk"] == ana["bk"]
+                for err, act in ((True, False), (True, True), (False, False)):
+                    ana = analysis.fold_plan(n, d, k, dtype_bytes=dtype_bytes, err=err, act=act)
+                    got = cu.kernel_fold_plan(n, d, k, dtype_bytes=dtype_bytes, err=err, act=act)
+                    assert all(got[key] == ana[key] for key in fold_keys), (n, d, k, err, act)
+    assert checked > 1000
+    # refused on both sides
+    bad_scans = [dict(rows_per_thread=2), dict(kc=6), dict(kc=4096 * 4)]
+    for kw in bad_scans:
+        with pytest.raises(ValueError):
+            analysis.scan_plan(200_000, 19, 2001, **kw)
+        with pytest.raises(da.PlanError):
+            da.kernel_scan_plan(200_000, 19, 2001, **kw)
+    with pytest.raises(da.PlanError):
+        da.kernel_scan_plan(1000, 40, 27, rows_per_thread=4)  # no R = 4 past d = 19
+    for kw in (dict(stages=1), dict(stages=5), dict(kt=2001, cw=21), dict(kt=5, cw=0)):
+        with pytest.raises(ValueError):
+            analysis.fold_plan(5_000_000, 19, 2001, **kw)
+        with pytest.raises(da.PlanError):
+            cu.kernel_fold_plan(5_000_000, 19, 2001, **kw)
+
+
+def _seam_outputs(seam, cand, x, w, c, cached, active):
+    from repro_torch.kernels import distance_assign as da
+    from repro_torch.kernels import fused_assign_update as fau
+    from repro_torch.kernels import min_sqdist_update as msu
+
+    if seam == "min_sqdist_update":
+        valid = (torch.arange(c.shape[0], device="cuda") % 3 != 1).float()
+        mind2 = torch.full((x.shape[0],), 3e38, device="cuda")
+        return msu.min_sqdist_update_cuda(x, w, c, valid, mind2, plan=cand)
+    if seam == "assign_update_pruned":
+        return fau.fused_assign_update_pruned_cuda(x, w, c, cached, active, plan=cand)
+    out = da.assign_top2_cuda(x, c, plan=cand)
+    if fau.fused_supported(x.shape[1], c.shape[0]):
+        out = out + fau.fused_assign_update_cuda(x, w, c, plan=cand)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,k", [(14_528, 19, 27), (200_000, 19, 561), (70_001, 19, 2001),
+                                   (3_000, 40, 70), (300, 14_433, 1)])
+def test_every_candidate_is_bit_equal_to_the_analytic_plan(cuda, n, d, k, dtype):
+    """Each candidate plan of each seam gives the analytic plan's outputs bit
+    for bit: ids, d1, d2, sums, counts, err (B1–B3), min-d² and φ (B5)."""
+    from repro_torch.kernels import autotune
+
+    x, w, c = _data(n, d, k, dtype, seed=n % 1000 + k)
+    rng = np.random.RandomState(k)
+    cached = torch.from_numpy(rng.randint(0, k, n).astype(np.int32)).cuda()
+    active = torch.from_numpy(rng.rand(n) < 0.3).cuda()
+    active[: 3 * 512] = False  # whole tiles with no active row skip the scan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for seam in autotune.SEAMS:
+        if seam == "assign_update_pruned" and not cuda[1].fused_supported(d, k):
+            continue
+        cands = autotune.candidate_blockings(seam, d, k, n=n,
+                                             dtype_bytes=x.element_size(), sms=sms)
+        base = _seam_outputs(seam, cands[0], x, w, c, cached, active)
+        assert len(cands) > 1
+        for cand in cands[1:]:
+            out = _seam_outputs(seam, cand, x, w, c, cached, active)
+            for i, (a, b) in enumerate(zip(out, base)):
+                assert torch.equal(a, b), (seam, cand["knobs"], i)
+
+
+@pytest.mark.cuda
+def test_a_refused_plan_raises_and_launches_nothing(cuda):
+    from repro_torch.roofline import analysis
+
+    da, fau = cuda
+    x, w, c = _data(1000, 19, 27, torch.float32, seed=1)
+    plan = analysis.assign_update_blocking(19, 27, n=1000)
+    before = (da.assign_top2_cuda.launches, fau.fused_assign_update_cuda.launches)
+    for bad in ({"bk": 6}, {"rows_per_thread": 2}, {"ctas": -1}):
+        with pytest.raises(da.PlanError):
+            da.assign_top2_cuda(x, c, plan=plan | bad)
+    with pytest.raises(da.PlanError):
+        fau.fused_assign_update_cuda(x, w, c, plan=plan | {"fold": plan["fold"] | {"stages": 9}})
+    # B3's rows a thread are not a knob
+    with pytest.raises(da.PlanError):
+        fau.fused_assign_update_pruned_cuda(
+            x, w, c, torch.zeros(1000, dtype=torch.int32, device="cuda"),
+            torch.ones(1000, dtype=torch.bool, device="cuda"),
+            plan=plan | {"rows_per_thread": 4, "bn": 512})
+    assert (da.assign_top2_cuda.launches, fau.fused_assign_update_cuda.launches) == before
+
+
+@pytest.mark.cuda
+def test_autotune_on_the_card_keeps_the_fit_bit_equal(cuda, tmp_path, monkeypatch):
+    """A measured cache (its timing runs leave the launch counts alone),
+    then the same in-core fit with the cache warm and with
+    ``REPRO_AUTOTUNE=0``: the centroids are bit-equal."""
+    import repro_torch
+    from repro_torch.kernels import autotune
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    autotune.clear_memo()
+    try:
+        rng = np.random.RandomState(3)
+        x = (rng.randn(40_000, 19) * 3).astype(np.float32)
+        da, fau = cuda
+        counts = (da.assign_top2_cuda.launches, fau.fused_assign_update_cuda.launches)
+        blk = autotune.blocking("assign_update", n=40_000, d=19, k=27)
+        assert blk["source"] == "measured" and blk["candidates_timed"] > 1
+        # timing runs are not launches of the caller's path
+        assert (da.assign_top2_cuda.launches, fau.fused_assign_update_cuda.launches) == counts
+        # past the fused limit the seams time the scan (B1) alone
+        for seam in ("assign_update", "assign_update_pruned"):
+            wide = autotune.blocking(seam, n=70_001, d=19, k=2001)
+            assert wide["source"] == "measured" and not wide["fused_ok"]
+        assert autotune.blocking("assign_update", n=40_000, d=19, k=27,
+                                 measure=lambda p: pytest.fail("a hit must not time"))["source"] \
+            == "cache"
+        tuned = repro_torch.BWKM(k=27, max_iters=6).fit(x).centroids_
+        monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+        plain = repro_torch.BWKM(k=27, max_iters=6).fit(x).centroids_
+        assert torch.equal(tuned, plain)
+    finally:
+        autotune.clear_memo()
