@@ -182,6 +182,25 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    ``python -m repro_torch.launch.cluster --dataset SUSY --k 27 --compare``
    and ``python -m repro_torch.launch.serve --task clusters``.
 
+11. (after phase 10) KV-cache quantisation (``repro_torch.vq``) on
+   granite-8b at full width and depth from random weights made from a
+   seed: 11a ``generate`` over 8 ``TokenStream`` prompts of 512 tokens and
+   32 decode steps (tok/s, peak memory); (b) a codebook of the prefill
+   cache's own rows (K = 34,816 a layer, uint16 codes), one
+   ``decode_quantized`` step against ``decode`` within 1e-3 of max
+   |logit|; (c) ``fit_kv_codebook(k=256)``, 72 streaming fits of 32,768
+   rows, every audit entry ``streaming``; (d) ``random_kv_codebook``, each
+   source's round-trip MSE beside random's (the mean must be lower for
+   BWKM) and equal to B1's mean d1 on its rows within 1e-5; (e) the uint8
+   cache exactly 2·hd times smaller than the bf16 one; (f)
+   ``generate_quantized`` and ``teacher_forced_nll`` for fp, BWKM and
+   random (a readout); (g) B1, B4 and B5 launched and no plain distance
+   function called; then B1 timed at the path's shapes. 11b seeds a MoE
+   router at deepseek-moe-16b's widths with its depth cut to 2 of 28
+   layers (unit or zero columns, a refresh from the session, a finite
+   forward, the expert-load CV beside a random router's). 11c runs
+   ``python -m repro_torch.launch.serve --task lm --kv-quantize``.
+
 The whole run keeps its autotune cache in a fresh temporary file
 (``REPRO_AUTOTUNE_CACHE``), so every key is tuned on this card in this run.
 Then the card's name and power limit, one JSON line of kernel records, and
@@ -1950,14 +1969,17 @@ def _expected_distances(method, res, n, k):
 
 
 class _ShapeTally:
-    """Launches of B1, B2 and B4 by shape while :meth:`active`: each wrapper
-    is replaced by one that counts ``(kernel, rows, K)`` and calls it. A
+    """Launches of B1, B2, B4 (and B5, given ``msu``) by shape while
+    :meth:`active`: each wrapper is replaced by one that counts
+    ``(kernel, rows, K)`` (B5: K is its candidate slots) and calls it. A
     wrapper counts its launches on the module's name for it, so the
     stand-in carries the count meanwhile and hands it back."""
 
-    def __init__(self, da, fau, cu):
+    def __init__(self, da, fau, cu, msu=None):
         self.mods = ((da, "assign_top2_cuda", "B1"), (fau, "fused_assign_update_cuda", "B2"),
                      (cu, "cluster_sums_cuda", "B4"))
+        if msu is not None:
+            self.mods += ((msu, "min_sqdist_update_cuda", "B5"),)
         self.counts: dict[tuple, int] = {}
 
     @contextlib.contextmanager
@@ -1967,7 +1989,7 @@ class _ShapeTally:
                 fn = getattr(mod, attr)
 
                 def counted(*a, _fn=fn, _b=b, **kw):
-                    k = a[-1] if _b == "B4" else a[-1].shape[0]
+                    k = a[-1] if _b == "B4" else a[2 if _b == "B5" else -1].shape[0]
                     key = (_b, a[0].shape[0], int(k))
                     self.counts[key] = self.counts.get(key, 0) + 1
                     return _fn(*a, **kw)
@@ -2886,6 +2908,359 @@ def phase_autotune(torch, repro_torch, x, ll_path, smi):
     print(f"[autotune] phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 11
+VQ_ARCH = "granite-8b"  # the reference's serve.py, tests/test_vq.py and BENCH_vq.json default
+VQ_FULL = dict(n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, hd=128, d_ff=14336,
+               vocab=49152)
+VQ_BATCH, VQ_PROMPT, VQ_STEPS = 8, 512, 32  # prompts, tokens each, greedy decode steps
+VQ_K = 256  # the codebooks' k: uint8 codes
+ROUTER_ARCH, ROUTER_LAYERS = "deepseek-moe-16b", 2  # widths as published, depth cut from 28
+ROUTER_TOKENS = (64, 512)
+
+
+def _expert_load_cv(torch, h, w, top_k):
+    """Coefficient of variation of the expert loads of ``h @ w`` under top-k
+    routing (``examples/router_init.py``'s ``load_imbalance``)."""
+    idx = torch.topk(h @ w, top_k, dim=-1).indices
+    counts = torch.bincount(idx.reshape(-1), minlength=w.shape[1]).double()
+    return float(counts.std(unbiased=False) / counts.mean())
+
+
+def _router_ok(torch, w):
+    """Every column of ``w [d, E]`` has unit norm or is zero, none NaN."""
+    norms = torch.linalg.vector_norm(w, dim=0)
+    return bool(torch.isfinite(w).all()) and bool(((norms - 1).abs() < 1e-5).logical_or(
+        norms == 0).all())
+
+
+def _vq_times(torch, ref, da, tally):
+    """B1 at the vq path's shapes (a 4,096-row ``quantize_rows`` chunk and
+    the 64 rows a decode step re-quantizes, against [256, 128]; a chunk
+    against (b)'s exact codebook of 34,816 rows), beside the plain version,
+    ``cdist`` + ``topk`` and the bound."""
+    from repro_torch.roofline import analysis
+
+    g = torch.Generator(device="cuda").manual_seed(111)
+    exact_k = VQ_BATCH * (VQ_PROMPT + VQ_STEPS) * 8
+    for n, k in ((4096, VQ_K), (64, VQ_K), (4096, exact_k)):
+        c = torch.randn(k, 128, generator=g, device="cuda") * 1.3
+        x = torch.randn(n, 128, generator=g, device="cuda") * 1.3
+        reps = 20 if k == VQ_K else 3
+        ms = _time_graph(torch, lambda x=x, c=c: da.assign_top2_cuda(x, c), reps)
+        plain_ms = _time_graph(torch, lambda x=x, c=c: ref.assign_top2(x, c), reps)
+        library_ms = _time_graph(torch, lambda x=x, c=c: torch.topk(
+            torch.cdist(x, c) ** 2, 2, dim=1, largest=False), reps)
+        bound = analysis.assign_top2_bound(n, 128, k)
+        print(f"[time] B1 vq x[{n},128] c[{k},128] f32: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms (cdist + topk), bound "
+              f"{bound.ms:.6f} ms ({bound.by}), phase 11a launches at this shape "
+              f"{tally.counts.get(('B1', n, k), 0)}")
+    # B1's width sweep at 4,096 rows × 256: one feature chunk (d <= 32), or
+    # a row re-read from the staged tile per group of four candidates, whose
+    # lanes share a bank when d is a multiple of 32
+    for d in (32, 64, 127, 128, 129):
+        c = torch.randn(VQ_K, d, generator=g, device="cuda")
+        x = torch.randn(4096, d, generator=g, device="cuda")
+        ms = _time_graph(torch, lambda x=x, c=c: da.assign_top2_cuda(x, c))
+        plain_ms = _time_graph(torch, lambda x=x, c=c: ref.assign_top2(x, c))
+        print(f"[time] B1 width sweep x[4096,{d}] c[{VQ_K},{d}] f32: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+
+
+def _vq_checks(torch, ref, da, cu, msu, counts, d):
+    """B1, B4 and B5 at every ``(kernel, rows, K)`` shape in ``counts`` (the
+    shapes phase 11a gave them), at ``d`` features in f32, against their
+    plain versions within the f32 tolerance: B1's labels at the minimum
+    distance and its d1/d2, with all candidates real and again with about
+    half parked as k-means|| parks its weighting pass's unfilled slots;
+    B4's sums and counts relative to Σ|terms|; B5's min-d² relative to
+    ‖x‖² + ‖c‖² and its cost, on a first fold and on a later one. Returns
+    the largest absolute error per kernel and the number of cases."""
+    from repro_torch.core import kmeans_ll
+
+    tol = TOL["float32"]
+    errs = dict.fromkeys(("B1", "B4", "B5"), 0.0)
+    cases = 0
+    for i, (b, n, k) in enumerate(sorted(key for key in counts if key[0] in errs)):
+        tag = f"{b} vq x[{n},{d}] K={k}"
+        if b == "B1":
+            for far in (None, kmeans_ll._FAR):
+                x, _, c = _data(torch, n, d, k, torch.float32, seed=500 + i, far=far)
+                what = tag + (" half parked" if far else "")
+                a, d1, d2 = da.assign_top2_cuda(x, c)
+                _, rd1, rd2 = ref.assign_top2(x, c)
+                _labels_ok(torch, ref, x, c, a, tol, what)
+                errs[b] = max(errs[b], _close(torch, d1, rd1, tol, f"{what} d1")[0],
+                              _close(torch, d2, rd2, tol, f"{what} d2")[0])
+                cases += 1
+        elif b == "B4":
+            x, w, _ = _data(torch, n, d, 1, torch.float32, seed=500 + i)
+            g = torch.Generator(device="cuda").manual_seed(500 + i)
+            ids = torch.randint(0, k, (n,), generator=g, device="cuda", dtype=torch.int32)
+            sums, cnt = cu.cluster_sums_cuda(x, w, ids, k)
+            rs, rc = ref.cluster_sums(x, w, ids, k)
+            ss, sc = _abs_sums(torch, ref, x, w, ids, k)
+            errs[b] = max(errs[b], _close(torch, sums, rs, tol, f"{tag} sums", ss)[0],
+                          _close(torch, cnt, rc, tol, f"{tag} counts", sc)[0])
+            cases += 1
+        else:
+            for first in (True, False):
+                x, w, cand, cvalid, mind2 = _fold_case(torch, n, d, k, torch.float32, 500 + i,
+                                                       first, True)
+                what = f"{tag} first={first}"
+                new, cost = msu.min_sqdist_update_cuda(x, w, cand, cvalid, mind2)
+                r = ref.min_sqdist_update(x, w, cand, cvalid, mind2)
+                scale = (x ** 2).sum(1) + (cand ** 2).sum(1).max()
+                errs[b] = max(errs[b], _close(torch, new, r.mind2, tol, what, scale)[0])
+                _close(torch, cost, r.cost, dict(rtol=1e-5, atol=0.0), f"{what} cost")
+                check(bool((new <= mind2).all()), f"{what}: the fold raised a min-d²")
+                cases += 1
+    check(all(any(key[0] == b for key in counts) for b in errs),
+          f"phase 11a gave no shape of one of {sorted(errs)}: {sorted(counts)}")
+    torch.cuda.synchronize()
+    return errs, cases
+
+
+def phase_vq(torch, rnd, ref, da, fau, cu, msu, counters, smi):
+    """Phase 11: KV-cache quantisation on granite-8b at full width and depth
+    (11a), router seeding at deepseek-moe-16b's widths (11b) and the ``lm``
+    driver (11c). Returns 11a's launches and the largest absolute errors of
+    B1, B4 and B5 at the shapes 11a gave them."""
+    import numpy as np
+
+    from repro_torch import configs, vq
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(VQ_ARCH)
+    check({f: getattr(cfg, f) for f in VQ_FULL} == VQ_FULL and cfg.dtype == torch.bfloat16
+          and cfg.param_dtype == torch.float32, f"{VQ_ARCH} is not at its published widths")
+    L, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
+    sc = VQ_PROMPT + VQ_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, rnd.key(24))
+    torch.cuda.synchronize()
+    n_values = sum(t.numel() for t in _tree_leaves(params))
+    print(f"[vq] 11a {VQ_ARCH} at full width and depth ({L} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads, kv {kv}, hd {hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; bf16 "
+          f"compute, f32 params): {n_values / 1e9:.3f} G values initialised on the card from "
+          f"a seed in {time.perf_counter() - t0:.2f} s")
+    prompts = TokenStream(cfg.vocab, VQ_PROMPT, VQ_BATCH, seed=0).batch(0)[0]
+    fit_prompts = TokenStream(cfg.vocab, VQ_PROMPT, VQ_BATCH, seed=1).batch(0)[0].cpu().numpy()
+    serve.generate(cfg, params, prompts[:, :16], 2)  # warm-up: cuBLAS handles, the allocator
+
+    tally = _ShapeTally(da, fau, cu, msu)
+    _zero(counters)
+    with _plain_calls(ref) as plain, tally.active():
+        # (a) prefill and 32 greedy decode steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen = serve.generate(cfg, params, prompts, VQ_STEPS + 1)
+        torch.cuda.synchronize()
+        wall_a = time.perf_counter() - t0
+        peak_a = torch.cuda.max_memory_allocated()
+        # (b) lossless at full width: a codebook of the cache's own rows
+        t0 = time.perf_counter()
+        last, cache = tf.prefill(cfg, params, prompts, max_seq_len=sc)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        tps_a = VQ_BATCH * (VQ_STEPS + 1) / wall_a
+        print(f"[vq] (a) generate: prefill [{VQ_BATCH}, {VQ_PROMPT}] then {VQ_STEPS} greedy decode "
+              f"steps in {wall_a:.3f} s ({tps_a:.1f} tok/s; prefill alone {t_prefill:.3f} s, so "
+              f"{(wall_a - t_prefill) / VQ_STEPS * 1e3:.1f} ms a decode step); peak device memory "
+              f"{peak_a / 2**30:.2f} GiB ({smi})")
+        check(torch.equal(torch.argmax(last, -1).to(torch.int32), gen[:, 0]),
+              "prefill's token differs from generate's first")
+        exact = vq.KVCodebook(cache["k"].float().cpu().numpy().reshape(L, -1, hd),
+                              cache["v"].float().cpu().numpy().reshape(L, -1, hd))
+        check(exact.k == VQ_BATCH * sc * kv and exact.code_dtype == torch.uint16,
+              f"the exact codebook has k = {exact.k}, codes {exact.code_dtype}")
+        t0 = time.perf_counter()
+        qcache = vq.quantize_cache(exact, cache)
+        torch.cuda.synchronize()
+        t_q = time.perf_counter() - t0
+        kcb = torch.from_numpy(exact.k_centroids).cuda()
+        vcb = torch.from_numpy(exact.v_centroids).cuda()
+        tok = gen[:, 0]
+        raw, _ = tf.decode(cfg, params, cache, tok, VQ_PROMPT)
+        quant, _ = vq.decode_quantized(cfg, params, kcb, vcb, qcache, tok, VQ_PROMPT)
+        diff, scale = float((raw - quant).abs().max()), float(raw.abs().max())
+        check(diff <= 1e-3 * scale, f"lossless quantised decode: max |Δlogit| {diff:.3g} > 1e-3 × "
+              f"{scale:.3g}")
+        print(f"[vq] (b) lossless: codebook = the prefill cache's own rows, k = {exact.k:,} a "
+              f"layer (uint16 codes; quantize_cache {t_q:.2f} s, B1 at K = {exact.k:,}); one "
+              f"decode_quantized step against decode: max |Δlogit| {diff:.3g} "
+              f"({'bit-equal' if diff == 0 else 'not bit-equal'}; limit 1e-3 × max |logit| "
+              f"{scale:.3g})")
+        del exact, qcache, kcb, vcb, raw, quant
+        torch.cuda.empty_cache()
+        # (c) 72 streaming fits
+        t0 = time.perf_counter()
+        cb = vq.fit_kv_codebook(cfg, params, fit_prompts, k=VQ_K)
+        fit_wall = time.perf_counter() - t0
+        audit = cb.meta["layers"]
+        n_rows = VQ_BATCH * VQ_PROMPT * kv
+        check(len(audit) == 2 * L and all(m["engine"] == "streaming" for m in audit)
+              and all(m["n_points"] == n_rows for m in audit),
+              f"codebook audit: {len(audit)} fits, engines {sorted({m['engine'] for m in audit})}, "
+              f"rows {sorted({m['n_points'] for m in audit})}")
+        check(cb.code_dtype == torch.uint8 and np.isfinite(cb.k_centroids).all()
+              and np.isfinite(cb.v_centroids).all(), "the fitted codebook is not finite uint8")
+        print(f"[vq] (c) fit_kv_codebook(k={VQ_K}) over {VQ_BATCH} fit prompts × {VQ_PROMPT}: "
+              f"{len(audit)} streaming fits of {n_rows:,} rows each in {fit_wall:.1f} s "
+              f"({fit_wall / len(audit):.2f} s a fit, its prefill included); distances "
+              f"{cb.meta['distances_total']:.4e}; stop reasons "
+              f"{sorted({m['stop_reason'] for m in audit})} ({smi})")
+        # (d) round-trip MSE, BWKM beside random, and quantisation == assignment
+        t0 = time.perf_counter()
+        rand = vq.random_kv_codebook(cfg, params, fit_prompts, k=VQ_K, seed=7)
+        t_rand = time.perf_counter() - t0
+        _, fcache = tf.prefill(cfg, params, torch.as_tensor(fit_prompts, device="cuda"))
+        mse = {"bwkm": [], "random": []}
+        worst = 0.0
+        lines = []
+        for layer in range(L):
+            parts = []
+            for kind in ("k", "v"):
+                rows = fcache[kind][layer].reshape(-1, hd).float()
+                for name, book in (("bwkm", cb), ("random", rand)):
+                    cents = torch.from_numpy(book.centroids(kind)[layer]).cuda()
+                    recon = vq.dequantize_rows(vq.quantize_rows(rows, cents), cents)
+                    m = float(((rows - recon) ** 2).sum(1).mean())
+                    d1 = float(ops.assign_top2(rows, cents)[1].mean())
+                    worst = max(worst, abs(m - d1) / d1)
+                    mse[name].append(m)
+                parts.append(f"{kind} {mse['bwkm'][-1]:.4f} / {mse['random'][-1]:.4f}")
+            lines.append(f"{layer}: " + ", ".join(parts))
+        for i in range(0, L, 6):
+            print("[vq] (d) round-trip MSE, BWKM / random, layer: " + "; ".join(lines[i:i + 6]))
+        mb, mr = float(np.mean(mse["bwkm"])), float(np.mean(mse["random"]))
+        check(mb < mr, f"mean round-trip MSE over the {2 * L} sources: BWKM {mb:.5g} >= random "
+              f"{mr:.5g}")
+        check(worst <= 1e-5, f"round-trip MSE against B1's mean d1: {worst:.3g} > 1e-5 relative")
+        print(f"[vq] (d) mean over the {2 * L} sources: BWKM {mb:.5f}, random {mr:.5f} "
+              f"({mr / mb:.3f}×); BWKM lower on {sum(b < r for b, r in zip(mse['bwkm'], mse['random']))}"
+              f" of {2 * L}; every MSE equals B1's mean d1 on its rows within {worst:.2e} "
+              f"relative (limit 1e-5); random codebook {t_rand:.1f} s")
+        del fcache
+        # (e) bytes
+        raw_bytes = vq.kv_cache_nbytes(cache)
+        qcache = vq.quantize_cache(cb, cache)
+        vq_bytes = vq.kv_cache_nbytes(qcache)
+        check(qcache["k_codes"].dtype == torch.uint8 and raw_bytes == 2 * hd * vq_bytes,
+              f"cache bytes {raw_bytes} against {vq_bytes} codes")
+        print(f"[vq] (e) kv_cache_nbytes: raw bf16 {raw_bytes:,} B, uint8 codes {vq_bytes:,} B "
+              f"({raw_bytes // vq_bytes}× smaller, exactly 2·hd), codebook {cb.nbytes:,} B")
+        del cache, qcache
+        # (f) serving from codes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qgen = vq.generate_quantized(cfg, params, cb, prompts, VQ_STEPS + 1)
+        torch.cuda.synchronize()
+        wall_f = time.perf_counter() - t0
+        tps_f = VQ_BATCH * (VQ_STEPS + 1) / wall_f
+        check(qgen.shape == gen.shape and int(qgen.min()) >= 0 and int(qgen.max()) < cfg.vocab,
+              "generate_quantized gave tokens out of range")
+        same = float((qgen == gen).float().mean())
+        eval_toks = torch.cat([prompts, gen], dim=1)
+        nll = {}
+        for name, book in (("fp", None), ("bwkm", cb), ("random", rand)):
+            t0 = time.perf_counter()
+            nll[name] = vq.teacher_forced_nll(cfg, params, eval_toks, prompt_len=VQ_PROMPT,
+                                              codebook=book)
+            nll[name + "_s"] = time.perf_counter() - t0
+        check(all(np.isfinite(nll[n]) for n in ("fp", "bwkm", "random")), f"NLL {nll}")
+        print(f"[vq] (f) generate_quantized: {VQ_STEPS} decode steps over codes in {wall_f:.3f} s "
+              f"({tps_f:.1f} tok/s against {tps_a:.1f} raw; {same:.3f} of its tokens equal the "
+              f"raw run's); teacher-forced NLL over {VQ_STEPS + 1} positions: fp "
+              f"{nll['fp']:.4f}, BWKM {nll['bwkm']:.4f}, random {nll['random']:.4f} (random "
+              f"weights: a readout, not a gate; {nll['fp_s']:.2f} / {nll['bwkm_s']:.2f} / "
+              f"{nll['random_s']:.2f} s) ({smi})")
+    launches = _read(counters)
+    check(launches["B1"] > 0 and launches["B4"] > 0 and launches["B5"] > 0,
+          f"phase 11a launches {launches}")
+    check(sum(plain.values()) == 0, f"plain distance functions ran on the card: {plain}")
+    print(f"[vq] (g) launches in 11a: {launches}; by (rows, K): "
+          + "; ".join(f"{b} " + ", ".join(f"[{n}, {k}] {c}" for (b_, n, k), c in
+                                           sorted(tally.counts.items()) if b_ == b)
+                      for b in ("B1", "B4", "B5"))
+          + "; plain distance functions called 0 times")
+    errs, cases = _vq_checks(torch, ref, da, cu, msu, tally.counts, hd)
+    print(f"[kernels] vq shapes: B1, B4 and B5 at each (rows, K) above, d = {hd}, f32, match "
+          f"their plain versions in {cases} cases (tol 1e-5; B1 labels at the minimum, also with "
+          f"half the candidates parked; B4 sums to Σ|terms|; B5 min-d² to ‖x‖² + ‖c‖², first and "
+          f"later folds); max abs err: " + ", ".join(f"{b} {v:.3g}" for b, v in errs.items()))
+    _vq_times(torch, ref, da, tally)
+    del params
+    torch.cuda.empty_cache()
+
+    # 11b: router seeding at deepseek-moe-16b's widths, depth cut
+    t0 = time.perf_counter()
+    dcfg = configs.get_config(ROUTER_ARCH)
+    full_layers = dcfg.n_layers
+    dcfg = dcfg.replace(n_layers=ROUTER_LAYERS)
+    dparams = tf.init_params(dcfg, rnd.key(16))
+    toks = rnd.randint(rnd.key(17), ROUTER_TOKENS, 0, dcfg.vocab, device="cuda")
+    h = dparams["embed"][toks.long()].reshape(-1, dcfg.d_model)
+    t1 = time.perf_counter()
+    w, session = vq.seed_router(h, dcfg.n_experts, seed=2)
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t1
+    check(_router_ok(torch, w), "the seeded router has a column neither unit nor zero")
+    w_rand = rnd.normal(rnd.key(18), tuple(w.shape), device="cuda", std=0.02)
+    cv_b = _expert_load_cv(torch, h, w, dcfg.top_k)
+    cv_r = _expert_load_cv(torch, h, w_rand, dcfg.top_k)
+    toks2 = rnd.randint(rnd.key(19), (16, ROUTER_TOKENS[1]), 0, dcfg.vocab, device="cuda")
+    h2 = dparams["embed"][toks2.long()].reshape(-1, dcfg.d_model)
+    t1 = time.perf_counter()
+    w2, again = vq.seed_router(h2, dcfg.n_experts, session=session)
+    torch.cuda.synchronize()
+    refresh_s = time.perf_counter() - t1
+    check(again is session and _router_ok(torch, w2) and not torch.equal(w, w2),
+          "the session's second batch did not refresh the router")
+    seeded = vq.install_router(dparams, w2)
+    with torch.inference_mode():
+        logits, _, _ = tf.forward(dcfg, seeded, toks[:2])
+    check(bool(torch.isfinite(logits).all()), "forward with the seeded router is not finite")
+    print(f"[vq] 11b {ROUTER_ARCH} at its widths (d {dcfg.d_model}, {dcfg.n_experts} experts "
+          f"top-{dcfg.top_k}, {dcfg.n_shared_experts} shared), depth cut from {full_layers} to "
+          f"{ROUTER_LAYERS} layers (the {full_layers}-layer f32 tree is about 68 GB): "
+          f"seed_router on the embeddings of {ROUTER_TOKENS[0]} × {ROUTER_TOKENS[1]} tokens in "
+          f"{seed_s:.2f} s, refreshed from the session on {h2.shape[0]:,} more in {refresh_s:.2f} "
+          f"s; columns unit or zero, none NaN; expert-load CV BWKM {cv_b:.3f}, random "
+          f"{cv_r:.3f}; forward with the installed router finite {tuple(logits.shape)}; 11b "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+    del dparams, seeded, logits
+    torch.cuda.empty_cache()
+
+    # 11c: the lm driver as a user runs it
+    argv = ["-m", "repro_torch.launch.serve", "--task", "lm", "--kv-quantize"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0 and r.stdout.count("[serve:vq]") == 3,
+          f"python {' '.join(argv)} failed ({r.returncode}):\n{r.stdout[-3000:]}\n"
+          f"{r.stderr[-3000:]}")
+    for line in r.stdout.splitlines():
+        print(f"[launch] {line}")
+    print(f"[launch] python {' '.join(argv)}: exit 0 in {wall:.1f} s, process start included "
+          f"({smi})")
+    print(f"[vq] phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, errs
+
+
+def _tree_leaves(tree):
+    for v in tree.values():
+        yield from _tree_leaves(v) if isinstance(v, dict) else (v,)
+
+
 # ---------------------------------------------------------------- main
 def main(argv) -> int:
     import torch
@@ -3004,6 +3379,12 @@ def _phases(torch, argv, shard_dir: str) -> int:
         launches[b] += dist_launches[b]
     # phase 10
     phase_autotune(torch, repro_torch, x, ll_path, smi)
+    # phase 11
+    vq_launches, vq_errs = phase_vq(torch, rnd, ref, da, fau, cu, msu, counters, smi)
+    for b in launches:
+        launches[b] += vq_launches[b]
+    for b, e in vq_errs.items():
+        errs[b, "float32"] = max(errs[b, "float32"], e)
     if parent is not None:
         phase_walls(argv[argv.index("--parent") + 1])
     if "--profile" in argv:

@@ -8,7 +8,9 @@ a path, glob, directory, shard list, ``ChunkSource`` or an array over 1 GiB
 (``repro_torch.streaming`` has its entry points); the online service
 (``BWKMSession``, ``BWKM.partial_fit``); and the paper's baselines and
 trade-off metrics (``repro_torch.core.baselines``,
-``repro_torch.core.metrics``). It runs on CUDA unless the caller passes
+``repro_torch.core.metrics``); and ``repro_torch.vq``, KV-cache
+quantization and MoE router seeding over the models of
+``repro_torch.models`` (dense, moe and audio families). It runs on CUDA unless the caller passes
 ``device="cpu"``, where every kernel seam takes its plain PyTorch version.
 The engine and init registries are open: ``register_engine`` and
 ``register_init`` plug new strategies into the same ``BWKM``.
@@ -32,6 +34,7 @@ from repro_torch.core.bwkm import BWKMConfig
 from repro_torch.data.chunks import ChunkSource, as_chunk_source
 from repro_torch.data.resilient import ResilientChunkSource, RetryPolicy
 from repro_torch.health import RunHealth
+from repro_torch import vq
 
 __version__ = "0.2.0"
 
@@ -54,5 +57,6 @@ __all__ = [
     "register_engine",
     "register_init",
     "select_engine",
+    "vq",
     "__version__",
 ]

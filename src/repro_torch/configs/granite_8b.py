@@ -1,0 +1,16 @@
+"""Granite-8B-Code [arXiv:2405.04324]: llama-arch dense, GQA kv=8."""
+
+from repro_torch.configs import ArchConfig
+
+ARCH = ArchConfig(
+    name="granite-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab=49152,
+    head_dim=128,
+    rope_theta=1e7,
+)

@@ -1,4 +1,5 @@
-"""Synthetic datasets, out-of-core chunk sources and their fault-tolerant wrapper."""
+"""Synthetic datasets, out-of-core chunk sources and their fault-tolerant
+wrapper, and the token stream of the models."""
 
 from repro_torch.data.chunks import (
     ArrayChunkSource,
@@ -13,6 +14,7 @@ from repro_torch.data.chunks import (
 )
 from repro_torch.data.resilient import ChunkLostError, ResilientChunkSource, RetryPolicy
 from repro_torch.data.synthetic import PAPER_DATASETS, gmm_dataset, paper_dataset
+from repro_torch.data.tokens import TokenStream
 
 __all__ = [
     "PAPER_DATASETS",
@@ -26,6 +28,7 @@ __all__ = [
     "ResilientChunkSource",
     "RetryPolicy",
     "ShardedFileSource",
+    "TokenStream",
     "as_chunk_source",
     "padded_device_chunks",
     "reservoir_sample",

@@ -27,9 +27,11 @@ Each collective issued here is counted by kind in
 ``repro_torch.roofline.analysis.collective_bytes`` reads in the shape of the
 reference's ``parse_collective_bytes``.
 
-The reference's model-placement helpers (``shard``, ``named_sharding``,
-``logical_to_spec``, ``shard_map``) serve its models and come with them
-(ROADMAP A15). The port splits rows only: there is no ``"model"`` axis.
+The port splits rows only: there is no ``"model"`` axis. So
+:func:`shard`, the models' layout constraint, returns its input (the
+reference's is a no-op without a model mesh too), and the reference's
+helpers that serve the model axis (``named_sharding``, ``logical_to_spec``,
+``shard_map``) are left out by design.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from typing import Any
 
 import torch
 
-__all__ = ["axis_size", "batch_axes", "current_mesh", "use_mesh"]
+__all__ = ["axis_size", "batch_axes", "current_mesh", "shard", "use_mesh"]
 
 #: the one mesh dimension of the port
 DATA = "data"
@@ -85,6 +87,15 @@ def batch_axes() -> tuple[str, ...]:
     """The data-parallel mesh dimensions present on the current mesh."""
     mesh = current_mesh()
     return () if mesh is None else (DATA,)
+
+
+def shard(x: torch.Tensor, *logical) -> torch.Tensor:
+    """``x`` itself: a logical layout constraint (one entry per dimension:
+    a logical axis name, a tuple of them, or ``None``), which the port,
+    with no model axis, leaves to the caller's placement."""
+    if len(logical) != x.ndim:
+        raise ValueError(f"{len(logical)} logical axes for a tensor of {x.ndim} dimensions")
+    return x
 
 
 def _mesh_rank() -> int:

@@ -1,19 +1,27 @@
-"""Batched serving drivers.
+"""Batched serving drivers. Counterpart of ``repro.launch.serve``.
 
-Counterpart of ``repro.launch.serve``. One task is ported: ``clusters``, the
-long-lived clustering service. It opens or resumes a
-:class:`~repro_torch.service.BWKMSession` from ``--checkpoint-dir``, consumes
-a synthetic drifting stream, then serves a burst of concurrent predict
-requests through the request-coalescing
-:class:`~repro_torch.service.BatchedPredictor`, on CUDA unless ``--device
-cpu``::
+Two tasks share the entry point (``--task``):
+
+* ``lm`` (default): prefill a batch of prompts, then decode greedily with
+  the ring-buffer KV cache, from random weights made from ``--seed``; with
+  ``--kv-quantize``, also fit a BWKM KV codebook and serve from codes,
+  reporting perplexity, cache bytes and tokens/s beside the raw cache. The
+  flags are the reference's: ``--reduced`` is always on, so the CLI runs
+  the reduced config; it runs on CUDA (``lm_main(device=...)`` takes
+  another device)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
+        --batch 4 --prompt-len 32 --gen 32 --kv-quantize
+
+* ``clusters``: the long-lived clustering service. It opens or resumes a
+  :class:`~repro_torch.service.BWKMSession` from ``--checkpoint-dir``,
+  consumes a synthetic drifting stream, then serves a burst of concurrent
+  predict requests through the request-coalescing
+  :class:`~repro_torch.service.BatchedPredictor`, on CUDA unless
+  ``--device cpu``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --task clusters \\
         --checkpoint-dir /tmp/bwkm_svc --k 8 --stream-chunks 16
-
-The reference's default task, ``lm`` (prefill and decode a transformer),
-needs the models, which come with ROADMAP A15; asking for it raises
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -23,8 +31,32 @@ import threading
 import time
 
 import numpy as np
+import torch
 
-__all__ = ["cluster_main", "drifting_stream", "main"]
+__all__ = ["cluster_main", "drifting_stream", "generate", "lm_main", "main"]
+
+
+def generate(cfg, params, prompts, gen_len: int, *, greedy: bool = True, key=None):
+    """prompts [B, P] int32 → generated [B, gen_len] int32 (teacher-free),
+    on the parameters' device. Sampling (``greedy=False``) draws from
+    ``key`` by Gumbel-max."""
+    from repro_torch import random as rnd
+    from repro_torch.models import transformer
+
+    with torch.inference_mode():
+        prompts = torch.as_tensor(prompts, dtype=torch.int32, device=params["embed"].device)
+        b, p = prompts.shape
+        last_logits, cache = transformer.prefill(cfg, params, prompts, max_seq_len=p + gen_len)
+        token = torch.argmax(last_logits, dim=-1).to(torch.int32)
+        out = [token]
+        for i in range(gen_len - 1):
+            logits = transformer._decode(cfg, params, cache, token, p + i)
+            if not greedy:
+                key, sub = rnd.split(key)
+                logits = logits + rnd.gumbel(sub, logits.shape, device=logits.device)
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(token)
+        return torch.stack(out, dim=1)
 
 
 def drifting_stream(seed: int, n_chunks: int, rows: int, d: int, k: int) -> np.ndarray:
@@ -129,16 +161,133 @@ def cluster_main(argv=None) -> dict:
     }
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, device: str | torch.device = "cuda") -> dict:
+    """``--task clusters`` takes its device from ``--device``; ``--task lm``
+    from ``device``."""
     ap = argparse.ArgumentParser(add_help=False)
     ap.add_argument("--task", choices=("lm", "clusters"), default="lm")
     args, rest = ap.parse_known_args(argv)
     if args.task == "clusters":
         return cluster_main(rest)
-    raise NotImplementedError(
-        "serve --task lm needs the models and configs, which the port has not yet "
-        "(ROADMAP A15); --task clusters is ported"
+    return lm_main(rest, device=device)
+
+
+def lm_main(argv=None, *, device: str | torch.device = "cuda") -> dict:
+    """The ``--task lm`` driver, on ``device``; importable for tests."""
+    from repro_torch import configs
+    from repro_torch import random as rnd
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=configs.ARCHS, default="granite-8b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kv-quantize", action="store_true",
+                    help="fit a BWKM KV codebook and serve from codes, "
+                    "reporting perplexity/cache-bytes/tok-s deltas vs fp16")
+    ap.add_argument("--codebook-k", type=int, default=8)
+    ap.add_argument("--fit-prompts", type=int, default=8,
+                    help="prompts in the codebook fitting dump")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(device)
+    cfg = configs.get_config(args.arch)
+    if args.reduced:
+        cfg = configs.reduced_config(cfg)
+    params = transformer.init_params(cfg, rnd.key(args.seed), device=device)
+    prompts = rnd.randint(rnd.key(args.seed + 1), (args.batch, args.prompt_len), 0, cfg.vocab,
+                          device=device).to(torch.int32)
+    t0 = time.time()
+    tokens = generate(cfg, params, prompts, args.gen)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    tps = args.batch * args.gen / dt
+    print(f"[serve] {args.arch} generated [{args.batch}, {args.gen}] tokens "
+          f"in {dt:.1f}s ({tps:.1f} tok/s on {device})")
+    print("[serve] sample:", tokens[0, :16].tolist())
+    result = {"tokens": tokens, "tok_per_s": tps}
+    if args.kv_quantize:
+        result.update(_kv_quantize_report(cfg, params, prompts, tokens, args))
+    return result
+
+
+def _kv_quantize_report(cfg, params, prompts, baseline_tokens, args) -> dict:
+    """Fit a BWKM KV codebook, serve from codes, and report deltas vs fp16.
+
+    Perplexity is teacher-forced on the fp16 baseline's own continuation: the
+    fp16 model is near its own argmax there, so NLL degradation isolates
+    quantization damage instead of drowning it in model entropy. A
+    random-rows codebook at equal k is the control.
+    """
+    from repro_torch import random as rnd
+    from repro_torch import vq
+    from repro_torch.models import transformer
+
+    device = params["embed"].device
+    k = args.codebook_k
+    fit_prompts = rnd.randint(rnd.key(args.seed + 2), (args.fit_prompts, args.prompt_len), 0,
+                              cfg.vocab, device=device).to(torch.int32).cpu().numpy()
+    t0 = time.time()
+    codebook = vq.fit_kv_codebook(
+        cfg, params, fit_prompts, k=k, chunk_size=512,
+        prompt_batch=min(8, args.fit_prompts), seed=args.seed,
     )
+    fit_dt = time.time() - t0
+    rand = vq.random_kv_codebook(cfg, params, fit_prompts, k=k, seed=args.seed + 7,
+                                 chunk_size=512)
+
+    eval_toks = torch.cat([prompts, baseline_tokens], dim=1)
+    p = prompts.shape[1]
+    nll_fp16 = vq.teacher_forced_nll(cfg, params, eval_toks, prompt_len=p)
+    nll_bwkm = vq.teacher_forced_nll(cfg, params, eval_toks, prompt_len=p, codebook=codebook)
+    nll_rand = vq.teacher_forced_nll(cfg, params, eval_toks, prompt_len=p, codebook=rand)
+
+    with torch.inference_mode():
+        _, cache = transformer.prefill(cfg, params, prompts, max_seq_len=p + args.gen)
+        raw_bytes = vq.kv_cache_nbytes(cache)
+        qcache = vq.quantize_cache(codebook, cache)
+        vq_bytes = vq.kv_cache_nbytes(qcache)
+        del cache, qcache
+
+    t0 = time.time()
+    qtokens = vq.generate_quantized(cfg, params, codebook, prompts, args.gen)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    q_dt = time.time() - t0
+    q_tps = args.batch * args.gen / q_dt
+
+    report = {
+        "codebook_k": k,
+        "fit_s": fit_dt,
+        "fit_distance_ops": codebook.meta["distances_total"],
+        "ppl_fp16": float(np.exp(nll_fp16)),
+        "ppl_bwkm": float(np.exp(nll_bwkm)),
+        "ppl_random": float(np.exp(nll_rand)),
+        "cache_bytes_fp": int(raw_bytes),
+        "cache_bytes_vq": int(vq_bytes),
+        "codebook_bytes": int(codebook.nbytes),
+        "tok_per_s_vq": q_tps,
+        "tokens_vq": qtokens,
+    }
+    print(
+        f"[serve:vq] k={k} codebook fit in {fit_dt:.1f}s "
+        f"({codebook.meta['distances_total']:.2e} distance ops, streaming)"
+    )
+    print(
+        f"[serve:vq] ppl fp16={report['ppl_fp16']:.3f} "
+        f"bwkm={report['ppl_bwkm']:.3f} random-k={report['ppl_random']:.3f}"
+    )
+    print(
+        f"[serve:vq] cache {raw_bytes} B -> {vq_bytes} B "
+        f"({raw_bytes / max(vq_bytes, 1):.1f}x smaller, "
+        f"+{report['codebook_bytes']} B codebook), {q_tps:.1f} tok/s quantized"
+    )
+    return report
 
 
 if __name__ == "__main__":

@@ -1,0 +1,198 @@
+"""Shared transformer layers: RMSNorm, RoPE, GQA attention (block-causal
+chunked, masked-full, decode), SwiGLU MLP. Counterpart of
+``repro.models.layers``, forward only.
+
+Plain PyTorch in the reference's operation order: products that the
+reference accumulates in f32 (``preferred_element_type``) take f32-cast
+operands here, softmax runs in f32 over logits masked to ``_NEG``, and the
+rope tables are f32. ``block_causal`` runs the reference's chunked online
+softmax as Python loops over the visible chunk pairs; ``masked_full``
+(also taken when ``s <= chunk``) computes every pair and masks.
+``cross_attention`` (the vlm family) and the flash backward (training) come
+with their slices (ROADMAP A15).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import shard
+
+__all__ = [
+    "rmsnorm",
+    "rope",
+    "swiglu",
+    "attention",
+    "decode_attention",
+]
+
+_NEG = -1e30
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the promoted dtype of the two, as ``jnp.matmul`` is."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * w.float()).to(dtype)
+
+
+def rope_tables(positions: torch.Tensor, hd: int, theta: float):
+    """(cos, sin) ``[..., S, hd/2]`` in f32, computed once per step and
+    shared by every layer."""
+    half = hd // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device), exps)
+    angles = positions[..., None].float() * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def rope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    theta: float,
+    tables: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Rotary embedding. ``x [..., S, H, hd]``, ``positions [S] or [B, S]``."""
+    hd = x.shape[-1]
+    half = hd // 2
+    cos, sin = tables if tables is not None else rope_tables(positions, hd, theta)
+    cos = cos[..., None, :]  # [..., S, 1, half]
+    sin = sin[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP."""
+    h = F.silu(matmul(x, w1)) * matmul(x, w3)
+    h = shard(h, "batch", *(None,) * (h.ndim - 2), "tensor")
+    return matmul(h, w2)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """q [B, c, KV, G, hd] × k [B, s, KV, hd] → f32 [B, KV, G, c, s]."""
+    return torch.einsum("bckgh,bskh->bkgcs", (q * scale).float(), k.float())
+
+
+def _weighted_v(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p [B, KV, G, c, s] × v [B, s, KV, hd] → [B, c, KV, G, hd] in p's dtype."""
+    return torch.einsum("bkgcs,bskh->bckgh", p, v.to(p.dtype))
+
+
+def _chunk_mask(i, j, chunk, window, device):
+    qpos = i * chunk + torch.arange(chunk, device=device)
+    kpos = j * chunk + torch.arange(chunk, device=device)
+    mask = kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    return mask
+
+
+def _visible(i, j, window, chunk):
+    """Whether kv chunk j is (partially) visible from q chunk i."""
+    if j > i:
+        return False
+    return window is None or (i - j - 1) * chunk < window
+
+
+def _flash_fwd(q, k, v, window, chunk):
+    """Block-causal online-softmax forward over q [B, S, KV, G, hd];
+    returns f32 [B, S, KV, G, hd]."""
+    b, s, kv, g, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    outs = []
+    for i in range(s // chunk):
+        qi = q[:, i * chunk:(i + 1) * chunk]
+        m = torch.full((b, kv, g, chunk, 1), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kv, g, chunk, 1), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, chunk, kv, g, hd), dtype=torch.float32, device=q.device)
+        for j in range(i + 1):
+            if not _visible(i, j, window, chunk):
+                continue
+            kj = k[:, j * chunk:(j + 1) * chunk]
+            vj = v[:, j * chunk:(j + 1) * chunk]
+            logits = _scores(qi, kj, scale)  # [B, KV, G, c, c]
+            mask = _chunk_mask(i, j, chunk, window, q.device)
+            logits = torch.where(mask[None, None, None], logits, _NEG)
+            m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(logits - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha.permute(0, 3, 1, 2, 4) + _weighted_v(p, vj)
+            m = m_new
+        outs.append(acc / l.permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int | None = None,
+    impl: str = "block_causal",
+    chunk: int = 2048,
+) -> torch.Tensor:
+    """Causal (optionally sliding-window) GQA attention.
+
+    q [B, S, H, hd]; k, v [B, S, KV, hd]. Returns [B, S, H, hd]."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, s, kv, g, hd)
+
+    if impl == "masked_full" or s <= chunk:
+        pos = torch.arange(s, device=q.device)
+        mask = pos[None, :] <= pos[:, None]
+        if window is not None:
+            mask &= pos[:, None] - pos[None, :] < window
+        logits = _scores(qg, k, scale)  # [B, KV, G, S, S]
+        logits = torch.where(mask[None, None, None], logits, _NEG)
+        p = torch.softmax(logits, dim=-1)
+        return _weighted_v(p, v).reshape(b, s, h, hd).to(q.dtype)
+
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of the attention chunk {chunk}")
+    out = _flash_fwd(qg, k, v, window, chunk)
+    return out.to(q.dtype).reshape(b, s, h, hd)
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    slot_pos: torch.Tensor,
+    pos,
+    *,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Single-token attention against a (possibly ring-buffered) KV cache.
+
+    q [B, H, hd]; caches [B, Sc, KV, hd]; slot_pos [B, Sc] the token
+    position stored in each slot (-1 = empty); ``pos`` an int or a 0-d
+    tensor. A slot is attendable iff its position is in (pos − window, pos].
+    """
+    b, h, hd = q.shape
+    kv = k_cache.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, 1, kv, g, hd)
+    logits = _scores(qg, k_cache, scale)[:, :, :, 0]  # [B, KV, G, Sc]
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        valid &= slot_pos > pos - window
+    logits = torch.where(valid[:, None, None, :], logits, _NEG)
+    p = torch.softmax(logits, dim=-1)  # [B, KV, G, Sc]
+    out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(p.dtype))
+    return out.reshape(b, h, hd).to(q.dtype)

@@ -4,7 +4,8 @@ The port calls :func:`split` and :func:`fold_in` exactly where the reference
 calls ``jax.random.split`` and ``jax.random.fold_in``, and draws through
 :func:`randint`, :func:`categorical`, :func:`uniform`, :func:`gumbel` and
 :func:`choice` where the reference draws through their ``jax.random``
-namesakes (:func:`choice` without replacement). Each function delegates to
+namesakes (:func:`choice` without replacement); :func:`normal` draws the
+models' random initial weights. Each function delegates to
 its key, so any object with the methods of :class:`Key` can stand in for
 the production :class:`TorchKey` (the tests use one that calls
 ``jax.random`` to follow the reference's draws).
@@ -29,7 +30,7 @@ from repro_torch.scan import prefix_sum
 
 __all__ = [
     "Key", "TorchKey", "categorical", "choice", "fold_in", "gumbel", "key", "key_from_words",
-    "key_to_words", "randint", "split", "uniform",
+    "key_to_words", "normal", "randint", "split", "uniform",
 ]
 
 _MASK64 = (1 << 64) - 1
@@ -51,6 +52,8 @@ class Key(Protocol):
     def gumbel(self, shape, device) -> torch.Tensor: ...
 
     def choice(self, n: int, shape, device) -> torch.Tensor: ...
+
+    def normal(self, shape, device, std: float = 1.0) -> torch.Tensor: ...
 
 
 def _splitmix64(z: int) -> int:
@@ -124,6 +127,11 @@ class TorchKey:
         u = self.uniform(shape, device).clamp(min=tiny, max=1.0 - 2.0**-24)
         return -torch.log(-torch.log(u))
 
+    def normal(self, shape, device, std=1.0) -> torch.Tensor:
+        """f32 draws from N(0, std²), made in place where they live."""
+        out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+        return out.normal_(0.0, float(std), generator=self._gen(device))
+
     def choice(self, n, shape, device) -> torch.Tensor:
         """``prod(shape)`` distinct indices of ``range(n)``, uniformly."""
         k = int(torch.Size(shape).numel())
@@ -171,6 +179,10 @@ def uniform(key: Key, shape, *, device) -> torch.Tensor:
 
 def gumbel(key: Key, shape, *, device) -> torch.Tensor:
     return key.gumbel(shape, device)
+
+
+def normal(key: Key, shape, *, device, std: float = 1.0) -> torch.Tensor:
+    return key.normal(shape, device, std)
 
 
 def choice(key: Key, n: int, shape, *, device) -> torch.Tensor:

@@ -27,15 +27,17 @@ SRC = ROOT / "src" / "repro_torch"
 
 #: modules of the port that have no counterpart in the reference
 PORT_ONLY = {"convert", "device", "random", "scan", "kernels._build"}
-#: names whose ROADMAP A item is still open; ``distributed.sharding``'s
-#: model-placement helpers and ``launch.mesh``'s production mesh come with
-#: the models (queue A item 15)
-NOT_YET = {"vq", "TokenStream", "shard", "named_sharding", "logical_to_spec", "shard_map",
-           "make_production_mesh"}
+#: names whose ROADMAP A item is still open: ``launch.mesh``'s production
+#: (data × model) mesh and the dry-run's shape stand-ins ``input_specs`` and
+#: ``cache_specs`` come with the dry-run (A16), ``cross_attention`` with the
+#: vlm family (A15)
+NOT_YET = {"make_production_mesh", "input_specs", "cache_specs", "cross_attention"}
 #: names dropped by design: the port selects no impl and has no prune knob
-#: (``*_pallas`` entry points are matched by suffix)
+#: (``*_pallas`` entry points are matched by suffix); its mesh has no model
+#: axis, so the helpers that place tensors on one are left out
 BY_DESIGN = {"backend", "pallas_available", "resolve_impl", "set_default_impl",
-             "resolve_prune", "set_default_prune"}
+             "resolve_prune", "set_default_prune",
+             "named_sharding", "logical_to_spec", "shard_map"}
 
 
 def _port_modules():

@@ -794,3 +794,86 @@ def test_autotune_on_the_card_keeps_the_fit_bit_equal(cuda, tmp_path, monkeypatc
         assert torch.equal(tuned, plain)
     finally:
         autotune.clear_memo()
+
+
+# ------------------------------------------------------- models and vq (A15)
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _reduced(arch):
+    from repro_torch import configs
+    from repro_torch import random as rnd
+    from repro_torch.models import transformer
+
+    cfg = configs.reduced_config(configs.get_config(arch))
+    params = transformer.init_params(cfg, rnd.key(0), device="cpu")
+    return cfg, params, _tree_to(params, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "mixtral-8x22b"])
+def test_reduced_prefill_and_decode_on_the_card_follow_the_cpu(cuda, arch):
+    from repro_torch.models import transformer as tf
+
+    cfg, cpu, gpu = _reduced(arch)
+    toks = torch.from_numpy(np.random.RandomState(0).randint(0, cfg.vocab, (2, 64)).astype(np.int32))
+    outs = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        last, cache = tf.prefill(cfg, params, toks.to(dev), max_seq_len=67)
+        steps = [last]
+        tok = torch.zeros(2, dtype=torch.int32, device=dev)
+        for i in range(3):
+            logits, cache = tf.decode(cfg, params, cache, tok, 64 + i)
+            steps.append(logits)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        outs[dev] = [s.cpu() for s in steps]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_quantize_rows_on_the_card_gives_the_cpus_codes(cuda):
+    from repro_torch import vq
+
+    rng = np.random.RandomState(1)
+    rows = rng.randn(5000, 128).astype(np.float32)  # two 4,096-row launches, the last ragged
+    for k in (256, 300):
+        c = rng.randn(k, 128).astype(np.float32)
+        gpu = vq.quantize_rows(torch.from_numpy(rows).cuda(), c)
+        cpu = vq.quantize_rows(rows, c, device="cpu")
+        assert gpu.dtype == cpu.dtype == vq.code_dtype_for(k)
+        assert torch.equal(gpu.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_moe_combine_on_the_card_is_bit_equal_run_to_run(cuda):
+    from repro_torch.models import moe
+
+    cfg, _, gpu = _reduced("deepseek-moe-16b")
+    blk = {k: v[0] for k, v in gpu["layers"]["moe"].items() if k != "shared"}
+    blk["shared"] = {k: v[0] for k, v in gpu["layers"]["moe"]["shared"].items()}
+    x = torch.randn(4, 128, cfg.d_model, generator=torch.Generator().manual_seed(2)).cuda()
+    a, aux_a = moe.moe_ffn(cfg, blk, x)
+    b, aux_b = moe.moe_ffn(cfg, blk, x)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+
+
+@pytest.mark.cuda
+def test_decode_quantized_on_the_card_is_bit_equal_run_to_run(cuda):
+    from repro_torch import vq
+    from repro_torch.models import transformer as tf
+
+    cfg, _, gpu = _reduced("granite-8b")
+    rng = np.random.RandomState(3)
+    prompts = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 16)).astype(np.int32)).cuda()
+    cb = vq.KVCodebook(rng.randn(cfg.n_layers, 64, cfg.hd), rng.randn(cfg.n_layers, 64, cfg.hd))
+    _, cache = tf.prefill(cfg, gpu, prompts, max_seq_len=24)
+    qcache = vq.quantize_cache(cb, cache)
+    kcb, vcb = (torch.from_numpy(c).cuda() for c in (cb.k_centroids, cb.v_centroids))
+    tok = torch.zeros(2, dtype=torch.int32, device="cuda")
+    runs = [vq.decode_quantized(cfg, gpu, kcb, vcb, qcache, tok, 16) for _ in range(2)]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for key in ("k_codes", "v_codes", "slot_pos"):
+        assert torch.equal(runs[0][1][key], runs[1][1][key])

@@ -3,11 +3,16 @@
 ``repro_torch.launch.cluster.main`` and ``repro_torch.launch.serve``'s
 ``cluster_main`` run with ``--device cpu`` at a small size next to
 ``repro.launch.cluster.main`` and ``repro.launch.serve.cluster_main`` on the
-same arguments. ``JaxKey`` (``test_torch_bwkm``) stands in for the port's
+same arguments; ``serve --task lm --kv-quantize`` runs on the CPU and
+reports the reference's keys. ``JaxKey`` (``test_torch_bwkm``) stands in for the port's
 keys so both draw the same numbers: the same stop reason, iterations and
 blocks, errors and distances within ``tests/test_golden.py``'s tolerances
 (error rtol 1e-3, distances rtol 0.05).
 """
+
+import ast
+import inspect
+import textwrap
 
 import jax
 import numpy as np
@@ -71,8 +76,36 @@ def test_serve_resumes_from_its_checkpoints_and_lm_waits_for_the_models(tmp_path
     again = serve.main(args)  # the stream is consumed: a resume is a no-op
     assert again["metrics"] == []
     assert torch.equal(again["session"].centroids, first["session"].centroids)
-    with pytest.raises(NotImplementedError, match="A15"):
-        serve.main(["--task", "lm"])
+    # the models came with ROADMAP A15: --task lm runs, and needs the card
+    # unless the caller passes the CPU
+    out = serve.main(["--task", "lm", "--batch", "2", "--prompt-len", "8", "--gen", "3"],
+                     device="cpu")
+    assert out["tokens"].shape == (2, 3) and out["tokens"].dtype == torch.int32
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve.main(["--task", "lm"])
+
+
+def _reference_report_keys() -> set[str]:
+    """The keys of the ``report`` dict literal of the reference's
+    ``_kv_quantize_report`` (read from its source, not run), and of the
+    result it updates."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(jserve._kv_quantize_report)))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Assign) and getattr(node.targets[0], "id", None) == "report":
+            return {k.value for k in node.value.keys} | {"tokens", "tok_per_s"}
+    raise AssertionError("no report literal in the reference")
+
+
+def test_serve_lm_kv_quantize_reports_the_references_keys(capsys):
+    out = serve.main(["--task", "lm", "--kv-quantize", "--batch", "2", "--prompt-len", "16",
+                      "--gen", "6", "--fit-prompts", "4"], device="cpu")
+    assert set(out) == _reference_report_keys()
+    printed = capsys.readouterr().out
+    assert printed.count("[serve:vq]") == 3 and "codebook fit in" in printed
+    assert out["codebook_k"] == 8 and out["tokens_vq"].shape == (2, 6)
+    assert out["cache_bytes_fp"] == 64 * out["cache_bytes_vq"]  # f32 hd = 16 → one uint8
+    assert np.isfinite([out["ppl_fp16"], out["ppl_bwkm"], out["ppl_random"]]).all()
 
 
 def test_smoke_mesh_is_one_rank_and_torn_down():
