@@ -201,6 +201,29 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    forward, the expert-load CV beside a random router's). 11c runs
    ``python -m repro_torch.launch.serve --task lm --kv-quantize``.
 
+12. (after phase 11) the recurrent and vision families
+   (``repro_torch.models``' ssm, hybrid and vlm) at their published widths
+   from random weights made from a seed, 8 ``TokenStream`` prompts × 512
+   tokens: 12a mamba2-130m and 12b zamba2-1.2b at full depth, each
+   ``generate`` with 32 greedy steps (prefill s, ms a step, tok/s, peak
+   memory), a teacher-forced check (``prefill`` of 256 tokens, then 4
+   ``decode`` steps, against ``forward``'s logits at those positions) and
+   bf16 against f32 on the same weights; 12a also holds one layer's chunked
+   SSD over 512 tokens against 512 recurrent steps in f32 with stressed
+   weights (rtol/atol 2e-3), where the carried state zeroed between chunks
+   must fail; 12b checks the cache shapes, its 2-layer Mamba tail included.
+   12c llama-3.2-vision-90b at full width, depth cut from 100 to 10 layers
+   (the f32 tree of 100 layers is about 350 GB): seeded gates and bf16
+   image embeddings [8, 1,601, 8,192], ``prefill`` and 32 ``decode``
+   steps, the teacher-forced check in bf16 and in f32, the f32 logits moved
+   by other image embeddings, and the prefill cache quantised with a
+   codebook of 256 of its own rows per self layer and kind: B1 launched,
+   held against its plain version at every shape, the image K/V passed
+   through bit-equal, one ``decode`` step over the dequantised cache. 12d
+   runs ``python -m repro_torch.launch.serve --task lm --arch mamba2-130m``
+   and ``--arch zamba2-1.2b`` (exit 0) and ``--arch mamba2-130m
+   --kv-quantize`` (the reference's ``ValueError``), the three at once.
+
 The whole run keeps its autotune cache in a fresh temporary file
 (``REPRO_AUTOTUNE_CACHE``), so every key is tuned on this card in this run.
 Then the card's name and power limit, one JSON line of kernel records, and
@@ -2967,9 +2990,9 @@ def _vq_times(torch, ref, da, tally):
               f"{plain_ms:.4f} ms")
 
 
-def _vq_checks(torch, ref, da, cu, msu, counts, d):
-    """B1, B4 and B5 at every ``(kernel, rows, K)`` shape in ``counts`` (the
-    shapes phase 11a gave them), at ``d`` features in f32, against their
+def _vq_checks(torch, ref, da, cu, msu, counts, d, kernels=("B1", "B4", "B5"), phase="11a"):
+    """``kernels`` (of B1, B4 and B5) at every ``(kernel, rows, K)`` shape in
+    ``counts`` (the shapes ``phase`` gave them), at ``d`` features in f32, against their
     plain versions within the f32 tolerance: B1's labels at the minimum
     distance and its d1/d2, with all candidates real and again with about
     half parked as k-means|| parks its weighting pass's unfilled slots;
@@ -2979,7 +3002,7 @@ def _vq_checks(torch, ref, da, cu, msu, counts, d):
     from repro_torch.core import kmeans_ll
 
     tol = TOL["float32"]
-    errs = dict.fromkeys(("B1", "B4", "B5"), 0.0)
+    errs = dict.fromkeys(kernels, 0.0)
     cases = 0
     for i, (b, n, k) in enumerate(sorted(key for key in counts if key[0] in errs)):
         tag = f"{b} vq x[{n},{d}] K={k}"
@@ -3016,7 +3039,7 @@ def _vq_checks(torch, ref, da, cu, msu, counts, d):
                 check(bool((new <= mind2).all()), f"{what}: the fold raised a min-d²")
                 cases += 1
     check(all(any(key[0] == b for key in counts) for b in errs),
-          f"phase 11a gave no shape of one of {sorted(errs)}: {sorted(counts)}")
+          f"phase {phase} gave no shape of one of {sorted(errs)}: {sorted(counts)}")
     torch.cuda.synchronize()
     return errs, cases
 
@@ -3256,6 +3279,359 @@ def phase_vq(torch, rnd, ref, da, fau, cu, msu, counters, smi):
     return launches, errs
 
 
+# ---------------------------------------------------------------- phase 12
+FAM_BATCH, FAM_PROMPT, FAM_STEPS = 8, 512, 32  # prompts, tokens each, greedy decode steps
+TF_AT, TF_STEPS = 256, 4  # teacher-forced: prefill 256 tokens, then decode 4
+TF_SHARE_BF16 = 3e-2  # of max |logit|: prefill + decode against forward, bf16
+TF_SHARE_F32 = 1e-4  # the same in f32 (the vlm); other image embeddings must move 100× this
+BF16_VS_F32_SHARE = 5e-2  # of max |logit|: forward in bf16 against f32 on the same weights
+SSD_TOL = dict(rtol=2e-3, atol=2e-3)  # chunked against sequential (tests/test_layers.py)
+MAMBA_FULL = dict(n_layers=24, d_model=768, ssm_state=128, ssm_headdim=64, ssm_chunk=256,
+                  vocab=50280)
+ZAMBA_FULL = dict(n_layers=38, d_model=2048, shared_attn_every=6, n_heads=32, n_kv_heads=32,
+                  hd=64, d_ff=8192, ssm_state=64, vocab=32000)
+VLM_FULL = dict(d_model=8192, n_heads=64, n_kv_heads=8, hd=128, d_ff=28672, vocab=128256,
+                n_image_tokens=1601, cross_attn_every=5)
+VLM_LAYERS = 10  # cut from 100: two groups of four self-attention layers and a cross layer
+
+
+def _published(cfg, want, name):
+    got = {f: getattr(cfg, f) for f in want}
+    check(got == want, f"{name} is not at its published widths: {got}")
+
+
+def _share(torch, got, want, vocab):
+    """max |got − want| over the real vocabulary, as a share of max |want|."""
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _within(torch, a, b, rtol, atol):
+    return bool(((a - b).abs() <= atol + rtol * b.abs()).all())
+
+
+def _generate(torch, serve, tf, cfg, params, prompts, what, smi):
+    """``serve.generate`` with ``FAM_STEPS`` greedy steps, then ``prefill``
+    alone: wall, prefill s, ms a step, tok/s and peak memory."""
+    serve.generate(cfg, params, prompts[:, :cfg.ssm_chunk or 16], 2)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = serve.generate(cfg, params, prompts, FAM_STEPS + 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    last, cache = tf.prefill(cfg, params, prompts, max_seq_len=FAM_PROMPT + FAM_STEPS)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    check(torch.equal(torch.argmax(last, -1).to(torch.int32), gen[:, 0]),
+          f"{what}: prefill's token differs from generate's first")
+    check(int(gen.min()) >= 0 and int(gen.max()) < cfg.vocab, f"{what}: tokens out of range")
+    print(f"[family] {what} generate: prefill [{FAM_BATCH}, {FAM_PROMPT}] then {FAM_STEPS} greedy "
+          f"decode steps in {wall:.3f} s ({FAM_BATCH * (FAM_STEPS + 1) / wall:.1f} tok/s; prefill "
+          f"alone {t_pre:.3f} s, so {(wall - t_pre) / FAM_STEPS * 1e3:.1f} ms a decode step); peak "
+          f"device memory {peak / 2**30:.2f} GiB ({smi})")
+    return cache
+
+
+def _teacher_forced(torch, tf, cfg, params, prompts, images=None):
+    """``prefill`` of ``TF_AT`` tokens and ``TF_STEPS`` decode steps against
+    ``forward``'s logits at those positions; returns (the share of max
+    |logit| they differ by, forward's logits)."""
+    n = TF_AT + TF_STEPS
+    full, _, _ = tf.forward(cfg, params, prompts[:, :n] if cfg.family == "vlm" else prompts,
+                            images)
+    last, cache = tf.prefill(cfg, params, prompts[:, :TF_AT], images, max_seq_len=n)
+    worst = _share(torch, last, full[:, TF_AT - 1], cfg.vocab)
+    for j in range(TF_STEPS):
+        out, cache = tf.decode(cfg, params, cache, prompts[:, TF_AT + j], TF_AT + j)
+        worst = max(worst, _share(torch, out, full[:, TF_AT + j], cfg.vocab))
+    return worst, full[:, :n]
+
+
+def _stressed_mamba(torch, cfg, blk, seed):
+    """One Mamba block's f32 parameters with no skip term, seeded decay
+    rates and step biases and wide in-projections and convs (the CPU
+    tests' stress: pre-activations near N(0, 2.4²))."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(v, std):
+        return torch.randn(v.shape, generator=g, device="cuda") * std
+
+    def uniform(v, lo, hi):
+        return torch.rand(v.shape, generator=g, device="cuda") * (hi - lo) + lo
+
+    return dict(blk, in_proj=randn(blk["in_proj"], 0.3 * (64 / cfg.d_model) ** 0.5),
+                conv_w=randn(blk["conv_w"], 0.4), conv_b=randn(blk["conv_b"], 0.1),
+                a_log=uniform(blk["a_log"], -3.0, -1.0), dt_bias=uniform(blk["dt_bias"], -3.0, -1.0),
+                d_skip=torch.zeros_like(blk["d_skip"]))
+
+
+def _ssd_chunked_vs_sequential(torch, mamba2, cfg, p):
+    """One layer's ``mamba_forward`` over ``FAM_PROMPT`` tokens against as
+    many ``mamba_decode`` steps, in f32; the same with the carried state
+    zeroed before every chunk (the control). Returns (ok, the control's ok,
+    max |Δ|, the control's max |Δ|)."""
+    cfg = cfg.replace(dtype=torch.float32)
+    dims = mamba2.mamba_dims(cfg)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn(FAM_BATCH, FAM_PROMPT, cfg.d_model, generator=g, device="cuda")
+    conv = torch.zeros(FAM_BATCH, cfg.ssm_conv - 1, dims["conv_dim"], device="cuda")
+    ssm = torch.zeros(FAM_BATCH, dims["nheads"], cfg.ssm_headdim, dims["n"], device="cuda")
+    seq = torch.empty_like(x)
+    for t in range(FAM_PROMPT):
+        seq[:, t], (conv, ssm) = mamba2.mamba_decode(cfg, p, x[:, t], conv, ssm)
+    chunked = mamba2.mamba_forward(cfg, p, x)
+    step = mamba2._chunk_step
+    with _patched(mamba2, "_chunk_step", lambda st, *a: step(torch.zeros_like(st), *a)):
+        control = mamba2.mamba_forward(cfg, p, x)
+    return (_within(torch, chunked, seq, **SSD_TOL), _within(torch, control, seq, **SSD_TOL),
+            float((chunked - seq).abs().max()), float((control - seq).abs().max()))
+
+
+def _recurrent_family(torch, rnd, cfg, seed, prompts, what, smi):
+    """12a/12b: init, generate, the teacher-forced check and bf16 against
+    f32; returns (params, the prefill cache of ``generate``'s shapes)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, rnd.key(seed))
+    torch.cuda.synchronize()
+    n_values = sum(t.numel() for t in _tree_leaves(params))
+    print(f"[family] {what}: {n_values / 1e9:.3f} G values initialised on the card from a seed in "
+          f"{time.perf_counter() - t0:.2f} s")
+    cache = _generate(torch, serve, tf, cfg, params, prompts, what, smi)
+    share, full = _teacher_forced(torch, tf, cfg, params, prompts)
+    check(share <= TF_SHARE_BF16, f"{what} teacher-forced: {share:.3g} of max |logit| > "
+          f"{TF_SHARE_BF16}")
+    f32, _, _ = tf.forward(cfg.replace(dtype=torch.float32), params, prompts[:, :TF_AT])
+    mixed = _share(torch, full[:, :TF_AT], f32, cfg.vocab)
+    check(mixed <= BF16_VS_F32_SHARE, f"{what} bf16 against f32: {mixed:.3g} of max |logit| > "
+          f"{BF16_VS_F32_SHARE}")
+    print(f"[family] {what} teacher-forced (prefill {TF_AT} tokens, then {TF_STEPS} decode steps, "
+          f"against forward at those positions, bf16): {share:.3g} of max |logit| (limit "
+          f"{TF_SHARE_BF16}); forward in bf16 against f32 on the same weights over {TF_AT} "
+          f"positions: {mixed:.3g} of max |logit| (limit {BF16_VS_F32_SHARE})")
+    del full, f32
+    return params, cache
+
+
+def phase_families(torch, rnd, ref, da, fau, cu, msu, counters, smi):
+    """Phase 12: mamba2-130m (12a) and zamba2-1.2b (12b) at full width and
+    depth, llama-3.2-vision-90b at full width and 10 layers with its prefill
+    cache quantised through B1 (12c), and the ``lm`` driver for the
+    recurrent archs (12d). Returns the phase's launches and B1's largest
+    absolute error at the shapes 12c gave it."""
+    import numpy as np
+
+    from repro_torch import configs, vq
+    from repro_torch.data import TokenStream
+    from repro_torch.models import mamba2
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    _zero(counters)
+    with _plain_calls(ref) as plain:
+        # 12a mamba2-130m
+        t0 = time.perf_counter()
+        cfg = configs.get_config("mamba2-130m")
+        _published(cfg, MAMBA_FULL, "mamba2-130m")
+        prompts = TokenStream(cfg.vocab, FAM_PROMPT, FAM_BATCH, seed=2).batch(0)[0]
+        params, _ = _recurrent_family(torch, rnd, cfg, 25, prompts, "12a mamba2-130m", smi)
+        blk = _stressed_mamba(torch, cfg, tf.layer(params["layers"], 0)["mamba"], 13)
+        ok, control_ok, err, control_err = _ssd_chunked_vs_sequential(torch, mamba2, cfg, blk)
+        check(ok, f"12a chunked SSD against {FAM_PROMPT} recurrent steps: max |Δ| {err:.3g}")
+        check(not control_ok, f"12a control: the state zeroed between chunks still passes "
+              f"(max |Δ| {control_err:.3g})")
+        print(f"[family] 12a one layer's chunked SSD ({FAM_PROMPT // cfg.ssm_chunk} chunks of "
+              f"{cfg.ssm_chunk}) against {FAM_PROMPT} mamba_decode steps, f32, stressed weights: "
+              f"max |Δ| {err:.3g}, within rtol/atol 2e-3; the control (state zeroed between "
+              f"chunks) max |Δ| {control_err:.3g}, fails it; 12a {time.perf_counter() - t0:.1f} s")
+        del params, blk
+        # 12b zamba2-1.2b
+        t0 = time.perf_counter()
+        cfg = configs.get_config("zamba2-1.2b")
+        _published(cfg, ZAMBA_FULL, "zamba2-1.2b")
+        prompts = TokenStream(cfg.vocab, FAM_PROMPT, FAM_BATCH, seed=3).batch(0)[0]
+        params, cache = _recurrent_family(torch, rnd, cfg, 26, prompts, "12b zamba2-1.2b", smi)
+        g, per = cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
+        tail = cfg.n_layers - g * per
+        shapes = {k: tuple(v.shape) for k, v in (("shared.k", cache["shared"]["k"]),
+                                                 ("mamba.ssm", cache["mamba"]["ssm"]),
+                                                 ("mamba.conv", cache["mamba"]["conv"]),
+                                                 ("mamba_tail.ssm", cache["mamba_tail"]["ssm"]))}
+        want = {"shared.k": (g, FAM_BATCH, FAM_PROMPT + FAM_STEPS, 32, 64),
+                "mamba.ssm": (g * per, FAM_BATCH, 64, 64, 64),
+                "mamba.conv": (g * per, FAM_BATCH, 3, 2 * 2048 + 2 * 64),
+                "mamba_tail.ssm": (tail, FAM_BATCH, 64, 64, 64)}
+        check(shapes == want and tail == 2 and cache["mamba"]["ssm"].dtype == torch.float32,
+              f"12b cache shapes {shapes}")
+        print(f"[family] 12b cache: {g} groups of {per} Mamba layers and a tail of {tail}; "
+              + ", ".join(f"{k} {list(v)}" for k, v in shapes.items())
+              + f"; 12b {time.perf_counter() - t0:.1f} s")
+        del params, cache
+        torch.cuda.empty_cache()
+        # 12c llama-3.2-vision-90b, depth cut
+        t0 = time.perf_counter()
+        shapes, hd = _vision(torch, rnd, da, fau, cu, msu, configs, vq, tf, smi)
+        print(f"[family] 12c {time.perf_counter() - t0:.1f} s")
+    launches = _read(counters)
+    check(sum(plain.values()) == 0, f"plain distance functions ran on the card: {plain}")
+    check(launches["B1"] > 0, f"phase 12 launched B1 no time: {launches}")
+    print(f"[family] phase 12 launches {launches}; plain distance functions called 0 times")
+    errs, cases = _vq_checks(torch, ref, da, cu, msu, shapes, hd, kernels=("B1",), phase="12c")
+    print(f"[kernels] vlm cache shapes: B1 at each (rows, K) of 12c, d = {hd}, f32, matches its "
+          f"plain version in {cases} cases (tol 1e-5; labels at the minimum, also with half the "
+          f"candidates parked); max abs err B1 {errs['B1']:.3g}")
+    # 12d: the lm driver for the recurrent archs, three processes at once
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = {}
+    for args in (["--arch", "mamba2-130m"], ["--arch", "zamba2-1.2b"],
+                 ["--arch", "mamba2-130m", "--kv-quantize"]):
+        argv = ["-m", "repro_torch.launch.serve", "--task", "lm", *args]
+        runs[" ".join(argv)] = subprocess.Popen([sys.executable, *argv], cwd=ROOT, env=env,
+                                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                text=True)
+    outs = {argv: _finish(p, 300) for argv, p in runs.items()}
+    for argv, (out, err, rc) in outs.items():
+        refused = argv.endswith("--kv-quantize")
+        good = (rc != 0 and "ValueError: family 'ssm' has no per-layer KV cache stack to dump"
+                in err) if refused else (rc == 0 and "[serve]" in out)
+        check(good, f"python {argv}: exit {rc}\n{out[-3000:]}\n{err[-3000:]}")
+        for line in (err.strip().splitlines()[-1:] if refused else out.splitlines()):
+            print(f"[launch] {line}")
+        print(f"[launch] python {argv}: exit {rc}"
+              + (" (the reference's ValueError)" if refused else ""))
+    print(f"[launch] 12d's three processes in {time.perf_counter() - t0:.1f} s, process start "
+          f"included; phase 12 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches, errs
+
+
+def _finish(proc, timeout):
+    """(stdout, stderr, exit code) of ``proc``, killed past ``timeout`` s."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    return out, err, proc.returncode
+
+
+def _vision(torch, rnd, da, fau, cu, msu, configs, vq, tf, smi):
+    """12c: llama-3.2-vision-90b at full width and ``VLM_LAYERS`` layers.
+    Returns B1's launches by ``(kernel, rows, K)`` and the head dim."""
+    from repro_torch.data import TokenStream
+
+    cfg = configs.get_config("llama-3.2-vision-90b")
+    full_layers = cfg.n_layers
+    _published(cfg, VLM_FULL, "llama-3.2-vision-90b")
+    cfg = cfg.replace(n_layers=VLM_LAYERS)
+    kv, hd, g = cfg.n_kv_heads, cfg.hd, VLM_LAYERS // cfg.cross_attn_every
+    n_self = g * (cfg.cross_attn_every - 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, rnd.key(27))
+    gate = torch.Generator(device="cuda").manual_seed(28)
+    for name in ("gate_attn", "gate_mlp"):
+        params["cross_layers"][name] = torch.rand(g, generator=gate, device="cuda") + 0.5
+    prompts = TokenStream(cfg.vocab, FAM_PROMPT, FAM_BATCH, seed=4).batch(0)[0]
+    shape = (FAM_BATCH, cfg.n_image_tokens, cfg.d_model)
+    images = rnd.normal(rnd.key(29), shape, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    n_values = sum(t.numel() for t in _tree_leaves(params))
+    print(f"[family] 12c llama-3.2-vision-90b at full width (d {cfg.d_model}, {cfg.n_heads} heads, "
+          f"kv {kv}, hd {hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.n_image_tokens} image "
+          f"tokens), depth cut from {full_layers} to {VLM_LAYERS} ({g} groups of "
+          f"{cfg.cross_attn_every - 1} self layers and a cross layer; the f32 tree of "
+          f"{full_layers} layers is about 350 GB): {n_values / 1e9:.3f} G values, gates "
+          f"{[round(float(v), 3) for v in params['cross_layers']['gate_attn']]} / "
+          f"{[round(float(v), 3) for v in params['cross_layers']['gate_mlp']]}, initialised in "
+          f"{time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        # prefill and 32 greedy decode steps (the reference serves a vlm
+        # through prefill and decode: its generate takes no images)
+        sc = FAM_PROMPT + FAM_STEPS
+        tf.decode(cfg, params, tf.prefill(cfg, params, prompts[:, :16], images, max_seq_len=17)[1],
+                  prompts[:, 0], 16)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = tf.prefill(cfg, params, prompts, images, max_seq_len=sc)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        first = torch.argmax(last, -1).to(torch.int32)
+        token, state = first, cache
+        for i in range(FAM_STEPS):
+            logits, state = tf.decode(cfg, params, state, token, FAM_PROMPT + i)
+            token = torch.argmax(logits, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(bool(torch.isfinite(logits[:, :cfg.vocab]).all()) and int(token.max()) < cfg.vocab,
+              "12c decode gave non-finite logits or tokens out of range")
+        print(f"[family] 12c prefill [{FAM_BATCH}, {FAM_PROMPT}] with images then {FAM_STEPS} "
+              f"greedy decode steps in {wall:.3f} s ({FAM_BATCH * (FAM_STEPS + 1) / wall:.1f} "
+              f"tok/s; prefill {t_pre:.3f} s, {(wall - t_pre) / FAM_STEPS * 1e3:.1f} ms a decode "
+              f"step); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({smi})")
+        del state, logits
+        # the teacher-forced check in bf16 and f32; other images in f32
+        share, _ = _teacher_forced(torch, tf, cfg, params, prompts, images)
+        check(share <= TF_SHARE_BF16, f"12c teacher-forced bf16: {share:.3g} > {TF_SHARE_BF16}")
+        cfg32 = cfg.replace(dtype=torch.float32)
+        share32, full32 = _teacher_forced(torch, tf, cfg32, params, prompts, images.float())
+        check(share32 <= TF_SHARE_F32, f"12c teacher-forced f32: {share32:.3g} > {TF_SHARE_F32}")
+        other = rnd.normal(rnd.key(30), shape, device="cuda")
+        moved, _, _ = tf.forward(cfg32, params, prompts[:, :TF_AT + TF_STEPS], other)
+        move = _share(torch, moved, full32, cfg.vocab)
+        check(move > 100 * TF_SHARE_F32, f"12c other image embeddings moved the f32 logits by "
+              f"{move:.3g} of max |logit|, not more than 100 × {TF_SHARE_F32}")
+        print(f"[family] 12c teacher-forced (prefill {TF_AT}, then {TF_STEPS} decode steps, "
+              f"against forward): bf16 {share:.3g} of max |logit| (limit {TF_SHARE_BF16}), f32 "
+              f"{share32:.3g} (limit {TF_SHARE_F32}); other image embeddings move the f32 logits "
+              f"by {move:.3g} of max |logit| (must exceed {100 * TF_SHARE_F32:.3g})")
+        del full32, moved, other
+        # the prefill cache through B1: a codebook of 256 of its own rows
+        pick = torch.Generator(device="cuda").manual_seed(31)
+        rows = FAM_BATCH * FAM_PROMPT * kv  # the filled slots' rows of a layer
+        books = {}
+        for kind in ("k", "v"):
+            filled = cache[kind][:, :, :FAM_PROMPT].float().reshape(n_self, rows, hd)
+            idx = torch.randperm(rows, generator=pick, device="cuda")[:VQ_K]
+            books[kind] = filled[:, idx].cpu().numpy()
+        cb = vq.KVCodebook(books["k"], books["v"])
+        tally = _ShapeTally(da, fau, cu, msu)
+        with tally.active():
+            t0 = time.perf_counter()
+            qcache = vq.quantize_cache(cb, cache)
+            torch.cuda.synchronize()
+            t_q = time.perf_counter() - t0
+        check(qcache["k_codes"].shape == (n_self, FAM_BATCH, sc, kv)
+              and qcache["k_codes"].dtype == torch.uint8
+              and all(torch.equal(qcache[k], cache[k]) for k in ("xk", "xv", "slot_pos")),
+              "12c quantize_cache: codes or the image K/V passed through wrong")
+        deq = vq.dequantize_cache(cb, qcache, dtype=cfg.dtype)
+        raw, _ = tf.decode(cfg, params, cache, first, FAM_PROMPT)
+        quant, _ = tf.decode(cfg, params, deq, first, FAM_PROMPT)
+        check(bool(torch.isfinite(quant[:, :cfg.vocab]).all()),
+              "12c decode over the dequantised cache is not finite")
+        agree = float((raw.argmax(-1) == quant.argmax(-1)).float().mean())
+        print(f"[family] 12c quantize_cache over the prefill cache ({n_self} self layers, K and V "
+              f"[{FAM_BATCH}, {sc}, {kv}, {hd}] a layer: {FAM_BATCH * sc * kv:,} rows) against "
+              f"{VQ_K} of its own rows per layer and kind in {t_q:.3f} s, uint8 codes; xk/xv "
+              f"{list(cache['xk'].shape)} bit-equal through it; one decode step over "
+              f"dequantize_cache: finite, max |Δlogit| against the raw cache "
+              f"{float((raw - quant)[:, :cfg.vocab].abs().max()):.3g} (max |logit| "
+              f"{float(raw[:, :cfg.vocab].abs().max()):.3g}), argmax agreement {agree:.3f} (a "
+              f"readout: {VQ_K} codes for {rows:,} rows); B1 by (rows, K): "
+              + ", ".join(f"[{n}, {k}] {c}" for (b, n, k), c in sorted(tally.counts.items())))
+        del cache, qcache, deq, raw, quant, params, images
+        torch.cuda.empty_cache()
+    return tally.counts, hd
+
+
 def _tree_leaves(tree):
     for v in tree.values():
         yield from _tree_leaves(v) if isinstance(v, dict) else (v,)
@@ -3384,6 +3760,13 @@ def _phases(torch, argv, shard_dir: str) -> int:
     for b in launches:
         launches[b] += vq_launches[b]
     for b, e in vq_errs.items():
+        errs[b, "float32"] = max(errs[b, "float32"], e)
+    # phase 12
+    family_launches, family_errs = phase_families(torch, rnd, ref, da, fau, cu, msu, counters,
+                                                  smi)
+    for b in launches:
+        launches[b] += family_launches[b]
+    for b, e in family_errs.items():
         errs[b, "float32"] = max(errs[b, "float32"], e)
     if parent is not None:
         phase_walls(argv[argv.index("--parent") + 1])

@@ -2,7 +2,7 @@
 
 Counterpart of ``repro.launch.mesh``'s ``make_smoke_mesh``. The reference's
 ``make_production_mesh`` (a 16 × 16 data × model mesh of TPU chips) serves
-its models and comes with them (ROADMAP A15).
+its models' sharding and comes with it (ROADMAP A16).
 """
 
 from __future__ import annotations

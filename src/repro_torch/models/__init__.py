@@ -1,3 +1,2 @@
-"""Model zoo: one decoder substrate for the assigned architectures. The port
-runs the dense, moe and audio families; ssm, hybrid and vlm come later
-(ROADMAP A15)."""
+"""Model zoo: one decoder substrate for the assigned architectures (dense,
+moe, audio, ssm, hybrid and vlm families)."""

@@ -1,9 +1,8 @@
-"""Decode-time caches: ring-buffered KV, bounded by the SWA window where the
-arch has one. Counterpart of ``repro.models.cache`` for the dense, moe and
-audio families; the ssm and hybrid states come with ``models/mamba2.py``
-and the vlm's image KV with the vlm slice (ROADMAP A15), and
-``cache_specs`` (the dry-run's zero-allocation stand-ins) with the dry-run
-(ROADMAP A16).
+"""Decode-time caches: ring-buffered KV (bounded by the SWA window where the
+arch has one), constant-size SSM/conv states for Mamba/hybrid, per-invocation
+KV for Zamba2's shared block, cached cross-attention KV for the VLM.
+Counterpart of ``repro.models.cache``; ``cache_specs`` (the dry-run's
+zero-allocation stand-ins) comes with the dry-run (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -14,21 +13,9 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import mamba2
 
 __all__ = ["init_cache", "cache_seq_len"]
-
-#: the families whose cache the port does not hold yet, and where it comes
-_LATER = {
-    "ssm": "the ssm family's state needs models/mamba2.py (ROADMAP A15, mamba2)",
-    "hybrid": "the hybrid family's state needs models/mamba2.py (ROADMAP A15, mamba2)",
-    "vlm": "the vlm family's cross-attention comes with the vlm slice (ROADMAP A15, vlm)",
-}
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run yet."""
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"{cfg.name}: {_LATER[cfg.family]}")
 
 
 def cache_seq_len(cfg: ArchConfig, seq_len: int) -> int:
@@ -36,17 +23,65 @@ def cache_seq_len(cfg: ArchConfig, seq_len: int) -> int:
     return min(seq_len, cfg.window) if cfg.window else seq_len
 
 
+def _kv(l, b, s, kv, hd, dtype, device):
+    return {
+        "k": torch.zeros((l, b, s, kv, hd), dtype=dtype, device=device),
+        "v": torch.zeros((l, b, s, kv, hd), dtype=dtype, device=device),
+    }
+
+
+def _mamba_state(cfg, l, b, device):
+    dims = mamba2.mamba_dims(cfg)
+    return {
+        "conv": torch.zeros((l, b, cfg.ssm_conv - 1, dims["conv_dim"]), dtype=cfg.dtype,
+                            device=device),
+        "ssm": torch.zeros((l, b, dims["nheads"], cfg.ssm_headdim, dims["n"]),
+                           dtype=torch.float32, device=device),
+    }
+
+
 def init_cache(
     cfg: ArchConfig, batch: int, seq_len: int, *, device: str | torch.device = "cuda"
 ) -> dict[str, Any]:
-    """``k``/``v`` ``[L, B, Sc, kv, hd]`` zeros in ``cfg.dtype`` and
-    ``slot_pos [B, Sc]`` int32 at -1 (empty), on ``device``."""
-    check_family(cfg)
+    """The reference's cache tree of zeros on ``device``, slot positions at
+    -1 (empty):
+
+    - dense, moe, audio: ``k``/``v [L, B, Sc, kv, hd]`` in ``cfg.dtype``,
+      ``slot_pos [B, Sc]`` int32;
+    - ssm: ``conv [L, B, W-1, conv_dim]`` in ``cfg.dtype``, ``ssm [L, B, H,
+      P, N]`` f32;
+    - hybrid: ``mamba`` (the groups' layers, as ssm), ``shared`` (``k``/``v
+      [G, B, Sc, kv, hd]``), ``slot_pos`` and, with a tail, ``mamba_tail``;
+    - vlm: the self-attention layers' ``k``/``v``, ``slot_pos``, and
+      ``xk``/``xv [G, B, T_img, kv, hd]``.
+    """
     device = resolve_device(device)
+    b = batch
     sc = cache_seq_len(cfg, seq_len)
-    shape = (cfg.n_layers, batch, sc, cfg.n_kv_heads, cfg.hd)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
-        "slot_pos": torch.full((batch, sc), -1, dtype=torch.int32, device=device),
-    }
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    if cfg.family == "ssm":
+        return _mamba_state(cfg, cfg.n_layers, b, device)
+    if cfg.family == "hybrid":
+        g = cfg.n_layers // cfg.shared_attn_every
+        per = cfg.shared_attn_every
+        tail = cfg.n_layers - g * per
+        cache: dict[str, Any] = {
+            "mamba": _mamba_state(cfg, g * per, b, device),
+            "shared": _kv(g, b, sc, kv, hd, cfg.dtype, device),
+            "slot_pos": torch.full((b, sc), -1, dtype=torch.int32, device=device),
+        }
+        if tail:
+            cache["mamba_tail"] = _mamba_state(cfg, tail, b, device)
+        return cache
+    n_self = cfg.n_layers
+    if cfg.family == "vlm":
+        # self-attention layers only; the cross layers cache image KV apart
+        n_self = (cfg.n_layers // cfg.cross_attn_every) * (cfg.cross_attn_every - 1)
+    cache = _kv(n_self, b, sc, kv, hd, cfg.dtype, device)
+    cache["slot_pos"] = torch.full((b, sc), -1, dtype=torch.int32, device=device)
+    if cfg.family == "vlm":
+        gc = cfg.n_layers // cfg.cross_attn_every
+        shape = (gc, b, cfg.n_image_tokens, kv, hd)
+        cache["xk"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+        cache["xv"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
+    return cache

@@ -1,15 +1,14 @@
 """Shared transformer layers: RMSNorm, RoPE, GQA attention (block-causal
-chunked, masked-full, decode), SwiGLU MLP. Counterpart of
-``repro.models.layers``, forward only.
+chunked, masked-full, decode), unmasked cross-attention, SwiGLU MLP.
+Counterpart of ``repro.models.layers``, forward only.
 
 Plain PyTorch in the reference's operation order: products that the
 reference accumulates in f32 (``preferred_element_type``) take f32-cast
 operands here, softmax runs in f32 over logits masked to ``_NEG``, and the
 rope tables are f32. ``block_causal`` runs the reference's chunked online
 softmax as Python loops over the visible chunk pairs; ``masked_full``
-(also taken when ``s <= chunk``) computes every pair and masks.
-``cross_attention`` (the vlm family) and the flash backward (training) come
-with their slices (ROADMAP A15).
+(also taken when ``s <= chunk``) computes every pair and masks. The flash
+backward comes with training (ROADMAP A15).
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ __all__ = [
     "swiglu",
     "attention",
     "decode_attention",
+    "cross_attention",
 ]
 
 _NEG = -1e30
@@ -196,3 +196,18 @@ def decode_attention(
     p = torch.softmax(logits, dim=-1)  # [B, KV, G, Sc]
     out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(p.dtype))
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Unmasked attention of text queries over (stubbed) image tokens.
+
+    q [B, S, H, hd]; k, v [B, T_img, KV, hd]. Returns [B, S, H, hd]; the
+    scores and softmax in f32."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.reshape(b, s, kv, g, hd)
+    logits = _scores(qg, k, scale)  # [B, KV, G, S, T]
+    p = torch.softmax(logits, dim=-1)
+    return _weighted_v(p, v).reshape(b, s, h, hd).to(q.dtype)

@@ -75,8 +75,9 @@ class CacheDumpSource:
             raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
         if cfg.family == "vlm":
             raise NotImplementedError(
-                "CacheDumpSource prefills from tokens alone; vlm prefill needs image "
-                "embeddings (and the vlm family comes with ROADMAP A15, vlm)"
+                "CacheDumpSource prefills from tokens alone; vlm prefill "
+                "needs image embeddings (harvest its cache externally and "
+                "quantize with repro_torch.vq.quantize_cache instead)"
             )
         n_layers = n_kv_layers(cfg)
         if not 0 <= layer < n_layers:

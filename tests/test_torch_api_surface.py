@@ -29,9 +29,8 @@ SRC = ROOT / "src" / "repro_torch"
 PORT_ONLY = {"convert", "device", "random", "scan", "kernels._build"}
 #: names whose ROADMAP A item is still open: ``launch.mesh``'s production
 #: (data × model) mesh and the dry-run's shape stand-ins ``input_specs`` and
-#: ``cache_specs`` come with the dry-run (A16), ``cross_attention`` with the
-#: vlm family (A15)
-NOT_YET = {"make_production_mesh", "input_specs", "cache_specs", "cross_attention"}
+#: ``cache_specs`` come with the dry-run (A16)
+NOT_YET = {"make_production_mesh", "input_specs", "cache_specs"}
 #: names dropped by design: the port selects no impl and has no prune knob
 #: (``*_pallas`` entry points are matched by suffix); its mesh has no model
 #: axis, so the helpers that place tensors on one are left out

@@ -877,3 +877,87 @@ def test_decode_quantized_on_the_card_is_bit_equal_run_to_run(cuda):
     assert torch.equal(runs[0][0], runs[1][0])
     for key in ("k_codes", "v_codes", "slot_pos"):
         assert torch.equal(runs[0][1][key], runs[1][1][key])
+
+
+# ------------------------------------------ the ssm, hybrid and vlm families
+def _stressed(cfg, params, seed):
+    """``params`` with the decay rates, step biases, in-projections, convs
+    and gates the reference's initialisation leaves inert set to seeded
+    values, and no skip term (the CPU tests' stress, in torch)."""
+    g = torch.Generator().manual_seed(seed)
+    scale = 0.3 * (64 / cfg.d_model) ** 0.5
+    draw = {
+        "in_proj": lambda v: torch.randn(v.shape, generator=g) * scale,
+        "conv_w": lambda v: torch.randn(v.shape, generator=g) * 0.4,
+        "conv_b": lambda v: torch.randn(v.shape, generator=g) * 0.1,
+        "a_log": lambda v: torch.rand(v.shape, generator=g) * 2 - 3,
+        "dt_bias": lambda v: torch.rand(v.shape, generator=g) * 2 - 3,
+        "d_skip": lambda v: torch.zeros(v.shape),
+        "gate_attn": lambda v: torch.rand(v.shape, generator=g) + 0.5,
+        "gate_mlp": lambda v: torch.rand(v.shape, generator=g) + 0.5,
+    }
+    return {k: _stressed(cfg, v, seed) if isinstance(v, dict)
+            else draw[k](v).to(v.dtype) if k in draw else v for k, v in params.items()}
+
+
+FAMILIES = {"mamba2-130m": None, "zamba2-1.2b": None, "zamba2-tail": 5,
+            "llama-3.2-vision-90b": None}
+
+
+def _family(name):
+    from repro_torch import configs
+    from repro_torch import random as rnd
+    from repro_torch.models import transformer
+
+    arch = "zamba2-1.2b" if name == "zamba2-tail" else name
+    cfg = configs.reduced_config(configs.get_config(arch))
+    if FAMILIES[name]:
+        cfg = cfg.replace(n_layers=FAMILIES[name])
+    params = _stressed(cfg, transformer.init_params(cfg, rnd.key(0), device="cpu"), 1)
+    rng = np.random.RandomState(0)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 64)).astype(np.int32))
+    img = (torch.from_numpy(rng.randn(2, cfg.n_image_tokens, cfg.d_model).astype(np.float32))
+           if cfg.family == "vlm" else None)
+    return cfg, params, toks, img
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_recurrent_and_vision_families_on_the_card_follow_the_cpu(cuda, name):
+    from repro_torch.models import transformer as tf
+
+    cfg, cpu, toks, img = _family(name)
+    outs = {}
+    for dev, params in (("cpu", cpu), ("cuda", _tree_to(cpu, "cuda"))):
+        im = None if img is None else img.to(dev)
+        last, cache = tf.prefill(cfg, params, toks.to(dev), im, max_seq_len=67)
+        steps = [last]
+        tok = torch.zeros(2, dtype=torch.int32, device=dev)
+        for i in range(3):
+            logits, cache = tf.decode(cfg, params, cache, tok, 64 + i)
+            steps.append(logits)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        outs[dev] = [s.cpu() for s in steps]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        torch.testing.assert_close(b, a, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(FAMILIES))
+def test_recurrent_and_vision_decode_on_the_card_is_bit_equal_run_to_run(cuda, name):
+    from repro_torch.models import transformer as tf
+
+    cfg, cpu, toks, img = _family(name)
+    gpu = _tree_to(cpu, "cuda")
+    _, cache = tf.prefill(cfg, gpu, toks.cuda(), None if img is None else img.cuda(),
+                          max_seq_len=67)
+    tok = torch.zeros(2, dtype=torch.int32, device="cuda")
+    (a, ca), (b, cb) = (tf.decode(cfg, gpu, cache, tok, 64) for _ in range(2))
+    assert torch.equal(a, b)
+    flat = [(x, y) for x, y in zip(_leaves(ca), _leaves(cb))]
+    assert flat and all(torch.equal(x, y) for x, y in flat)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)

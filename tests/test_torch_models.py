@@ -223,17 +223,6 @@ def test_moe_router_and_replace_router_follow_the_reference():
     assert moe.moe_mode(8, 16) == jmoe.moe_mode(8, 16) == "ep_split"
 
 
-@pytest.mark.parametrize("arch,item", [("mamba2-130m", "mamba2"), ("zamba2-1.2b", "mamba2"),
-                                       ("llama-3.2-vision-90b", "vlm")])
-def test_unported_families_name_their_roadmap_item(arch, item):
-    cfg = configs.reduced_config(configs.get_config(arch))
-    for call in (lambda: tf.init_params(cfg, rnd.key(0), device="cpu"),
-                 lambda: cache_mod.init_cache(cfg, 1, 8, device="cpu"),
-                 lambda: tf.forward(cfg, {}, torch.zeros(1, 8, dtype=torch.int32))):
-        with pytest.raises(NotImplementedError, match=f"A15, {item}"):
-            call()
-
-
 def test_token_stream_is_bit_equal_to_the_references():
     for kw, step, host in [(dict(vocab=49152, seq_len=64, global_batch=4), 0, (0, 1)),
                            (dict(vocab=256, seq_len=16, global_batch=8, seed=3), 5, (1, 2))]:
