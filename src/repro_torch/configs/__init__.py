@@ -61,7 +61,7 @@ class ArchConfig:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     scan_layers: bool = True  # no effect in the port: layers run as a Python loop
-    remat: bool = True  # no effect in the port: it runs inference only
+    remat: bool = True  # checkpoint each layer body when gradients are on (training)
     attn_chunk: int = 2048
     attn_impl: str = "block_causal"  # "masked_full" | "block_causal"
     # repeat KV heads to the full head count for model-axis sharding; the

@@ -1,3 +1,3 @@
-"""Launchers: the smoke mesh and the clustering system's drivers
-(``cluster``: the paper's own workload; ``serve --task clusters``: the
-long-lived service and the batched predictor)."""
+"""Launchers: the smoke mesh and the drivers (``cluster``: the paper's own
+workload; ``serve``: the LM server and, with ``--task clusters``, the
+long-lived service and the batched predictor; ``train``: LM training)."""

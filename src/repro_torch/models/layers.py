@@ -1,14 +1,17 @@
 """Shared transformer layers: RMSNorm, RoPE, GQA attention (block-causal
 chunked, masked-full, decode), unmasked cross-attention, SwiGLU MLP.
-Counterpart of ``repro.models.layers``, forward only.
+Counterpart of ``repro.models.layers``.
 
 Plain PyTorch in the reference's operation order: products that the
 reference accumulates in f32 (``preferred_element_type``) take f32-cast
 operands here, softmax runs in f32 over logits masked to ``_NEG``, and the
 rope tables are f32. ``block_causal`` runs the reference's chunked online
-softmax as Python loops over the visible chunk pairs; ``masked_full``
-(also taken when ``s <= chunk``) computes every pair and masks. The flash
-backward comes with training (ROADMAP A15).
+softmax as Python loops over the visible chunk pairs, as the autograd
+function :class:`_Flash`: its backward is the reference's ``_flash_bwd``,
+recomputing each visible tile from the saved row max and row sum, so the
+residuals are O(S) a head rather than every tile's probabilities.
+``masked_full`` (also taken when ``s <= chunk``) computes every pair and
+masks, and differentiates by plain autograd, as the reference's does.
 """
 
 from __future__ import annotations
@@ -107,10 +110,11 @@ def _visible(i, j, window, chunk):
 
 def _flash_fwd(q, k, v, window, chunk):
     """Block-causal online-softmax forward over q [B, S, KV, G, hd];
-    returns f32 [B, S, KV, G, hd]."""
+    returns (out f32 [B, S, KV, G, hd], the row max m and row sum l, f32
+    [B, KV, G, S, 1])."""
     b, s, kv, g, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
-    outs = []
+    outs, ms, ls = [], [], []
     for i in range(s // chunk):
         qi = q[:, i * chunk:(i + 1) * chunk]
         m = torch.full((b, kv, g, chunk, 1), _NEG, dtype=torch.float32, device=q.device)
@@ -131,7 +135,68 @@ def _flash_fwd(q, k, v, window, chunk):
             acc = acc * alpha.permute(0, 3, 1, 2, 4) + _weighted_v(p, vj)
             m = m_new
         outs.append(acc / l.permute(0, 3, 1, 2, 4))
-    return torch.cat(outs, dim=1)
+        ms.append(m)
+        ls.append(l)
+    return torch.cat(outs, dim=1), torch.cat(ms, dim=3), torch.cat(ls, dim=3)
+
+
+def _flash_bwd(q, k, v, out, m, l, dout, window, chunk):
+    """The flash backward: each visible tile's probabilities recomputed
+    from the saved row statistics, ``p = exp(logits − m) / l``; with
+    ``delta = rowsum(dout · out)``, ``ds = p · (dp − delta)``. Accumulates
+    in f32 over the reference's tile order and returns (dq, dk, dv) in the
+    dtypes of q, k and v."""
+    b, s, kv, g, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    nc = s // chunk
+    dout = dout.float()
+    # delta_i = rowsum(dout * out)  [B, KV, G, S, 1]
+    delta = torch.sum(dout * out, dim=-1).permute(0, 2, 3, 1)[..., None]
+    dq = [torch.zeros((b, chunk, kv, g, hd), dtype=torch.float32, device=q.device)
+          for _ in range(nc)]
+    dk = [torch.zeros((b, chunk, kv, hd), dtype=torch.float32, device=q.device)
+          for _ in range(nc)]
+    dv = [torch.zeros((b, chunk, kv, hd), dtype=torch.float32, device=q.device)
+          for _ in range(nc)]
+    for i in range(nc):
+        rows = slice(i * chunk, (i + 1) * chunk)
+        qi, doi = q[:, rows], dout[:, rows]
+        mi, li, di = m[:, :, :, rows], l[:, :, :, rows], delta[:, :, :, rows]
+        for j in range(i + 1):
+            if not _visible(i, j, window, chunk):
+                continue
+            kj = k[:, j * chunk:(j + 1) * chunk]
+            vj = v[:, j * chunk:(j + 1) * chunk]
+            logits = _scores(qi, kj, scale)
+            mask = _chunk_mask(i, j, chunk, window, q.device)
+            logits = torch.where(mask[None, None, None], logits, _NEG)
+            p = torch.exp(logits - mi) / li  # [B, KV, G, c, c]
+            # dv_j += pᵀ · dout_i (over the q rows and G)
+            dv[j] = dv[j] + torch.einsum("bkgqs,bqkgh->bskh", p, doi)
+            dp = torch.einsum("bqkgh,bskh->bkgqs", doi, vj.float())
+            ds = p * (dp - di)  # [B, KV, G, c, c]
+            dq[i] = dq[i] + torch.einsum("bkgqs,bskh->bqkgh", ds, kj.float()) * scale
+            dk[j] = dk[j] + torch.einsum("bkgqs,bqkgh->bskh", ds, qi.float()) * scale
+    return (torch.cat(dq, dim=1).to(q.dtype), torch.cat(dk, dim=1).to(k.dtype),
+            torch.cat(dv, dim=1).to(v.dtype))
+
+
+class _Flash(torch.autograd.Function):
+    """Block-causal attention over q [B, S, KV, G, hd], k, v [B, S, KV, hd]
+    with the flash backward; ``window`` and ``chunk`` take no gradient.
+    Saves (q, k, v, out, m, l): O(S) a head beside the inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, chunk):
+        out, m, l = _flash_fwd(q, k, v, window, chunk)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.window, ctx.chunk = window, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, dout, ctx.window, ctx.chunk)
+        return dq, dk, dv, None, None
 
 
 def attention(
@@ -145,7 +210,10 @@ def attention(
 ) -> torch.Tensor:
     """Causal (optionally sliding-window) GQA attention.
 
-    q [B, S, H, hd]; k, v [B, S, KV, hd]. Returns [B, S, H, hd]."""
+    q [B, S, H, hd]; k, v [B, S, KV, hd]. Returns [B, S, H, hd].
+
+    ``block_causal`` differentiates through :class:`_Flash`'s backward;
+    ``masked_full`` by plain autograd."""
     b, s, h, hd = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -164,7 +232,7 @@ def attention(
 
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the attention chunk {chunk}")
-    out = _flash_fwd(qg, k, v, window, chunk)
+    out = _Flash.apply(qg, k, v, window, chunk)
     return out.to(q.dtype).reshape(b, s, h, hd)
 
 

@@ -1,5 +1,5 @@
 """Mamba2 (SSD: state-space duality, arXiv:2405.21060) block. Counterpart of
-``repro.models.mamba2``, forward only.
+``repro.models.mamba2``; the backward is autograd's through the chunk loop.
 
 Chunked SSD ("minimal ssd"): within a chunk of ``cfg.ssm_chunk`` tokens the
 dual quadratic form runs as batched matmuls; across chunks a Python loop
@@ -124,10 +124,12 @@ def _chunk_step(state, xc, dtc, dac, bc, cc, d_skip):
     n = bc.shape[-1]
     cum = torch.cumsum(dac, dim=1)  # [B, q, H]
     # intra-chunk dual form: L[t, s] = exp(cum_t - cum_s) for s <= t; above
-    # the diagonal exp() may overflow to inf, so select, never multiply by 0
+    # the diagonal the exponent is masked to -inf before exp(), which there
+    # may overflow to inf: a select after exp() would give the right values
+    # but a NaN gradient (0 · inf) once a chunk's decay passes 88
     seg = cum[:, :, None, :] - cum[:, None, :, :]  # [B, t, s, H]
     tri = torch.ones(q, q, dtype=torch.bool, device=xc.device).tril()
-    l_mat = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+    l_mat = torch.exp(seg.masked_fill(~tri[None, :, :, None], float("-inf")))
     cb = torch.bmm(cc, bc.transpose(1, 2))  # [B, t, s]
     wts = cb[..., None] * l_mat * dtc[:, None, :, :]  # [B, t, s, H]
     y = torch.matmul(wts.permute(0, 3, 1, 2), xc.permute(0, 2, 1, 3))  # [B, H, t, P]

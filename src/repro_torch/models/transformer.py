@@ -1,5 +1,5 @@
 """One decoder substrate for the ten assigned architectures. Counterpart of
-``repro.models.transformer``, for inference.
+``repro.models.transformer``.
 
 Families:
   dense / audio — pre-norm GQA attention + SwiGLU (RoPE, optional
@@ -15,7 +15,14 @@ Parameters are the reference's tree: per-layer leaves stacked on leading
 axes (``[L, ...]``; the vlm's ``self_layers`` and the hybrid's
 ``mamba_groups`` ``[G, per, ...]``), in ``cfg.param_dtype``, cast to
 ``cfg.dtype`` at use (``cast_params_before_use``). Layers run as a Python
-loop over the stacks; ``scan_layers`` and ``remat`` have no effect.
+loop over the stacks (``scan_layers`` has no effect). :func:`forward` takes
+each layer's parameters as views of one ``unbind`` of each stack, so its
+backward stacks a leaf's gradient once. With ``cfg.remat`` and gradients
+enabled, every layer body (a decoder block, a Mamba layer, the hybrid's
+shared block, the vlm's cross block) runs under
+``torch.utils.checkpoint`` and is recomputed in the backward, the
+reference's per-layer ``jax.checkpoint``; under ``no_grad`` or
+``inference_mode`` nothing is checkpointed.
 
 Caches are functional for callers: :func:`prefill`, :func:`decode` and
 :func:`dense_block_decode` return new caches and leave the ones they were
@@ -30,6 +37,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import random as rnd
 from repro_torch.configs import ArchConfig
@@ -158,6 +166,19 @@ def _unravel(i: int, lead: tuple[int, ...]) -> tuple[int, ...]:
 def layer(stack: dict, i) -> dict:
     """Layer ``i``'s parameters (views) of a stacked ``[L, ...]`` tree."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i] for k, v in stack.items()}
+
+
+def _unstack(stack: dict, n: int) -> list[dict]:
+    """The ``n`` per-layer trees of a stacked ``[n, ...]`` tree, as views:
+    one ``unbind`` a leaf, whose backward stacks the layers' gradients once
+    (indexing layer by layer would add a zero-filled ``[n, ...]`` gradient
+    for every layer)."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in stack.items():
+        for tree, part in zip(out, _unstack(v, n) if isinstance(v, dict) else v.unbind(0),
+                              strict=True):
+            tree[k] = part
+    return out
 
 
 def init_params(cfg: ArchConfig, key: rnd.Key, *, device: str | torch.device = "cuda") -> dict[str, Any]:
@@ -373,6 +394,13 @@ def forward(
     x = _embed(cfg, params, tokens)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     kvs = None
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def run(fn, *args, **kw):
+        """``fn(*args, **kw)``, checkpointed under ``remat``."""
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+        return fn(*args, **kw)
 
     if cfg.family == "vlm":
         if image_embeds is None:
@@ -384,42 +412,47 @@ def forward(
             self_kv = _kv_stacks((g, per), b, s, cfg, x.dtype, x.device)
             image_kv = _kv_stacks((g,), b, t, cfg, image_embeds.dtype, x.device)
             kvs = (self_kv, image_kv)
-        for gi in range(g):
-            self_stack = layer(params["self_layers"], gi)
-            for i in range(per):
-                x, kv_i, a = _decoder_block_full(cfg, layer(self_stack, i), x, pos_ctx,
-                                                 return_kv=collect_cache)
+
+        def cross(cb, x):
+            return _cross_block_full(cfg, cb, x, _image_kv(cfg, cb, image_embeds))
+
+        cross_layers = _unstack(params["cross_layers"], g)
+        for gi, self_stack in enumerate(_unstack(params["self_layers"], g)):
+            for i, blk in enumerate(_unstack(self_stack, per)):
+                x, kv_i, a = run(_decoder_block_full, cfg, blk, x, pos_ctx,
+                                 return_kv=collect_cache)
                 aux_total = aux_total + a
                 if collect_cache:
                     self_kv[0][gi, i], self_kv[1][gi, i] = kv_i
-            cross_block = layer(params["cross_layers"], gi)
-            ikv = _image_kv(cfg, cross_block, image_embeds)
-            x = _cross_block_full(cfg, cross_block, x, ikv)
             if collect_cache:
+                ikv = _image_kv(cfg, cross_layers[gi], image_embeds)
+                x = _cross_block_full(cfg, cross_layers[gi], x, ikv)
                 image_kv[0][gi], image_kv[1][gi] = ikv
+            else:
+                x = run(cross, cross_layers[gi], x)
     elif cfg.family == "hybrid":
         g = cfg.n_layers // cfg.shared_attn_every
+        per = cfg.shared_attn_every
         ssm_cfg = cfg.replace(family="ssm")
         x0 = x
         if collect_cache:
             kvs = _kv_stacks((g,), b, s, cfg, x.dtype, x.device)
-        for gi in range(g):
-            x, kv_g = _shared_block_full(cfg, params, x, x0, pos_ctx, return_kv=collect_cache)
+        for gi, group in enumerate(_unstack(params["mamba_groups"], g)):
+            x, kv_g = run(_shared_block_full, cfg, params, x, x0, pos_ctx,
+                          return_kv=collect_cache)
             if collect_cache:
                 kvs[0][gi], kvs[1][gi] = kv_g
-            group = layer(params["mamba_groups"], gi)
-            for i in range(cfg.shared_attn_every):
-                x, _, _ = _decoder_block_full(ssm_cfg, layer(group, i), x, pos_ctx)
+            for blk in _unstack(group, per):
+                x, _, _ = run(_decoder_block_full, ssm_cfg, blk, x, pos_ctx)
         if "mamba_tail" in params:
-            for i in range(cfg.n_layers - g * cfg.shared_attn_every):
-                x, _, _ = _decoder_block_full(ssm_cfg, layer(params["mamba_tail"], i), x, pos_ctx)
+            for blk in _unstack(params["mamba_tail"], cfg.n_layers - g * per):
+                x, _, _ = run(_decoder_block_full, ssm_cfg, blk, x, pos_ctx)
     else:
         collect = collect_cache and cfg.family != "ssm"
         if collect:
             kvs = _kv_stacks((cfg.n_layers,), b, s, cfg, x.dtype, x.device)
-        for i in range(cfg.n_layers):
-            x, kv_l, a = _decoder_block_full(cfg, layer(params["layers"], i), x, pos_ctx,
-                                             return_kv=collect)
+        for i, blk in enumerate(_unstack(params["layers"], cfg.n_layers)):
+            x, kv_l, a = run(_decoder_block_full, cfg, blk, x, pos_ctx, return_kv=collect)
             aux_total = aux_total + a
             if collect:
                 kvs[0][i], kvs[1][i] = kv_l
