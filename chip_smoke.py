@@ -247,6 +247,21 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    not gated (a new emission table every step: it falls for some seeds
    only, the reference's too).
 
+14. (after phase 13) the dry run (``repro_torch.launch.dryrun``): 14a
+   ``python -m repro_torch.launch.dryrun --cell ... --jobs 6`` traces one
+   cell for each (family × kind), the family's cheapest arch, at full width
+   and depth on the ``data256`` mesh (a fake process group of 256 ranks)
+   with no card visible, and beside it the vlm's prefill_32k at 10 of its
+   100 layers (at full depth it alone takes about a minute of one core),
+   then prints the report's tables and the cells it cut; 14b, beside them,
+   traces qwen3-4b (train [1, 4,096] with remat, prefill [1, 32,768],
+   decode [8] over a 32,768 cache) and deepseek-moe-16b (train [1, 4,096])
+   at full width with 2 layers at one rank and runs the same steps on the
+   card: the traced FLOPs equal ``FlopCounterMode``'s count on the card
+   (relative 1e-9) and ``peak_bytes_est`` over the card's peak memory
+   (above what was allocated before the cell's arguments) lies in [0.67,
+   1.5].
+
 The whole run keeps its autotune cache in a fresh temporary file
 (``REPRO_AUTOTUNE_CACHE``), so every key is tuned on this card in this run.
 Then the card's name and power limit, one JSON line of kernel records, and
@@ -3941,6 +3956,138 @@ def phase_train(torch, smi):
     print(f"[train] phase 13 took {time.perf_counter() - t_phase:.1f} s ({smi})")
 
 
+# ---------------------------------------------------------------- phase 14
+#: 14a: one cell for each (family × kind), the family's cheapest arch at full
+#: width and depth. The whole grid (``--all``) took 70–95 s of the phase
+#: with 7 processes (PERF.md §6), past its 90 s budget on a slow host; the
+#: vlm's prefill_32k alone takes 51–62 s of one core (80 self-attention
+#: layers of 136 flash tiles each), so it runs at 10 of its 100 layers, as
+#: phase 12 runs the vlm, as a tagged record of its own.
+DRYRUN_CELLS = [(arch, shape) for arch in ("codeqwen1.5-7b", "deepseek-moe-16b", "mamba2-130m",
+                                           "musicgen-medium", "llama-3.2-vision-90b",
+                                           "zamba2-1.2b")
+                for shape in ("train_4k", "prefill_32k", "decode_32k")
+                if (arch, shape) != ("llama-3.2-vision-90b", "prefill_32k")]
+DRYRUN_VLM_LAYERS = 10
+DRYRUN_JOBS = 6  # 14a's worker processes; the vlm cell and 14b run beside them
+DRYRUN_SECONDS = 240  # 14a's dry run past this fails the phase
+GROUND_LAYERS = 2  # 14b's depth cut, at full width
+GROUND_FLOP_RTOL = 1e-9
+GROUND_PEAK_RATIO = (0.67, 1.5)  # peak_bytes_est over the card's measured peak
+
+
+def _ground_cell(torch, dryrun, cfg, shape, what, smi):
+    """14b: the dry run's trace of one cell at one rank against the same
+    step run on the card: its FLOPs against ``FlopCounterMode``'s count of
+    the card's step, and ``peak_bytes_est`` against
+    ``max_memory_allocated`` above the memory allocated before the cell's
+    parameters, state and inputs were made (the estimate counts them as
+    arguments)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with dryrun.fake_mesh(1):
+        rec = dryrun.trace_cell(cfg, shape)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        step, args, _ = dryrun.cell_step(cfg, shape, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with FlopCounterMode(display=False) as fc:
+            out = step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        del out, args, step
+    torch.cuda.empty_cache()
+    flops = fc.get_total_flops()
+    rel = abs(rec["flops"] - flops) / flops
+    ratio = rec["memory"]["peak_bytes_est"] / peak
+    check(rel <= GROUND_FLOP_RTOL, f"14b {what}: traced FLOPs {rec['flops']:.6e} against the "
+          f"card's {flops:.6e} (relative {rel:.3g})")
+    lo, hi = GROUND_PEAK_RATIO
+    check(lo <= ratio <= hi, f"14b {what}: peak_bytes_est {rec['memory']['peak_bytes_est']:,} "
+          f"over the card's peak {peak:,} is {ratio:.4f}, outside [{lo}, {hi}]")
+    print(f"[dryrun] 14b {what}: FLOPs traced {rec['flops']:.6e}, on the card {flops:.6e} "
+          f"(relative {rel:.3g}); peak_bytes_est {rec['memory']['peak_bytes_est'] / 2**30:.3f} "
+          f"GiB (argument {rec['memory']['argument_bytes'] / 2**30:.3f}, temp "
+          f"{rec['memory']['temp_bytes'] / 2**30:.3f}) against the card's "
+          f"{peak / 2**30:.3f} GiB: ratio {ratio:.4f} (limit [{lo}, {hi}]); trace "
+          f"{rec['trace_s']:.2f} s, the step on the card {wall:.2f} s ({smi})")
+
+
+def phase_dryrun(torch, smi):
+    """Phase 14: the dry run. 14a: ``python -m repro_torch.launch.dryrun
+    --cell ... --jobs 6`` over :data:`DRYRUN_CELLS` on the ``data256`` mesh
+    with no card visible, beside it the vlm's prefill at
+    :data:`DRYRUN_VLM_LAYERS` layers, then the report's tables over the
+    records; 14b, beside them, holds the trace at one rank against the
+    same steps run on the card (qwen3-4b and deepseek-moe-16b at full
+    width, 2 layers)."""
+    from repro_torch import configs
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import report
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dryrun_") as out_dir:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), REPRO_RESULTS=out_dir,
+                   CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        base = [sys.executable, "-m", "repro_torch.launch.dryrun"]
+        cmds = [
+            base + [f"--cell={a}:{s}" for a, s in DRYRUN_CELLS] + ["--jobs", str(DRYRUN_JOBS)],
+            base + ["--arch", "llama-3.2-vision-90b", "--shape", "prefill_32k", "--set",
+                    f"n_layers={DRYRUN_VLM_LAYERS}", "--tag", f"cut{DRYRUN_VLM_LAYERS}"],
+        ]
+        procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for c in cmds]
+        try:
+            # 14b
+            qwen = configs.get_config("qwen3-4b").replace(n_layers=GROUND_LAYERS)
+            moe = configs.get_config("deepseek-moe-16b").replace(n_layers=GROUND_LAYERS)
+            check(qwen.remat, "14b: qwen3-4b trains with remat")
+            ground = [
+                (qwen, configs.Shape("train_1x4k", 4096, 1, "train"), "qwen3-4b train [1, 4,096]"),
+                (qwen, configs.Shape("prefill_1x32k", 32768, 1, "prefill"),
+                 "qwen3-4b prefill [1, 32,768]"),
+                (qwen, configs.Shape("decode_8x32k", 32768, 8, "decode"),
+                 "qwen3-4b decode [8] over a 32,768 cache"),
+                (moe, configs.Shape("train_1x4k", 4096, 1, "train"),
+                 "deepseek-moe-16b train [1, 4,096]"),
+            ]
+            t0 = time.perf_counter()
+            for cfg, shape, what in ground:
+                _ground_cell(torch, dryrun, cfg, shape, f"{what}, {GROUND_LAYERS} layers", smi)
+            t_ground = time.perf_counter() - t0
+        finally:
+            runs = [_finish(p, max(1.0, DRYRUN_SECONDS - (time.perf_counter() - t_phase)))
+                    for p in procs]
+        t_grid = time.perf_counter() - t_phase
+        for cmd, (out, err, rc) in zip(cmds, runs):
+            check(rc == 0, f"14a {' '.join(cmd[1:])}: exit {rc}\n{out[-3000:]}\n{err[-3000:]}")
+            for line in out.splitlines():
+                if line.startswith("[dryrun]"):
+                    print(line)
+        recs = sorted(pathlib.Path(out_dir, "data256").glob("*.json"))
+        check(len(recs) == len(DRYRUN_CELLS) + 1, f"14a: {len(recs)} records")
+        for f in recs:
+            rec = json.loads(f.read_text())
+            check(rec["flops"] > 0 and rec["memory"]["peak_bytes_est"] > 0
+                  and rec["chips"] == 256 and rec["mesh"] == "data256", f"14a {f.name}: {rec}")
+        dry, roof, _ = report.build_tables(pathlib.Path(out_dir))
+    for line in (dry + "\n" + roof).splitlines():
+        if "N/A" not in line and "…" not in line:  # cells not traced here
+            print(f"[dryrun] {line}")
+    cut = [f"{a} × {s}" for a, s in configs.runnable_cells() if (a, s) not in DRYRUN_CELLS]
+    print(f"[dryrun] 14a {len(DRYRUN_CELLS)} cells (one for each family and kind, the family's "
+          f"cheapest arch) and llama-3.2-vision-90b × prefill_32k at {DRYRUN_VLM_LAYERS} of 100 "
+          f"layers on the data256 mesh in {t_grid:.1f} s, {DRYRUN_JOBS} + 1 processes with no card "
+          f"visible; cut to fit the phase: " + ", ".join(cut))
+    print(f"[dryrun] phase 14 took {time.perf_counter() - t_phase:.1f} s (14b "
+          f"{t_ground:.1f} s beside 14a) ({smi})")
+
+
 # ---------------------------------------------------------------- main
 def main(argv) -> int:
     import torch
@@ -4074,6 +4221,8 @@ def _phases(torch, argv, shard_dir: str) -> int:
         errs[b, "float32"] = max(errs[b, "float32"], e)
     # phase 13
     phase_train(torch, smi)
+    # phase 14
+    phase_dryrun(torch, smi)
     if parent is not None:
         phase_walls(argv[argv.index("--parent") + 1])
     if "--profile" in argv:

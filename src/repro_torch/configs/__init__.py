@@ -2,9 +2,8 @@
 dims) and the shape grid (train_4k / prefill_32k / decode_32k / long_500k).
 
 Counterpart of ``repro.configs``, with the same fields and numbers; the
-compute and parameter dtypes are torch dtypes. ``input_specs`` (the shape
-stand-ins the reference's multi-pod dry-run lowers against) comes with the
-dry-run (ROADMAP A16).
+compute and parameter dtypes are torch dtypes. :func:`input_specs` gives the
+dry run's stand-ins for a cell's inputs, as meta tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ __all__ = [
     "get_config",
     "reduced_config",
     "runnable_cells",
+    "input_specs",
 ]
 
 
@@ -172,3 +172,34 @@ def reduced_config(cfg: ArchConfig) -> ArchConfig:
     if cfg.window:
         kw.update(window=32)
     return cfg.replace(**kw)
+
+
+# --------------------------------------------------------------------- specs
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape: Shape) -> dict[str, Any]:
+    """Meta-tensor stand-ins for every input of the cell's step function,
+    with the reference's keys and dtypes:
+
+    train:    {tokens [B,S], labels [B,S]} (+ image_embeds [B,T_img,D] for vlm)
+    prefill:  {tokens [B,S]} (+ image_embeds)
+    decode:   {token [B], pos [], cache <tree>} (the vlm's image K/V lives
+              in the cache)
+    """
+    b, s = shape.global_batch, shape.seq_len
+    specs: dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        specs["tokens"] = _meta((b, s), torch.int32)
+        if shape.kind == "train":
+            specs["labels"] = _meta((b, s), torch.int32)
+        if cfg.family == "vlm":
+            specs["image_embeds"] = _meta((b, cfg.n_image_tokens, cfg.d_model), cfg.dtype)
+    else:  # decode
+        from repro_torch.models import cache as cache_mod
+
+        specs["token"] = _meta((b,), torch.int32)
+        specs["pos"] = _meta((), torch.int32)
+        specs["cache"] = cache_mod.cache_specs(cfg, batch=b, seq_len=s)
+    return specs

@@ -1,8 +1,12 @@
-"""The mesh the drivers run the distributed engine on.
+"""The meshes: the one the drivers run the distributed engine on, and the
+production mesh the dry run plans against.
 
-Counterpart of ``repro.launch.mesh``'s ``make_smoke_mesh``. The reference's
-``make_production_mesh`` (a 16 × 16 data × model mesh of TPU chips) serves
-its models' sharding and comes with it (ROADMAP A16).
+Counterpart of ``repro.launch.mesh``. The reference's production mesh is
+16 × 16 TPU chips (data × model), or 2 × 16 × 16 across two pods; the port
+has no model axis, so :func:`make_production_mesh` puts the same chip
+counts, 256 or 512, on its one ``"data"`` dimension. Records and result
+directories name these meshes ``data256`` and ``data512``
+(:func:`production_mesh_name`).
 """
 
 from __future__ import annotations
@@ -14,7 +18,36 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["make_smoke_mesh"]
+__all__ = ["make_production_mesh", "make_smoke_mesh", "production_mesh_name",
+           "production_world"]
+
+
+def production_world(multi_pod: bool = False) -> int:
+    """Ranks of the production mesh: the reference's 256 chips a pod, 512
+    across two pods."""
+    return 512 if multi_pod else 256
+
+
+def production_mesh_name(multi_pod: bool = False) -> str:
+    """``data256`` or ``data512``."""
+    return f"data{production_world(multi_pod)}"
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str | torch.device = "cuda"):
+    """The ``"data"`` ``DeviceMesh`` of :func:`production_world` ranks over
+    the process group this process belongs to. Raises, naming the world
+    size it needs, when there is no group or the group has another size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    world = production_world(multi_pod)
+    if not dist.is_initialized():
+        raise RuntimeError(f"make_production_mesh needs a process group of {world} ranks; "
+                           f"start one first (init_process_group(..., world_size={world}))")
+    if dist.get_world_size() != world:
+        raise RuntimeError(f"make_production_mesh needs a process group of {world} ranks, "
+                           f"this one has {dist.get_world_size()}")
+    return init_device_mesh(resolve_device(device).type, (world,), mesh_dim_names=("data",))
 
 
 @contextlib.contextmanager

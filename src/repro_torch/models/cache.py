@@ -1,8 +1,8 @@
 """Decode-time caches: ring-buffered KV (bounded by the SWA window where the
 arch has one), constant-size SSM/conv states for Mamba/hybrid, per-invocation
 KV for Zamba2's shared block, cached cross-attention KV for the VLM.
-Counterpart of ``repro.models.cache``; ``cache_specs`` (the dry-run's
-zero-allocation stand-ins) comes with the dry-run (ROADMAP A16).
+Counterpart of ``repro.models.cache``; :func:`cache_specs` is the dry
+run's stand-in, the same tree on the meta device.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2
 
-__all__ = ["init_cache", "cache_seq_len"]
+__all__ = ["init_cache", "cache_seq_len", "cache_specs"]
 
 
 def cache_seq_len(cfg: ArchConfig, seq_len: int) -> int:
@@ -85,3 +85,9 @@ def init_cache(
         cache["xk"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
         cache["xv"] = torch.zeros(shape, dtype=cfg.dtype, device=device)
     return cache
+
+
+def cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> dict[str, Any]:
+    """:func:`init_cache`'s tree on the meta device: its shapes and dtypes,
+    no storage (the reference's ``jax.eval_shape`` stand-ins)."""
+    return init_cache(cfg, batch, seq_len, device="meta")

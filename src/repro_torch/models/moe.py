@@ -83,6 +83,13 @@ def replace_router(moe_params: dict[str, Any], router_w) -> dict[str, Any]:
     return {**moe_params, "router": w}
 
 
+def _counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """``bincount(ids, minlength=e)`` as an integer ``scatter_add_``: the
+    same int64 counts, and an op the meta device has."""
+    return torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
+
+
 def _dispatch(x_flat, probs, topk_idx, e, cap):
     """Pack top-k (token, expert) pairs into a capacity-bounded [E, C, D] buffer.
 
@@ -96,7 +103,7 @@ def _dispatch(x_flat, probs, topk_idx, e, cap):
     sorted_e = ids[order]
     sorted_tok = src[order]
     gate_sorted = gate[order]
-    counts = torch.bincount(sorted_e, minlength=e)
+    counts = _counts(sorted_e, e)
     starts = torch.cumsum(counts, 0) - counts
     slot = torch.arange(t * k, device=dev) - starts[sorted_e]
     keep = slot < cap
@@ -127,7 +134,7 @@ def _router(x_flat, router_w, top_k):
     # load-balance aux loss (Switch/GShard): E * sum(frac_tokens * frac_prob)
     e = probs.shape[-1]
     me = probs.mean(0)
-    ce = torch.bincount(top_i.reshape(-1), minlength=e).float() / max(top_i.numel(), 1)
+    ce = _counts(top_i.reshape(-1), e).float() / max(top_i.numel(), 1)
     aux = e * torch.sum(me * ce)
     return top_p, top_i, aux
 

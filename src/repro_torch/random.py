@@ -14,7 +14,9 @@ the production :class:`TorchKey` (the tests use one that calls
 on the device of the tensors it makes, and :meth:`TorchKey.split` and
 :meth:`TorchKey.fold_in` derive child integers with a SplitMix64 hash. The
 same key gives the same draws on the same device; CPU and CUDA generators
-give different numbers. :func:`key_to_words` and :func:`key_from_words`
+give different numbers. On the meta device a draw is an empty tensor of its
+shape and dtype, made without a generator (the dry run's parameter trees).
+:func:`key_to_words` and :func:`key_from_words`
 carry a key through the reference's checkpoint format, which stores a key
 as ``uint32[2]``: the seed's high word, then its low word.
 """
@@ -74,8 +76,13 @@ class TorchKey:
     def __repr__(self) -> str:
         return f"TorchKey({self.seed:#x})"
 
-    def _gen(self, device) -> torch.Generator:
-        return torch.Generator(device=torch.device(device)).manual_seed(self.seed >> 1)
+    def _gen(self, device) -> torch.Generator | None:
+        """The draw's generator; none on the meta device, where a draw has
+        no values (``torch.Generator`` refuses the meta device)."""
+        device = torch.device(device)
+        if device.type == "meta":
+            return None
+        return torch.Generator(device=device).manual_seed(self.seed >> 1)
 
     def split(self, num: int) -> tuple["TorchKey", ...]:
         return tuple(

@@ -7,6 +7,7 @@ init's warning and the small helpers of ``core`` agree with the reference.
 """
 
 import importlib
+import os
 import pathlib
 import tomllib
 
@@ -27,10 +28,9 @@ SRC = ROOT / "src" / "repro_torch"
 
 #: modules of the port that have no counterpart in the reference
 PORT_ONLY = {"convert", "device", "random", "scan", "kernels._build"}
-#: names whose ROADMAP A item is still open: ``launch.mesh``'s production
-#: (data × model) mesh and the dry-run's shape stand-ins ``input_specs`` and
-#: ``cache_specs`` come with the dry-run (A16)
-NOT_YET = {"make_production_mesh", "input_specs", "cache_specs"}
+#: names whose ROADMAP A item is still open: none since the dry run
+#: (``make_production_mesh``, ``input_specs``, ``cache_specs``) was ported
+NOT_YET: set[str] = set()
 #: names dropped by design: the port selects no impl and has no prune knob
 #: (``*_pallas`` entry points are matched by suffix); its mesh has no model
 #: axis, so the helpers that place tensors on one are left out
@@ -50,10 +50,25 @@ def _port_modules():
     return names
 
 
+def _import_reference(name):
+    """``repro.<name>``, with ``XLA_FLAGS`` kept as it was: importing
+    ``repro.launch.dryrun`` asks for 512 host devices, which would reach
+    this process's JAX backend if it is not up yet, and every process the
+    later tests start."""
+    before = os.environ.get("XLA_FLAGS")
+    try:
+        return importlib.import_module(name)
+    finally:
+        if before is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = before
+
+
 @pytest.mark.parametrize("name", _port_modules())
 def test_each_module_exports_the_reference_names(name):
     suffix = f".{name}" if name else ""
-    ref = importlib.import_module(f"repro{suffix}")
+    ref = _import_reference(f"repro{suffix}")
     port = importlib.import_module(f"repro_torch{suffix}")
     want = {n for n in getattr(ref, "__all__", ())
             if n not in NOT_YET | BY_DESIGN and not n.endswith("_pallas")}
