@@ -262,6 +262,23 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    (above what was allocated before the cell's arguments) lies in [0.67,
    1.5].
 
+15. (after phase 14) the FSDP step (``repro_torch.distributed.fsdp``) on
+   two gloo ranks spawned on the one card (a failed or hung rank fails the
+   phase; every rank is stopped), beside the smoke's own process at one
+   rank with no mesh, which takes the ranks' rows as its micro-batches
+   (``grad_accum`` = 2): 15a qwen3-4b at full width, 2 layers, bf16, remat,
+   two steps on [2, 4,096]: the losses and grad-norms (relative 1e-5), the
+   first moment (1e-4 of each leaf's max and of the tree's L2 norm) and the
+   parameters after step 1 against one rank's, a control with each rank's
+   gradient left unreduced that must miss the norm and the moment by 100×,
+   each rank's collectives equal to the dry run's rule for the cell at
+   W = 2, its resident bytes at most half of one rank's plus the
+   replicated leaves and 64 MiB, and its peak beside ``peak_bytes_est``;
+   15b the same shards serve, prefill [2, 512] and 4 decode steps
+   teacher-forced on one rank's greedy tokens (3e-2 of max |logit|); 15c
+   deepseek-moe-16b at full width, 1 of 28 layers, one step against one
+   rank running each rank's row apart.
+
 The whole run keeps its autotune cache in a fresh temporary file
 (``REPRO_AUTOTUNE_CACHE``), so every key is tuned on this card in this run.
 Then the card's name and power limit, one JSON line of kernel records, and
@@ -4088,6 +4105,414 @@ def phase_dryrun(torch, smi):
           f"{t_ground:.1f} s beside 14a) ({smi})")
 
 
+# ---------------------------------------------------------------- phase 15
+FSDP_WORLD = 2  # gloo ranks on the one card: correctness, not scaling
+FSDP_LAYERS, FSDP_STEPS = 2, 2  # qwen3-4b cut from 36, remat on, bf16
+FSDP_MOE_LAYERS = 1  # every deepseek-moe-16b layer is a MoE layer
+FSDP_PROMPT, FSDP_DECODE = 512, 4  # 15b: prefill [2, 512], then 4 teacher-forced steps
+FSDP_RANK_SECONDS = 180  # the parent's deadline for phase 15's ranks: a hang fails the phase
+#: The one-rank run takes the ranks' rows as its micro-batches (grad_accum =
+#: W), so it runs each rank's bf16 GEMMs at the rank's shapes, and what is left
+#: between the two is the FSDP path's own arithmetic: the f32 sums over the
+#: ranks, the norm over the shards, the embedding's gradient added over the
+#: ranks at once. So the CPU tests' f32 tolerances (tests/test_torch_fsdp.py)
+#: hold: the loss and the grad-norm within a relative 1e-5, the first moment
+#: (0.1 × the clipped gradient) within 1e-4 of each leaf's max |m| and of its
+#: L2 norm, the parameters after step 1 within 1e-6 + 1e-5 relative where that
+#: moment is above the 1e-4 (elsewhere AdamW's first step moves a parameter by
+#: up to lr either way; after step 2 the step-2 losses and norms compare them).
+FSDP_RTOL = 1e-5
+FSDP_MOMENT_TOL = 1e-4
+FSDP_PARAM_TOL = (1e-6, 1e-5)  # atol, rtol
+FSDP_CONTROL = 100  # the unreduced control must miss the norm and the moment by this factor
+FSDP_RESIDENT_SLACK = 64 << 20  # bytes over 1/W of one rank's parameters and state
+
+
+def _moment_miss(torch, got, want):
+    """(relative L2 over the tree, worst share of a leaf's max |want|) of
+    two lists of tensors."""
+    num = den = share = 0.0
+    for g, w in zip(got, want, strict=True):
+        d = g.float() - w.float()
+        num += float((d * d).sum())
+        den += float((w.float() * w.float()).sum())
+        share = max(share, float(d.abs().max() / w.float().abs().max().clamp_min(1e-30)))
+    return math.sqrt(num / den), share
+
+
+def _params_miss(torch, got, want, moment):
+    """(how far past 1e-5 relative the parameters lie where ``moment`` is
+    above its tolerance, their largest difference anywhere)."""
+    inside = anywhere = 0.0
+    for p, w, m in zip(got, want, moment, strict=True):
+        signed = m.abs() > FSDP_MOMENT_TOL * m.abs().max()
+        d = (p - w).abs()
+        excess = (d - FSDP_PARAM_TOL[1] * w.abs())[signed]
+        inside = max(inside, float(excess.max()) if excess.numel() else 0.0)
+        anywhere = max(anywhere, float(d.max()))
+    return inside, anywhere
+
+
+def _fsdp_wait(torch, path: pathlib.Path, deadline: float):
+    """The one-rank run's file ``path`` once it is there (mapped, on the
+    host)."""
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"15: {path.name} never came")
+        time.sleep(0.05)
+    return torch.load(path, map_location="cpu", weights_only=False, mmap=True)
+
+
+def _fsdp_save(torch, obj, path: pathlib.Path) -> None:
+    """``torch.save`` to a temporary name, then renamed: a reader never
+    sees half a file."""
+    tmp = path.with_suffix(".part")
+    torch.save(obj, tmp)
+    os.rename(tmp, path)
+
+
+def _fsdp_cases():
+    """(config, parameter seed, token seed) of 15a/15b and of 15c."""
+    from repro_torch import configs
+
+    return ((configs.get_config("qwen3-4b").replace(n_layers=FSDP_LAYERS), 150, 13),
+            (configs.get_config(ROUTER_ARCH).replace(n_layers=FSDP_MOE_LAYERS), 152, 15))
+
+
+def _fsdp_tokens(cfg, seed):
+    from repro_torch.data import TokenStream
+
+    return TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed).batch(0)[0]
+
+
+def _host_tree(tree):
+    from repro_torch.train import optimizer as opt
+
+    return opt.tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def _fsdp_rank(rank: int, world: int, init: str, tmp: str) -> None:
+    """One rank of phase 15: a gloo group on the one card running the FSDP
+    steps on its shards and rows. It compares its slices with the one-rank
+    runs' files and saves what it saw to ``tmp/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import random as rnd
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import params as layouts
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import analysis
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    deadline = time.monotonic() + FSDP_RANK_SECONDS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    tmp = pathlib.Path(tmp)
+    ocfg = opt.AdamWConfig(**TRAIN_LR)
+
+    def model(cfg, seed):
+        """(shards, placements, AdamW state, this rank's rows), the whole
+        tree drawn on the card and dropped."""
+        whole = tf.init_params(cfg, rnd.key(seed))
+        psh = layouts.param_shardings(cfg, whole)
+        shards = fsdp.shard_tree(whole, psh)
+        del whole
+        torch.cuda.empty_cache()
+        tokens = _fsdp_tokens(cfg, seed_tokens[cfg.name])
+        rows = fsdp.shard_tree({"tokens": tokens},
+                               layouts.input_shardings(cfg, {"tokens": tokens}))["tokens"]
+        return shards, psh, opt.adamw_init(shards), rows
+
+    def mine(tree, psh):
+        """This rank's slices of a whole host tree, on the card, in leaf order."""
+        return [t.cuda() for t in opt.leaves(fsdp.shard_tree(tree, psh))]
+
+    (qwen, q_seed, q_tok), (moe, m_seed, m_tok) = _fsdp_cases()
+    seed_tokens = {qwen.name: q_tok, moe.name: m_tok}
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    out: dict = {"rank": rank}
+    try:
+        mesh = init_device_mesh("cuda", (world,), mesh_dim_names=(sh.DATA,))
+        # the one-rank run's file; its process has freed the card's memory by then
+        one = _fsdp_wait(torch, tmp / "one_rank_a.pt", deadline)
+        with sh.use_mesh(mesh):
+            # the control: each rank's gradient left unreduced (its own slice of its own rows')
+            params, psh, state, rows = model(qwen, q_seed)
+            step = ts.make_train_step(qwen, ocfg, param_shardings=psh)
+            m1 = mine(one["m1"], psh)
+            own = fsdp._reduce_scatter_mean
+            fsdp._reduce_scatter_mean = lambda g, d: g.narrow(
+                d, sh._mesh_rank() * (g.shape[d] // world), g.shape[d] // world).clone()
+            try:
+                _, state, m = step(params, state, rows, rows)
+            finally:
+                fsdp._reduce_scatter_mean = own
+            out["control_norm"] = float(m["grad_norm"])
+            out["control_m1"] = _moment_miss(torch, list(opt.leaves(state["m"])), m1)
+            del params, state
+            torch.cuda.empty_cache()
+            # 15a
+            base = torch.cuda.memory_allocated()
+            params, psh, state, rows = model(qwen, q_seed)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out["loss"], out["grad_norm"], out["step_s"] = [], [], []
+            for i in range(FSDP_STEPS):
+                analysis.collective_bytes(reset=True)
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, rows, rows)
+                torch.cuda.synchronize()
+                out["step_s"].append(time.perf_counter() - t0)
+                out["loss"].append(float(m["loss"]))
+                out["grad_norm"].append(float(m["grad_norm"]))
+                if i == 0:
+                    out["counts"] = analysis.collective_bytes(reset=True)
+                    out["resident"] = torch.cuda.memory_allocated() - base
+                    out["m1"] = _moment_miss(torch, list(opt.leaves(state["m"])), m1)
+                    out["params"] = _params_miss(torch, opt.leaves(params), mine(one["p1"], psh),
+                                                 m1)
+                    del m1
+            out["peak"] = torch.cuda.max_memory_allocated() - base
+            del state
+            # 15b: the same shards serve, teacher-forced on the one-rank run's greedy tokens
+            greedy = one["greedy"].cuda()  # [FSDP_DECODE, 2]
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = tf.prefill(qwen, params, rows[:, :FSDP_PROMPT],
+                                           max_seq_len=FSDP_PROMPT + FSDP_DECODE,
+                                           param_shardings=psh)
+                out["logits"] = [logits.float().cpu()]
+                for i in range(FSDP_DECODE):
+                    logits, cache = tf.decode(qwen, params, cache, greedy[i, rank:rank + 1],
+                                              FSDP_PROMPT + i, param_shardings=psh)
+                    out["logits"].append(logits.float().cpu())
+            torch.cuda.synchronize()
+            out["serve_s"] = time.perf_counter() - t0
+            del params, cache, one, logits
+            torch.cuda.empty_cache()
+            # 15c
+            params, psh, state, rows = model(moe, m_seed)
+            t0 = time.perf_counter()
+            params, state, m = ts.make_train_step(moe, ocfg, param_shardings=psh)(
+                params, state, rows, rows)
+            torch.cuda.synchronize()
+            out["moe_s"] = time.perf_counter() - t0
+            out["moe_loss"], out["moe_norm"] = float(m["loss"]), float(m["grad_norm"])
+            del params
+            emu = _fsdp_wait(torch, tmp / "one_rank_c.pt", deadline)
+            out["moe_m1"] = _moment_miss(torch, list(opt.leaves(state["m"])),
+                                         mine(emu["m1"], psh))
+        _fsdp_save(torch, out, tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _fsdp_join(torch, ctx, tmp: pathlib.Path, deadline: float) -> list[dict]:
+    """Phase 15's ranks joined by ``deadline``: a hang or a rank's failure
+    fails the phase, and every rank is stopped."""
+    import torch.multiprocessing as mp
+
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            check(time.monotonic() < deadline,
+                  f"15: the {FSDP_WORLD} ranks did not finish in {FSDP_RANK_SECONDS} s")
+    except mp.ProcessRaisedException as e:
+        raise SmokeFailure(f"15: a rank failed:\n{e}") from e
+    except mp.ProcessExitedException as e:
+        raise SmokeFailure(f"15: a rank exited: {e}") from e
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+                p.join(5)
+    return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(FSDP_WORLD)]
+
+
+def _one_rank(torch, cfg, seed, token_seed, steps, path: pathlib.Path, serve=False) -> dict:
+    """The W-rank step's semantics at one rank, no mesh: ``steps`` steps of
+    ``make_train_step(cfg)`` with the ranks' rows as its micro-batches
+    (each row apart: its own MoE capacity and load-balance term; the losses
+    and gradients averaged), then with ``serve`` a prefill and greedy
+    decode. What the ranks compare with (the first moment and the
+    parameters after step 1, the greedy tokens) goes to ``path`` once the
+    card's memory is freed."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    tokens = _fsdp_tokens(cfg, token_seed)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    params, state, n_params, _ = _train_state(torch, ts, opt, cfg, seed)
+    step = ts.make_train_step(cfg.replace(grad_accum=FSDP_WORLD), opt.AdamWConfig(**TRAIN_LR))
+    torch.cuda.reset_peak_memory_stats()
+    out: dict = {"loss": [], "grad_norm": [], "step_s": [], "n_params": n_params}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, tokens, tokens)
+        torch.cuda.synchronize()
+        out["step_s"].append(time.perf_counter() - t0)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if i == 0:
+            out["resident"] = torch.cuda.memory_allocated() - base
+            saved = {"m1": _host_tree(state["m"]), "p1": _host_tree(params)}
+    out["peak"] = torch.cuda.max_memory_allocated() - base
+    del state
+    if serve:
+        greedy, out["logits"] = [], []
+        with torch.no_grad():
+            last, cache = tf.prefill(cfg, params, tokens[:, :FSDP_PROMPT],
+                                     max_seq_len=FSDP_PROMPT + FSDP_DECODE)
+            for i in range(FSDP_DECODE + 1):
+                out["logits"].append(last.float().cpu())
+                if i == FSDP_DECODE:
+                    break
+                greedy.append(torch.argmax(last[:, :cfg.vocab], -1).to(torch.int32))
+                last, cache = tf.decode(cfg, params, cache, greedy[-1], FSDP_PROMPT + i)
+        saved["greedy"] = torch.stack(greedy).cpu()
+        del cache, last, greedy
+    del params, step
+    torch.cuda.empty_cache()  # before the file: the ranks start on it
+    _fsdp_save(torch, saved, path)
+    return out
+
+
+def phase_fsdp(torch, smi):
+    """Phase 15: the FSDP step on two gloo ranks on the one card. 15a
+    qwen3-4b at full width (2 layers, bf16, remat) trained two steps
+    against the same steps at one rank (loss, grad-norm, first moment,
+    parameters; an unreduced control; the collectives against the dry
+    run's rule; resident bytes), 15b the same shards serving, 15c
+    deepseek-moe-16b (1 layer) against a one-rank emulation of the W-rank
+    semantics."""
+    import torch.multiprocessing as mp
+
+    from repro_torch import configs
+    from repro_torch import random as rnd
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import params as layouts
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    (qwen, q_seed, q_tok), (moe, m_seed, m_tok) = _fsdp_cases()
+    _published(qwen, QWEN_FULL, "qwen3-4b")
+    check(qwen.remat and qwen.dtype == torch.bfloat16, f"15a: {qwen}")
+    with tempfile.TemporaryDirectory(prefix="fsdp_") as tmp:
+        tmp = pathlib.Path(tmp)
+        ctx = mp.start_processes(_fsdp_rank, args=(FSDP_WORLD, f"file://{tmp}/rendezvous",
+                                                   str(tmp)),
+                                 nprocs=FSDP_WORLD, join=False, start_method="spawn")
+        deadline = time.monotonic() + FSDP_RANK_SECONDS
+        try:
+            one = _one_rank(torch, qwen, q_seed, q_tok, FSDP_STEPS, tmp / "one_rank_a.pt",
+                            serve=True)
+            with dryrun.fake_mesh(FSDP_WORLD):  # the dry run's record of the same cell
+                rec = dryrun.trace_cell(qwen, configs.Shape("train_2x4k", TRAIN_SEQ,
+                                                            TRAIN_BATCH, "train"))
+                whole = transformer.init_params(qwen, rnd.key(0), device="meta")
+                psh = layouts.param_shardings(qwen, whole)
+            emu = _one_rank(torch, moe, m_seed, m_tok, 1, tmp / "one_rank_c.pt")
+        except BaseException:
+            for p in ctx.processes:
+                p.terminate()
+            raise
+        ranks = _fsdp_join(torch, ctx, tmp, deadline)
+    replicated = sum(t.numel() * 4 * 3 for t, p in zip(opt.leaves(whole), opt.leaves(psh))
+                     if fsdp.shard_dim(p) is None)  # parameters, m and v
+    lr = TRAIN_LR["lr"]
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            failures.append(what)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    # 15a
+    for r in ranks:
+        k = r["rank"]
+        loss_rel = max(rel(a, b) for a, b in zip(r["loss"], one["loss"]))
+        norm_rel = max(rel(a, b) for a, b in zip(r["grad_norm"], one["grad_norm"]))
+        l2, share = r["m1"]
+        c_l2, _ = r["control_m1"]
+        c_norm = rel(r["control_norm"], one["grad_norm"][0])
+        inside, anywhere = r["params"]
+        limit = one["resident"] / FSDP_WORLD + replicated + FSDP_RESIDENT_SLACK
+        est = rec["memory"]["peak_bytes_est"]
+        print(f"[fsdp] 15a rank {k} of {FSDP_WORLD}: qwen3-4b ({FSDP_LAYERS} of 36 layers, bf16, "
+              f"remat) {FSDP_STEPS} FSDP steps on its row of [{TRAIN_BATCH}, {TRAIN_SEQ:,}] "
+              f"against one rank's on the same two rows as micro-batches: losses "
+              + ", ".join(f"{x:.6f}" for x in r["loss"]) + " against "
+              + ", ".join(f"{x:.6f}" for x in one["loss"])
+              + f", grad-norms " + ", ".join(f"{x:.6f}" for x in r["grad_norm"]) + " against "
+              + ", ".join(f"{x:.6f}" for x in one["grad_norm"])
+              + f" (relative {loss_rel:.3g} and {norm_rel:.3g}, limit {FSDP_RTOL}); the first "
+              f"moment within a relative L2 of {l2:.3g} and a leaf's share {share:.3g} (limit "
+              f"{FSDP_MOMENT_TOL}); the parameters after step 1 past {FSDP_PARAM_TOL[1]} "
+              f"relative by {inside:.3g} where the moment is signed (limit "
+              f"{FSDP_PARAM_TOL[0]}), {anywhere:.3g} apart anywhere (limit {2 * lr}); seconds "
+              f"a step "
+              + ", ".join(f"{x:.3f}" for x in r["step_s"]) + " against one rank's "
+              + ", ".join(f"{x:.3f}" for x in one["step_s"]) + f" ({smi})")
+        print(f"[fsdp] 15a rank {k} control, its gradient left unreduced: grad-norm "
+              f"{r['control_norm']:.6f} misses by {c_norm:.3g} ({c_norm / FSDP_RTOL:.0f}× the "
+              f"limit), the first moment by a relative L2 of {c_l2:.3g} "
+              f"({c_l2 / FSDP_MOMENT_TOL:.0f}× the limit; each must be ≥ {FSDP_CONTROL}×) "
+              f"({smi})")
+        print(f"[fsdp] 15a rank {k}: collectives of step 1 {r['counts']}, the dry run's rule "
+              f"for the cell at W = {FSDP_WORLD} {rec['collectives']}; resident bytes after step "
+              f"1 {r['resident']:,} against one rank's {one['resident']:,} (limit {limit:,.0f}: "
+              f"1/{FSDP_WORLD} + the replicated leaves' {replicated:,} + "
+              f"{FSDP_RESIDENT_SLACK:,}); peak {r['peak'] / 2**30:.3f} GiB against the dry "
+              f"run's peak_bytes_est {est / 2**30:.3f} GiB: ratio {r['peak'] / est:.4f} (one "
+              f"rank's peak {one['peak'] / 2**30:.3f} GiB) ({smi})")
+        gate(loss_rel <= FSDP_RTOL and norm_rel <= FSDP_RTOL,
+             f"15a rank {k} loss {r['loss']}, grad-norm {r['grad_norm']} against "
+             f"{one['loss']}, {one['grad_norm']}")
+        gate(l2 <= FSDP_MOMENT_TOL and share <= FSDP_MOMENT_TOL,
+             f"15a rank {k} first moment {l2}, {share}")
+        gate(inside <= FSDP_PARAM_TOL[0] and anywhere <= 2 * lr + FSDP_PARAM_TOL[0],
+             f"15a rank {k} parameters {inside}, {anywhere}")
+        gate(c_norm >= FSDP_CONTROL * FSDP_RTOL and c_l2 >= FSDP_CONTROL * FSDP_MOMENT_TOL,
+             f"15a rank {k} control missed by {c_norm}, {c_l2} only")
+        gate(r["counts"] == rec["collectives"], f"15a rank {k} collectives {r['counts']}")
+        gate(r["resident"] <= limit, f"15a rank {k} resident {r['resident']:,} > {limit:,.0f}")
+    # 15b
+    worst = max(_share(torch, torch.cat([r["logits"][i] for r in ranks]), one["logits"][i],
+                       qwen.vocab) for i in range(FSDP_DECODE + 1))
+    print(f"[fsdp] 15b the same shards serve: prefill [{TRAIN_BATCH}, {FSDP_PROMPT}] (a row a "
+          f"rank) and {FSDP_DECODE} decode steps teacher-forced on one rank's greedy tokens: "
+          f"logits within {worst:.3g} of max |logit| of one rank's (limit {TF_SHARE_BF16}, bf16 "
+          f"at other shapes); seconds " + ", ".join(f"{r['serve_s']:.3f}" for r in ranks)
+          + f" ({smi})")
+    gate(worst <= TF_SHARE_BF16, f"15b logits {worst}")
+    # 15c
+    for r in ranks:
+        lrel, nrel = rel(r["moe_loss"], emu["loss"][0]), rel(r["moe_norm"], emu["grad_norm"][0])
+        l2, share = r["moe_m1"]
+        print(f"[fsdp] 15c rank {r['rank']}: deepseek-moe-16b ({FSDP_MOE_LAYERS} of 28 layers, "
+              f"{moe.n_experts} experts, capacity from the rank's tokens) one FSDP step against "
+              f"one rank running each rank's row apart: loss {r['moe_loss']:.6f} against "
+              f"{emu['loss'][0]:.6f} (relative {lrel:.3g}), grad-norm {r['moe_norm']:.6f} "
+              f"against {emu['grad_norm'][0]:.6f} (relative {nrel:.3g}; limit {FSDP_RTOL}), "
+              f"the first moment within a relative L2 of {l2:.3g} and a leaf's share "
+              f"{share:.3g} (limit {FSDP_MOMENT_TOL}); {r['moe_s']:.3f} s against "
+              f"{emu['step_s'][0]:.3f} s ({smi})")
+        gate(max(lrel, nrel) <= FSDP_RTOL and max(l2, share) <= FSDP_MOMENT_TOL,
+             f"15c rank {r['rank']}: {lrel}, {nrel}, {l2}, {share}")
+    print(f"[fsdp] phase 15 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    check(not failures, "; ".join(failures))
+
+
 # ---------------------------------------------------------------- main
 def main(argv) -> int:
     import torch
@@ -4223,6 +4648,8 @@ def _phases(torch, argv, shard_dir: str) -> int:
     phase_train(torch, smi)
     # phase 14
     phase_dryrun(torch, smi)
+    # phase 15
+    phase_fsdp(torch, smi)
     if parent is not None:
         phase_walls(argv[argv.index("--parent") + 1])
     if "--profile" in argv:

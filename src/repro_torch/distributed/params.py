@@ -14,10 +14,11 @@ does on a mesh without a model axis (``src/repro/distributed/sharding.py``):
 
 Each function returns a tree shaped like its input whose leaves are
 ``torch.distributed.tensor`` placement tuples, one entry per mesh dimension:
-``(Shard(d),)`` or ``(Replicate(),)``. The port runs no FSDP step
-(``train_step.make_train_step`` refuses ``param_shardings``): these
-placements serve the dry run's per-device accounting
-(``repro_torch.launch.dryrun``).
+``(Shard(d),)`` or ``(Replicate(),)``. They lay out the port's FSDP step
+(``distributed.fsdp``: ``train_step.make_train_step(param_shardings=...)``,
+``transformer.prefill``/``decode``, ``train.checkpoint``'s elastic
+restore) and the dry run's per-device accounting
+(``repro_torch.launch.dryrun``), which traces that step.
 """
 
 from __future__ import annotations

@@ -27,6 +27,9 @@ Each collective issued here is counted by kind in
 ``repro_torch.roofline.analysis.collective_bytes`` reads in the shape of the
 reference's ``parse_collective_bytes``.
 
+The FSDP step (``distributed.fsdp``) builds its all-gathers and
+reduce-scatters the same way.
+
 The port splits rows only: there is no ``"model"`` axis. So
 :func:`shard`, the models' layout constraint, returns its input (the
 reference's is a no-op without a model mesh too), and the reference's
@@ -51,8 +54,11 @@ _local = threading.local()
 
 #: bytes and calls of the collectives issued in this process, by kind: a
 #: reduction is an ``all-reduce``; a gather, one ``all_reduce`` of a
-#: ``[W, ...]`` buffer, an ``all-gather`` (each call is counted once)
-COLLECTIVE_COUNTS = {kind: {"bytes": 0, "count": 0} for kind in ("all-gather", "all-reduce")}
+#: ``[W, ...]`` buffer, an ``all-gather`` (each call is counted once); the
+#: FSDP step's gradient reductions (``distributed.fsdp``) a ``reduce-scatter``,
+#: its embedding's exchange of rows an ``all-to-all``
+COLLECTIVE_COUNTS = {kind: {"bytes": 0, "count": 0}
+                     for kind in ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")}
 
 
 @contextlib.contextmanager
@@ -107,17 +113,18 @@ def _mesh_rank() -> int:
 _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
 
 
-def _all_reduce(t: torch.Tensor, op: str = "sum", kind: str = "all-reduce") -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, op: str = "sum", kind: str = "all-reduce",
+                nbytes: int | None = None) -> torch.Tensor:
     """``t`` reduced over the ranks in place (``op`` one of sum, min, max);
     ``t`` itself without a mesh. Integer and min/max reductions are exact.
-    The call is counted under ``kind``."""
+    The call is counted under ``kind`` with ``nbytes`` (default: ``t``'s)."""
     mesh = current_mesh()
     if mesh is None:
         return t
     import torch.distributed as dist
 
     tally = COLLECTIVE_COUNTS[kind]
-    tally["bytes"] += t.numel() * t.element_size()
+    tally["bytes"] += t.numel() * t.element_size() if nbytes is None else nbytes
     tally["count"] += 1
     dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]), group=mesh.get_group(DATA))
     return t

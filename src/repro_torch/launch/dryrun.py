@@ -12,15 +12,22 @@ backend, no device and no communication), builds
 inputs out with ``distributed.params``, and runs the cell's step once on
 meta tensors, which carry shapes and dtypes and no storage:
 
-* train: ``train_step.make_train_step(cfg)``'s step (loss, gradients with
-  ``cfg.remat``'s checkpoints, the AdamW update in place);
-* prefill: ``transformer.prefill(..., max_seq_len=S)``;
+* train: ``train_step.make_train_step(cfg, param_shardings=...)``'s step
+  (loss, gradients with ``cfg.remat``'s checkpoints, the AdamW update in
+  place);
+* prefill: ``transformer.prefill(..., max_seq_len=S, param_shardings=...)``;
 * decode: ``transformer.decode`` at position S − 1 over a full cache.
 
-The step runs at the per-rank shapes: the batch is divided by W where
-``input_shardings`` splits it, and stays whole on every rank where W does
-not divide it (``per_rank_batch``, ``batch_split``). It runs on the whole
-parameters, as the port's step does.
+The step is the one the port executes on W ranks, at one rank's shapes:
+its shards of the parameters and of the optimizer state
+(``distributed.fsdp``: each layer gathered where it runs, each sharded
+gradient reduce-scattered in the backward), its rows of the batch (B/W
+where ``input_shardings`` splits it; the whole batch on every rank where W
+does not divide it: ``per_rank_batch``, ``batch_split``). On the meta
+device a collective makes the tensor a native all-gather or reduce-scatter
+would (the whole leaf, the shard) and moves nothing; the gloo emulation's
+``[W, ...]`` buffers are not traced. At W = 1 the step is the unsharded
+one.
 
 What a record holds (the reference's keys where their meaning holds):
 
@@ -33,16 +40,27 @@ What a record holds (the reference's keys where their meaning holds):
 * ``bytes_accessed``: over every aten op that is not a view, the bytes of
   its tensor inputs and outputs: the unfused upper bound (the report's
   "memory s (ub)").
-* ``collectives``: counted from the layout, not parsed from a program, in
-  operand bytes as the reference's ``parse_collective_bytes`` counts them,
-  in the shape of ``roofline.analysis.collective_bytes()``. The rule, with
-  W > 1 (one rank has none): every data-sharded parameter leaf is
-  all-gathered in ``cfg.dtype`` (the dtype it is used in) once per forward
-  pass over it, so ``grad_accum`` times a train step and twice that with
-  remat, its operand the rank's shard; every gradient leaf is reduced once
-  in f32, reduce-scatter where the leaf is sharded and all-reduce where it
-  is replicated, its operand the whole leaf. A stacked leaf is one call a
-  layer.
+* ``collectives``: counted from the layout by the rule below, in operand
+  bytes as the reference's ``parse_collective_bytes`` counts them, in the
+  shape of ``roofline.analysis.collective_bytes()``; the trace counts the
+  collectives the step issues and raises where they differ from the rule.
+  The rule, with W > 1 (one rank has none): every data-sharded parameter
+  leaf is all-gathered in the dtype it is used in (``cfg.dtype`` where the
+  model casts at use; the embedding as stored, its rows cast after the
+  lookup) once per forward pass over it, so ``grad_accum`` times a train
+  step, its operand the rank's shard; a leaf of the stacked layers is
+  gathered again in the backward under ``cfg.remat`` (the embedding, the
+  head and the hybrid's shared block are gathered outside the
+  checkpoints, once a pass). But where a pass looks up n < V token ids a
+  rank, the embedding (V rows, sharded on its columns) moves those rows
+  instead of itself: the pass all-gathers the rank's n ids (8 bytes each)
+  and all-to-alls its n rows (n × D in the table's dtype), and a train
+  step's backward all-to-alls their f32 gradients. In a train step every
+  other gathered leaf's f32 gradient is
+  reduce-scattered once per micro-batch, its operand the whole leaf; the
+  replicated leaves' f32 gradients and the loss are averaged in one
+  all-reduce a step, and the squared gradient norm summed in another (4
+  bytes). A stacked leaf is one call a layer.
 * ``memory``, per rank:
 
   - ``argument_bytes``: the rank's shards of the parameters, the optimizer
@@ -53,14 +71,9 @@ What a record holds (the reference's keys where their meaning holds):
     port's step updates them in place);
   - ``temp_bytes``: the live-bytes peak of the trace (a dispatch mode adds
     each storage an op creates and takes it off when the storage is freed),
-    less the outputs the step made, plus the largest gathered layer: with
-    W > 1, over the stacked layers (and the embedding and head apart), the
-    most bytes of data-sharded leaves that the step reads in their stored
-    dtype, whole (a leaf cast to ``cfg.dtype`` at use is held whole by the
-    trace's cast already). The trace holds every gradient whole until the
-    update, as the port's step does; an FSDP step that reduce-scatters a
-    layer's gradient in the backward would hold 1/W of it, so with W > 1
-    this is an upper bound;
+    less the outputs the step made: the gathered layers and the gradients
+    as the FSDP step holds them (a sharded leaf's gradient whole only
+    until its reduce-scatter), without the gloo emulation's buffers;
   - ``peak_bytes_est``: the reference's formula, argument + output + temp
     − alias.
 
@@ -100,11 +113,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import configs
 from repro_torch import random as rnd
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import params as param_rules
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_production_mesh, production_mesh_name, production_world
 from repro_torch.models import transformer
 from repro_torch.roofline import analysis
+from repro_torch.train import optimizer
 from repro_torch.train import train_step as ts
 
 __all__ = ["cell_step", "fake_group", "fake_mesh", "main", "run_cell", "trace_cell"]
@@ -112,7 +127,7 @@ __all__ = ["cell_step", "fake_group", "fake_mesh", "main", "run_cell", "trace_ce
 RESULTS = pathlib.Path(os.environ.get("REPRO_RESULTS", "results/dryrun"))
 
 #: the collective kinds of a record, as ``analysis.collective_bytes`` names them
-_KINDS = ("all-gather", "reduce-scatter", "all-reduce")
+_KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
 
 
 @contextlib.contextmanager
@@ -249,12 +264,6 @@ def _walk(tree, places, names=()):
             yield (*names, k), v, places[k]
 
 
-def _local_bytes(tree, places, world: int) -> int:
-    """The rank's bytes of a tree laid out by ``places``."""
-    return sum(prod(_local_shape(t.shape, p, world)) * t.element_size()
-               for _, t, p in _walk(tree, places))
-
-
 #: leading stacked axes of the parameter leaves under each top-level key
 _STACKED = {"layers": 1, "mamba_tail": 1, "cross_layers": 1, "self_layers": 2,
             "mamba_groups": 2}
@@ -296,9 +305,11 @@ def cell_step(cfg: configs.ArchConfig, shape: configs.Shape, *,
     """``(step, args, info)`` of the cell on the current mesh:
     ``step(*args)`` runs the cell's step once at the per-rank shapes, its
     parameters and inputs drawn from seed 0 on ``device`` (on the meta
-    device nothing is allocated). ``info`` holds the config the step runs
+    device nothing is allocated); with W > 1 the step takes the rank's
+    shards (``fsdp.shard_tree``). ``info`` holds the config the step runs
     (``grad_accum`` 1 where the rank's rows do not split into
-    ``cfg.grad_accum`` micro-batches), the per-rank ``inputs``, their
+    ``cfg.grad_accum`` micro-batches), the ``whole`` parameter tree and
+    its ``param_shardings``, the per-rank ``inputs``, their
     ``input_shardings``, ``per_rank_batch`` and ``batch_split``."""
     world = sh.axis_size(sh.DATA)
     specs = configs.input_specs(cfg, shape)
@@ -311,99 +322,107 @@ def cell_step(cfg: configs.ArchConfig, shape: configs.Shape, *,
     per_rank = int(inputs[lead].shape[0])
     if shape.kind == "train" and per_rank % max(1, cfg.grad_accum):
         cfg = cfg.replace(grad_accum=1)  # the rank's rows do not split: one micro-batch
-    key = rnd.key(0)
     img = (inputs["image_embeds"],) if cfg.family == "vlm" and shape.kind != "decode" else ()
+    whole = transformer.init_params(cfg, rnd.key(0), device=device)
+    psh = param_rules.param_shardings(cfg, whole)
+    ps = psh if world > 1 else None
+    params = fsdp.shard_tree(whole, psh) if world > 1 else whole
     if shape.kind == "train":
-        params, state = ts.init_train_state(cfg, key, device=device)
-        step = ts.make_train_step(cfg)
-        args = (params, state, inputs["tokens"], inputs["labels"], *img)
+        step = ts.make_train_step(cfg, param_shardings=ps)
+        args = (params, optimizer.adamw_init(params), inputs["tokens"], inputs["labels"], *img)
     elif shape.kind == "prefill":
-        params = transformer.init_params(cfg, key, device=device)
 
         def step(params, tokens, image_embeds=None):
             with torch.no_grad():
                 return transformer.prefill(cfg, params, tokens, image_embeds,
-                                           max_seq_len=shape.seq_len)
+                                           max_seq_len=shape.seq_len, param_shardings=ps)
 
         args = (params, inputs["tokens"], *img)
     else:
-        params = transformer.init_params(cfg, key, device=device)
 
         def step(params, cache, token):
             with torch.no_grad():
-                return transformer.decode(cfg, params, cache, token, shape.seq_len - 1)
+                return transformer.decode(cfg, params, cache, token, shape.seq_len - 1,
+                                          param_shardings=ps)
 
         args = (params, inputs["cache"], inputs["token"])
-    info = {"cfg": cfg, "inputs": inputs, "input_shardings": in_sh, "per_rank_batch": per_rank,
+    info = {"cfg": cfg, "whole": whole, "param_shardings": psh, "inputs": inputs,
+            "input_shardings": in_sh, "per_rank_batch": per_rank,
             "batch_split": _is_sharded(in_sh[lead])}
     return step, args, info
 
 
 def _collectives(cfg, shape, params, places, world: int) -> dict[str, Any]:
     """A step's collective operand bytes by the rule of the module
-    docstring."""
+    docstring (``cfg`` the config the step runs: ``cell_step``'s)."""
     out: dict[str, Any] = {k: {"bytes": 0, "count": 0} for k in _KINDS}
+
+    def add(kind, nbytes, calls=1):
+        out[kind]["bytes"] += nbytes
+        out[kind]["count"] += calls
+
     if world > 1:
-        use = torch.empty((), dtype=cfg.dtype).element_size()
-        passes = 1
-        if shape.kind == "train":
-            passes = max(1, cfg.grad_accum) * (2 if cfg.remat else 1)
+        train = shape.kind == "train"
+        accum = max(1, cfg.grad_accum) if train else 1
+        rows = shape.global_batch // world if shape.global_batch % world == 0 else shape.global_batch
+        tokens = rows * (1 if shape.kind == "decode" else shape.seq_len) // accum  # a pass
+        replicated = 0
         for names, t, p in _walk(params, places):
             calls = _layers_of(names, t)
-            sharded = _is_sharded(p)
-            if sharded:
-                out["all-gather"]["bytes"] += passes * prod(_local_shape(t.shape, p, world)) * use
-                out["all-gather"]["count"] += passes * calls
-            if shape.kind == "train":
-                kind = "reduce-scatter" if sharded else "all-reduce"
-                out[kind]["bytes"] += t.numel() * 4
-                out[kind]["count"] += calls
+            if not _is_sharded(p):
+                replicated += t.numel()
+                continue
+            embed = names == ("embed",)
+            if embed and tokens < t.shape[0]:  # the rows the ranks look up move, not the table
+                for _ in range(accum):
+                    add("all-gather", tokens * 8)
+                    add("all-to-all", tokens * t.shape[1] * t.element_size())
+                    if train:
+                        add("all-to-all", tokens * t.shape[1] * 4)
+                continue
+            use = t.element_size() if embed else torch.empty(
+                (), dtype=fsdp.use_dtype(cfg, t)).element_size()
+            remat = 2 if train and cfg.remat and names[0] in _STACKED else 1
+            add("all-gather", accum * remat * use * prod(_local_shape(t.shape, p, world)),
+                accum * remat * calls)
+            if train:
+                add("reduce-scatter", accum * t.numel() * 4, accum * calls)
+        if train:  # the replicated gradients with the loss, then the squared norm
+            add("all-reduce", (replicated + 1) * 4, 1)
+            add("all-reduce", 4, 1)
     out["total_bytes"] = sum(v["bytes"] for v in out.values())
     return out
-
-
-def _gathered_layer(cfg, params, places, world: int) -> int:
-    """The largest gathered layer the trace does not hold already: over the
-    stacked layers (the embedding, the head and each other top-level leaf
-    or block apart), the most bytes of data-sharded leaves read in their
-    stored dtype; 0 on one rank."""
-    if world == 1:
-        return 0
-    casts = cfg.cast_params_before_use and cfg.param_dtype != cfg.dtype
-    units: dict[str, int] = {}
-    for names, t, p in _walk(params, places):
-        if _is_sharded(p) and (names[-1] == "embed" or not casts):
-            unit = names[0] if names[0] in _STACKED or len(names) > 1 else "/".join(names)
-            units[unit] = units.get(unit, 0) + t.numel() * t.element_size() // _layers_of(names, t)
-    return max(units.values(), default=0)
 
 
 def trace_cell(cfg: configs.ArchConfig, shape: configs.Shape) -> dict[str, Any]:
     """Trace the cell's step once on the meta device on the current mesh
     and return the record's cost fields (the module docstring)."""
-    from torch.distributed.tensor import Replicate
-
     world = sh.axis_size(sh.DATA)
     t0 = time.perf_counter()
     step, args, info = cell_step(cfg, shape, device="meta")
-    params = args[0]
-    psh = param_rules.param_shardings(cfg, params)
+    whole, psh = info["whole"], info["param_shardings"]
     held = _storage_keys(args)
+    analysis.collective_bytes(reset=True)
     with _Tally(set(held)) as tally:
         result = step(*args)
     trace_s = time.perf_counter() - t0
+    collectives = _collectives(info["cfg"], shape, whole, psh, world)
+    traced = analysis.collective_bytes(reset=True)
+    if traced != collectives:
+        raise RuntimeError(f"{cfg.name} × {shape.name}: the traced step's collectives {traced} "
+                           f"are not the rule's {collectives}")
     made = sum(n for k, n in _storage_keys(result).items() if k not in held)
-    param_bytes = _local_bytes(params, psh, world)
+    param_bytes = _nbytes(_tensors(args[0], []))
     arg_bytes = param_bytes + _nbytes(_tensors(info["inputs"], []))
     alias = 0
     if shape.kind == "train":  # the optimizer state is an argument too; both are donated
-        state_bytes = _local_bytes(args[1], {"m": psh, "v": psh, "step": (Replicate(),)}, world)
+        state_bytes = _nbytes(_tensors(args[1], []))
         arg_bytes += state_bytes
         alias = param_bytes + state_bytes
     memory = {
         "argument_bytes": arg_bytes,
         "output_bytes": alias + made,
-        "temp_bytes": tally.peak - made + _gathered_layer(cfg, params, psh, world),
+        "temp_bytes": tally.peak - made,
         "alias_bytes": alias,
     }
     memory["peak_bytes_est"] = (memory["argument_bytes"] + memory["output_bytes"]
@@ -412,7 +431,7 @@ def trace_cell(cfg: configs.ArchConfig, shape: configs.Shape) -> dict[str, Any]:
         "trace_s": round(trace_s, 3),
         "flops": float(tally.flops),
         "bytes_accessed": float(tally.bytes_accessed),
-        "collectives": _collectives(info["cfg"], shape, params, psh, world),
+        "collectives": collectives,
         "grad_accum": info["cfg"].grad_accum,
         "memory": memory,
         "per_rank_batch": info["per_rank_batch"],

@@ -8,7 +8,12 @@ the router is top-k over the softmax with renormalised probabilities, plus
 the load-balance aux loss. The reference's expert- and tensor-parallel
 islands need a model axis, which the port leaves out by design, so
 ``moe_ffn`` always takes the local path (the reference's ``mesh is None``
-branch).
+branch). On a ``"data"`` mesh the reference runs its ``"ep"`` island at one
+model rank, which is that path on the rank's tokens (capacity sized from
+them) with the expert weights gathered and ``aux`` averaged over the ranks:
+under the port's FSDP step the layer gets the rank's rows and its gathered
+weights (``transformer``), and the step averages the loss, ``aux``
+included, over the ranks (``train.train_step``).
 
 Order, as the reference has it: ``jax.lax.top_k`` puts the lower index
 first on ties, so the router takes a stable descending sort; the dispatch

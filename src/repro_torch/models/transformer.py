@@ -24,6 +24,16 @@ shared block, the vlm's cross block) runs under
 reference's per-layer ``jax.checkpoint``; under ``no_grad`` or
 ``inference_mode`` nothing is checkpointed.
 
+Under a mesh of W > 1 ranks, :func:`forward`, :func:`prefill` and
+:func:`decode` given ``param_shardings`` (``distributed.params``' placement
+tree) take ``params`` as this rank's shards (``distributed.fsdp``) and the
+rank's rows: each layer's weights are gathered where the layer runs
+(inside ``cfg.remat``'s checkpoint, so the backward gathers them again),
+the embedding and the head where they are used, the hybrid's shared block
+once a pass. A MoE layer sizes its capacity from the rank's tokens and its
+``aux`` is the rank's; the train step averages the loss, aux included,
+over the ranks (the reference's ``"ep"`` island at one model rank).
+
 Caches are functional for callers: :func:`prefill`, :func:`decode` and
 :func:`dense_block_decode` return new caches and leave the ones they were
 given as they were, nested trees included, as the reference's do. The
@@ -42,7 +52,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import random as rnd
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed import fsdp
+from repro_torch.distributed.sharding import current_mesh, shard, use_mesh
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import mamba2, moe
 from repro_torch.models.layers import (
@@ -348,14 +359,19 @@ def _shared_block_full(cfg, params, x, x0, pos_ctx, *, return_kv=False):
     return shard(x + h, "batch", "seq", None), kvs
 
 
-def _embed(cfg, params, tokens):
+def _embed(cfg, params, tokens, ps=None):
     """Rows of the embedding in ``cfg.dtype`` (gathered, then cast: the
-    same values as the reference's cast-then-gather)."""
-    return _wt(cfg, params["embed"][tokens.long()], cfg.dtype)
+    same values as the reference's cast-then-gather). Sharded, the rows
+    come through ``fsdp.lookup`` as stored, so the gradient adds in that
+    dtype too."""
+    if ps is None:
+        return _wt(cfg, params["embed"][tokens.long()], cfg.dtype)
+    return _wt(cfg, fsdp.lookup(cfg, params["embed"], ps["embed"], tokens), cfg.dtype)
 
 
-def _head(cfg, params, x):
+def _head(cfg, params, x, ps=None):
     """f32 logits ``[..., vocab_padded]``, padding columns at −1e30."""
+    params = _use_keys(cfg, params, ps, ("final_norm", "out_head"))
     x = rmsnorm(x, params["final_norm"])
     logits = x.float() @ _wt(cfg, params["out_head"], x.dtype).float()
     if cfg.vocab_padded > cfg.vocab:  # mask the padding columns
@@ -370,6 +386,58 @@ def _kv_stacks(lead, b, s, cfg, dtype, device):
             torch.empty(shape, dtype=dtype, device=device))
 
 
+# ------------------------------------------------------------------ FSDP
+def _shardings(params: dict, param_shardings):
+    """The placement tree the seams gather by: ``None`` on whole
+    parameters, and on a mesh of one rank, where a shard is its leaf.
+    Raises outside a mesh and on a tree that does not match ``params``."""
+    if param_shardings is None:
+        return None
+    if current_mesh() is None:
+        raise ValueError("param_shardings lays parameters out on a mesh: call inside "
+                         "sharding.use_mesh(mesh)")
+    fsdp.check_places(params, param_shardings)
+    return param_shardings if fsdp.active() else None
+
+
+def _use(cfg, tree: dict, places):
+    """``tree`` for use: gathered from this rank's shards under ``places``,
+    itself on whole parameters (``places`` None)."""
+    return tree if places is None else fsdp.gather_tree(cfg, tree, places)
+
+
+def _at_use(fn, places):
+    """``fn(cfg, block, ...)`` that first gathers ``block`` under
+    ``places``: passed to ``run``, the gather is inside the checkpoint. It
+    runs on the current mesh wherever it is called: the backward recomputes
+    a checkpointed block on the autograd engine's thread, and a CUDA
+    backward's thread does not see the caller's (thread-local) mesh."""
+    if places is None:
+        return fn
+    mesh = current_mesh()
+
+    def gathered(cfg, block, *args, **kw):
+        with use_mesh(mesh):
+            return fn(cfg, fsdp.gather_tree(cfg, block, places), *args, **kw)
+
+    return gathered
+
+
+def _layer_places(ps, key: str, lead: int = 1):
+    """One layer's placements of the stack under ``key`` (``None``
+    without placements or such a stack)."""
+    return None if ps is None or key not in ps else fsdp.layer_places(ps[key], lead)
+
+
+def _use_keys(cfg, params: dict, ps, keys: tuple[str, ...]) -> dict:
+    """:func:`_use` of ``params``' entries ``keys``."""
+    return _use(cfg, {k: params[k] for k in keys}, None if ps is None else {k: ps[k] for k in keys})
+
+
+#: the hybrid's shared block and its input projection, gathered once a pass
+_SHARED = ("shared_in", "shared_block")
+
+
 # ------------------------------------------------------------------ forward
 def forward(
     cfg: ArchConfig,
@@ -379,6 +447,7 @@ def forward(
     *,
     collect_cache: bool = False,
     head_last_only: bool = False,
+    param_shardings=None,
 ):
     """Full-sequence forward. Returns (logits [B,S,V] f32, aux_loss,
     kv_stacks). With ``collect_cache``, ``kv_stacks`` is the reference's:
@@ -388,10 +457,12 @@ def forward(
     D]``.
 
     ``head_last_only`` computes the unembedding for the final position only
-    (prefill never needs [B, S, V] logits)."""
+    (prefill never needs [B, S, V] logits). With ``param_shardings``,
+    ``params`` are this rank's shards (the module docstring)."""
+    ps = _shardings(params, param_shardings)
     b, s = tokens.shape
     pos_ctx = _pos_ctx(cfg, s, tokens.device)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, ps)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     kvs = None
     remat = cfg.remat and torch.is_grad_enabled()
@@ -413,23 +484,28 @@ def forward(
             image_kv = _kv_stacks((g,), b, t, cfg, image_embeds.dtype, x.device)
             kvs = (self_kv, image_kv)
 
-        def cross(cb, x):
+        self_block = _at_use(_decoder_block_full, _layer_places(ps, "self_layers", 2))
+        cross_places = _layer_places(ps, "cross_layers")
+
+        def cross_full(cfg, cb, x):
             return _cross_block_full(cfg, cb, x, _image_kv(cfg, cb, image_embeds))
+
+        cross = _at_use(cross_full, cross_places)
 
         cross_layers = _unstack(params["cross_layers"], g)
         for gi, self_stack in enumerate(_unstack(params["self_layers"], g)):
             for i, blk in enumerate(_unstack(self_stack, per)):
-                x, kv_i, a = run(_decoder_block_full, cfg, blk, x, pos_ctx,
-                                 return_kv=collect_cache)
+                x, kv_i, a = run(self_block, cfg, blk, x, pos_ctx, return_kv=collect_cache)
                 aux_total = aux_total + a
                 if collect_cache:
                     self_kv[0][gi, i], self_kv[1][gi, i] = kv_i
             if collect_cache:
-                ikv = _image_kv(cfg, cross_layers[gi], image_embeds)
-                x = _cross_block_full(cfg, cross_layers[gi], x, ikv)
+                cb = _use(cfg, cross_layers[gi], cross_places)
+                ikv = _image_kv(cfg, cb, image_embeds)
+                x = _cross_block_full(cfg, cb, x, ikv)
                 image_kv[0][gi], image_kv[1][gi] = ikv
             else:
-                x = run(cross, cross_layers[gi], x)
+                x = run(cross, cfg, cross_layers[gi], x)
     elif cfg.family == "hybrid":
         g = cfg.n_layers // cfg.shared_attn_every
         per = cfg.shared_attn_every
@@ -437,28 +513,32 @@ def forward(
         x0 = x
         if collect_cache:
             kvs = _kv_stacks((g,), b, s, cfg, x.dtype, x.device)
+        shared = _use_keys(cfg, params, ps, _SHARED)
+        group_block = _at_use(_decoder_block_full, _layer_places(ps, "mamba_groups", 2))
         for gi, group in enumerate(_unstack(params["mamba_groups"], g)):
-            x, kv_g = run(_shared_block_full, cfg, params, x, x0, pos_ctx,
+            x, kv_g = run(_shared_block_full, cfg, shared, x, x0, pos_ctx,
                           return_kv=collect_cache)
             if collect_cache:
                 kvs[0][gi], kvs[1][gi] = kv_g
             for blk in _unstack(group, per):
-                x, _, _ = run(_decoder_block_full, ssm_cfg, blk, x, pos_ctx)
+                x, _, _ = run(group_block, ssm_cfg, blk, x, pos_ctx)
         if "mamba_tail" in params:
+            tail_block = _at_use(_decoder_block_full, _layer_places(ps, "mamba_tail"))
             for blk in _unstack(params["mamba_tail"], cfg.n_layers - g * per):
-                x, _, _ = run(_decoder_block_full, ssm_cfg, blk, x, pos_ctx)
+                x, _, _ = run(tail_block, ssm_cfg, blk, x, pos_ctx)
     else:
         collect = collect_cache and cfg.family != "ssm"
         if collect:
             kvs = _kv_stacks((cfg.n_layers,), b, s, cfg, x.dtype, x.device)
+        block = _at_use(_decoder_block_full, _layer_places(ps, "layers"))
         for i, blk in enumerate(_unstack(params["layers"], cfg.n_layers)):
-            x, kv_l, a = run(_decoder_block_full, cfg, blk, x, pos_ctx, return_kv=collect)
+            x, kv_l, a = run(block, cfg, blk, x, pos_ctx, return_kv=collect)
             aux_total = aux_total + a
             if collect:
                 kvs[0][i], kvs[1][i] = kv_l
     if head_last_only:
         x = x[:, -1:]
-    return _head(cfg, params, x), aux_total, kvs
+    return _head(cfg, params, x, ps), aux_total, kvs
 
 
 # ------------------------------------------------------------------ prefill
@@ -469,20 +549,23 @@ def prefill(
     image_embeds: torch.Tensor | None = None,
     *,
     max_seq_len: int | None = None,
+    param_shardings=None,
 ):
     """Prefill: returns (last-token logits [B,V], cache).
 
     ``max_seq_len`` sizes the cache for the whole serving session (prompt +
     decode headroom); it defaults to the prompt length. The last
     ``min(s, Sc)`` prompt positions go to their ring slots; ssm and hybrid
-    layers leave their final conv and SSM states."""
+    layers leave their final conv and SSM states. With ``param_shardings``,
+    ``params`` are this rank's shards and ``tokens`` its rows; the cache
+    holds those rows (``distributed.params.cache_shardings``' layout)."""
     b, s = tokens.shape
     max_seq_len = max_seq_len or s
     if cfg.family in ("ssm", "hybrid"):
-        return _prefill_recurrent(cfg, params, tokens, max_seq_len)
-    logits, _, kvs = forward(
-        cfg, params, tokens, image_embeds, collect_cache=True, head_last_only=True
-    )
+        return _prefill_recurrent(cfg, params, tokens, max_seq_len,
+                                  _shardings(params, param_shardings))
+    logits, _, kvs = forward(cfg, params, tokens, image_embeds, collect_cache=True,
+                             head_last_only=True, param_shardings=param_shardings)
     image = {}
     if cfg.family == "vlm":
         (k_all, v_all), (ik, iv) = kvs  # [G, per, B, S, kv, hd]
@@ -527,18 +610,20 @@ def _mamba_prefill(cfg, blk, x, conv, ssm):
     return x + out
 
 
-def _prefill_recurrent(cfg: ArchConfig, params: dict, tokens: torch.Tensor, max_seq_len: int):
+def _prefill_recurrent(cfg: ArchConfig, params: dict, tokens: torch.Tensor, max_seq_len: int,
+                       ps=None):
     """ssm/hybrid prefill: the full-sequence forward, collecting final
     states (and the hybrid's shared-block K/V)."""
     b, s = tokens.shape
     pos_ctx = _pos_ctx(cfg, s, tokens.device)
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, ps)
     cache = cache_mod.init_cache(cfg, b, max_seq_len, device=tokens.device)
     if cfg.family == "ssm":
+        lp = _layer_places(ps, "layers")
         for i in range(cfg.n_layers):
-            x = _mamba_prefill(cfg, layer(params["layers"], i), x, cache["conv"][i],
-                               cache["ssm"][i])
-        return _head(cfg, params, x[:, -1]), cache
+            x = _mamba_prefill(cfg, _use(cfg, layer(params["layers"], i), lp), x,
+                               cache["conv"][i], cache["ssm"][i])
+        return _head(cfg, params, x[:, -1], ps), cache
 
     g = cfg.n_layers // cfg.shared_attn_every
     per = cfg.shared_attn_every
@@ -546,20 +631,23 @@ def _prefill_recurrent(cfg: ArchConfig, params: dict, tokens: torch.Tensor, max_
     x0 = x
     k_g, v_g = _kv_stacks((g,), b, s, cfg, x.dtype, x.device)
     mcache = cache["mamba"]
+    shared = _use_keys(cfg, params, ps, _SHARED)
+    gp, tp = _layer_places(ps, "mamba_groups", 2), _layer_places(ps, "mamba_tail")
     for gi in range(g):
-        x, (k_g[gi], v_g[gi]) = _shared_block_full(cfg, params, x, x0, pos_ctx, return_kv=True)
+        x, (k_g[gi], v_g[gi]) = _shared_block_full(cfg, shared, x, x0, pos_ctx, return_kv=True)
         group = layer(params["mamba_groups"], gi)
         for i in range(per):
             l = gi * per + i
-            x = _mamba_prefill(cfg, layer(group, i), x, mcache["conv"][l], mcache["ssm"][l])
+            x = _mamba_prefill(cfg, _use(cfg, layer(group, i), gp), x, mcache["conv"][l],
+                               mcache["ssm"][l])
     if "mamba_tail" in params:
         tcache = cache["mamba_tail"]
         for i in range(cfg.n_layers - g * per):
-            x = _mamba_prefill(cfg, layer(params["mamba_tail"], i), x, tcache["conv"][i],
-                               tcache["ssm"][i])
-    shared = dict(cache["shared"], slot_pos=cache["slot_pos"])
-    _place(shared, k_g, v_g, s, sc)
-    return _head(cfg, params, x[:, -1]), cache
+            x = _mamba_prefill(cfg, _use(cfg, layer(params["mamba_tail"], i), tp), x,
+                               tcache["conv"][i], tcache["ssm"][i])
+    kv = dict(cache["shared"], slot_pos=cache["slot_pos"])
+    _place(kv, k_g, v_g, s, sc)
+    return _head(cfg, params, x[:, -1], ps), cache
 
 
 # ------------------------------------------------------------------ decode
@@ -610,16 +698,18 @@ def _cross_block_decode(cfg, blk, x, xk, xv):
     return x + torch.tanh(blk["gate_mlp"]).to(x.dtype) * f
 
 
-def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos: int):
+def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos: int, ps=None):
     """One decode step writing the token's K/V, slot position and recurrent
     states into ``cache``'s own tensors; returns the logits. The generation
-    loops' step (the reference donates the cache there)."""
-    x = _embed(cfg, params, token)  # [B, D]
+    loops' step (the reference donates the cache there). ``ps``: the
+    placements of ``params``' shards (``_shardings``), or ``None``."""
+    x = _embed(cfg, params, token, ps)  # [B, D]
     if cfg.family == "ssm":
+        lp = _layer_places(ps, "layers")
         for i in range(cfg.n_layers):
-            x = _mamba_block_decode_(cfg, layer(params["layers"], i), x, cache["conv"][i],
-                                     cache["ssm"][i])
-        return _head(cfg, params, x)
+            x = _mamba_block_decode_(cfg, _use(cfg, layer(params["layers"], i), lp), x,
+                                     cache["conv"][i], cache["ssm"][i])
+        return _head(cfg, params, x, ps)
     sc = cache["slot_pos"].shape[1]
     slot_pos = cache["slot_pos"]
     slot_pos[:, pos % sc] = pos  # the token sees itself
@@ -627,11 +717,13 @@ def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos
         g = cfg.n_layers // cfg.shared_attn_every
         per = cfg.shared_attn_every
         x0 = x
-        blk = params["shared_block"]
+        sp = _use_keys(cfg, params, ps, _SHARED)
+        blk = sp["shared_block"]
+        gp, tp = _layer_places(ps, "mamba_groups", 2), _layer_places(ps, "mamba_tail")
         mcache, shared = cache["mamba"], cache["shared"]
         for gi in range(g):
             # the shared block (single token)
-            h = matmul(torch.cat([x, x0], dim=-1), _wt(cfg, params["shared_in"], x.dtype))
+            h = matmul(torch.cat([x, x0], dim=-1), _wt(cfg, sp["shared_in"], x.dtype))
             h = h + _attn_decode_(cfg, blk["attn"], rmsnorm(h, blk["ln1"]), shared["k"][gi],
                                   shared["v"][gi], slot_pos, pos)
             h = h + _mlp(cfg, blk["mlp"], rmsnorm(h, blk["ln2"]))
@@ -639,38 +731,45 @@ def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos
             group = layer(params["mamba_groups"], gi)
             for i in range(per):
                 l = gi * per + i
-                x = _mamba_block_decode_(cfg, layer(group, i), x, mcache["conv"][l],
-                                         mcache["ssm"][l])
+                x = _mamba_block_decode_(cfg, _use(cfg, layer(group, i), gp), x,
+                                         mcache["conv"][l], mcache["ssm"][l])
         if "mamba_tail" in params:
             tcache = cache["mamba_tail"]
             for i in range(cfg.n_layers - g * per):
-                x = _mamba_block_decode_(cfg, layer(params["mamba_tail"], i), x,
+                x = _mamba_block_decode_(cfg, _use(cfg, layer(params["mamba_tail"], i), tp), x,
                                          tcache["conv"][i], tcache["ssm"][i])
-        return _head(cfg, params, x)
+        return _head(cfg, params, x, ps)
     k_all, v_all = cache["k"], cache["v"]
     if cfg.family == "vlm":
         g = cfg.n_layers // cfg.cross_attn_every
         per = cfg.cross_attn_every - 1
+        sp, cp = _layer_places(ps, "self_layers", 2), _layer_places(ps, "cross_layers")
         for gi in range(g):
             self_stack = layer(params["self_layers"], gi)
             for i in range(per):
                 l = gi * per + i
-                x = _block_decode_(cfg, layer(self_stack, i), x, k_all[l], v_all[l], slot_pos,
-                                   pos)
-            x = _cross_block_decode(cfg, layer(params["cross_layers"], gi), x, cache["xk"][gi],
-                                    cache["xv"][gi])
-        return _head(cfg, params, x)
+                x = _block_decode_(cfg, _use(cfg, layer(self_stack, i), sp), x, k_all[l],
+                                   v_all[l], slot_pos, pos)
+            x = _cross_block_decode(cfg, _use(cfg, layer(params["cross_layers"], gi), cp), x,
+                                    cache["xk"][gi], cache["xv"][gi])
+        return _head(cfg, params, x, ps)
+    lp = _layer_places(ps, "layers")
     for i in range(cfg.n_layers):
-        x = _block_decode_(cfg, layer(params["layers"], i), x, k_all[i], v_all[i], slot_pos, pos)
-    return _head(cfg, params, x)
+        x = _block_decode_(cfg, _use(cfg, layer(params["layers"], i), lp), x, k_all[i], v_all[i],
+                           slot_pos, pos)
+    return _head(cfg, params, x, ps)
 
 
 def _clone_tree(tree: dict) -> dict:
     return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
 
 
-def decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos):
+def decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos, *,
+           param_shardings=None):
     """One decode step. token [B], pos an int or a 0-d tensor →
-    (logits [B,V], new cache); ``cache`` stays as it was."""
+    (logits [B,V], new cache); ``cache`` stays as it was. With
+    ``param_shardings``, ``params`` are this rank's shards, and ``cache``
+    and ``token`` its rows."""
+    ps = _shardings(params, param_shardings)
     new = _clone_tree(cache)
-    return _decode(cfg, params, new, token, int(pos)), new
+    return _decode(cfg, params, new, token, int(pos), ps), new

@@ -21,8 +21,15 @@ steps but never the newest one that verifies. Checkpoints written before
 checksums existed (no ``checksums`` field) verify and restore.
 
 The reference's ``shardings=`` is a tree of ``NamedSharding``s, one
-placement per leaf; the port's is a tree of ``torch.device``s. The state
-the sharded plane checkpoints (centroids and boxes) is replicated, so each
+placement per leaf, where elastic resharding happens. The port's takes, per
+leaf, a ``torch.device`` (the leaf whole on that device) or a placement
+tuple of ``distributed.params`` (``(Shard(d),)`` or ``(Replicate(),)``):
+inside ``sharding.use_mesh``, each rank then gets its slice of the stored
+whole leaf (``distributed.fsdp.shard_tree``), whatever W the checkpoint
+was saved at. :func:`save` given the same placements takes this rank's
+shards, gathers each leaf whole, and writes the same format from rank 0
+(every rank returns once the checkpoint is in place). The state the
+sharded plane checkpoints (centroids and boxes) is replicated, so each
 rank restores it whole onto its own device.
 """
 
@@ -39,6 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import fsdp
+from repro_torch.distributed import sharding as sh
 
 __all__ = [
     "CheckpointCorruptionError",
@@ -92,12 +101,29 @@ def save(
     extra: dict | None = None,
     *,
     keep_last_n: int | None = None,
+    shardings: dict[str, Any] | None = None,
 ) -> pathlib.Path:
     """Write ``<dir>/step_<n>/state.npz`` and its manifest, atomically;
     replace-safe when the step already exists. ``keep_last_n`` deletes
-    older steps after a successful write."""
+    older steps after a successful write. ``shardings`` (placement trees
+    under some of ``state``'s names, inside ``use_mesh``) marks those trees
+    as this rank's shards: every rank calls, the leaves are gathered whole
+    and rank 0 writes."""
     directory = pathlib.Path(directory)
     final = directory / f"step_{step:08d}"
+    if shardings:
+        if sh.current_mesh() is None:
+            raise ValueError("save(shardings=...) gathers shards over the mesh: call inside "
+                             "sharding.use_mesh(mesh)")
+        state = {k: fsdp.full_tree(v, shardings[k]) if k in shardings else v
+                 for k, v in state.items()}
+        if sh._mesh_rank() != 0:
+            _barrier()
+            return final
+        try:
+            return save(directory, step, state, extra, keep_last_n=keep_last_n)
+        finally:
+            _barrier()
     tmp = directory / f".tmp_step_{step:08d}"
     if tmp.exists():  # debris from a save that died mid-write
         shutil.rmtree(tmp)
@@ -128,6 +154,13 @@ def save(
     if keep_last_n is not None:
         _gc(directory, keep_last_n)
     return final
+
+
+def _barrier() -> None:
+    """Every rank of the current mesh waits for the others."""
+    import torch.distributed as dist
+
+    dist.barrier(group=sh.current_mesh().get_group(sh.DATA))
 
 
 def _steps(directory: pathlib.Path) -> list[tuple[int, pathlib.Path]]:
@@ -211,11 +244,13 @@ def restore(
     device: str | torch.device = "cuda",
 ) -> tuple[dict[str, Any], dict]:
     """Restore ``step`` into the structure of ``state_template``, tensors
-    on ``device``. ``shardings`` (the template's structure, a
-    ``torch.device`` or device name per leaf) places each leaf it names as
-    a tensor on that device instead. Every array is checked against its
-    manifest checksum first; a mismatch raises
-    :class:`CheckpointCorruptionError` naming the key."""
+    on ``device``. ``shardings`` (the template's structure) places each
+    leaf it names: a ``torch.device`` or device name puts it whole on that
+    device; a placement tuple (inside ``use_mesh``) gives this rank its
+    slice of it on ``device`` (the template holds whole shapes, on any
+    device, ``"meta"`` too). Every array is checked against its manifest
+    checksum first; a mismatch raises :class:`CheckpointCorruptionError`
+    naming the key."""
     device = resolve_device(device)
     directory = pathlib.Path(directory) / f"step_{step:08d}"
     try:
@@ -245,6 +280,11 @@ def restore(
             )
         if place is None:
             return _like(arr, leaf, device)
+        if isinstance(place, tuple):
+            if sh.current_mesh() is None:
+                raise ValueError("restore(shardings=<placements>) slices leaves for this rank: "
+                                 "call inside sharding.use_mesh(mesh)")
+            return fsdp.shard_tree(_like(arr, leaf, torch.device("cpu")), place).to(device)
         return _like(arr, torch.as_tensor(leaf), resolve_device(place))
 
     shardings = shardings or {}

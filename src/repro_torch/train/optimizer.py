@@ -13,6 +13,12 @@ sums them as the reference does.
 (under ``torch.no_grad``) and returns them, the counterpart of the
 reference's donated buffers: at full width a second copy of the tree would
 not fit beside the first.
+
+Given ``shardings`` (``distributed.params``' placement tree) on a mesh of
+W > 1 ranks, the trees are this rank's shards (``distributed.fsdp``) and
+the global norm is the whole tree's: each rank's sum of squares over its
+shards, and over the replicated leaves on rank 0 only, summed over the
+ranks in one f32 all-reduce. AdamW then runs on the shards.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ import math
 from typing import Any, Iterator
 
 import torch
+
+from repro_torch.distributed import fsdp
+from repro_torch.distributed import sharding as sh
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "clip_by_global_norm"]
 
@@ -77,35 +86,46 @@ def adamw_init(params: Any) -> dict:
     }
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, shardings: Any = None) -> torch.Tensor:
     """``sqrt(Σ_leaves Σ l²)`` in f32, the leaves summed in the reference's
-    order."""
-    return torch.sqrt(sum(torch.sum(l.float() ** 2) for l in leaves(tree)))
+    order; with ``shardings`` on W > 1 ranks, over the whole tree of which
+    ``tree`` holds this rank's shards."""
+    if shardings is None or not fsdp.active():
+        return torch.sqrt(sum(torch.sum(l.float() ** 2) for l in leaves(tree)))
+    first = sh._mesh_rank() == 0
+    sq = torch.zeros(1, dtype=torch.float32, device=next(leaves(tree)).device)
+    for l, p in zip(leaves(tree), leaves(shardings), strict=True):
+        if first or fsdp.shard_dim(p) is not None:  # a replicated leaf counts once
+            sq = sq + torch.sum(l.float() ** 2)
+    return torch.sqrt(fsdp.sum_over_ranks(sq)[0])
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        shardings: Any = None) -> tuple[Any, torch.Tensor]:
     """``grads`` scaled by ``min(1, max_norm / max(norm, 1e-9))`` (new
-    tensors, each in its own dtype) and the norm before scaling."""
-    norm = global_norm(grads)
+    tensors, each in its own dtype) and the norm before scaling (of the
+    whole tree, with ``shardings``: :func:`global_norm`)."""
+    norm = global_norm(grads, shardings)
     scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 
 
 @torch.no_grad()
 def adamw_update(
-    cfg: AdamWConfig, params: Any, grads: Any, state: dict
+    cfg: AdamWConfig, params: Any, grads: Any, state: dict, shardings: Any = None
 ) -> tuple[Any, dict, dict[str, torch.Tensor]]:
     """One AdamW step: the gradients clipped to ``cfg.clip_norm``, then
     ``p -= lr·(m̂/(√v̂ + eps) + wd·p)`` with ``m̂``, ``v̂`` bias-corrected by
     ``1 − b^step`` (``step`` counted from 1) in f32. Updates ``params``,
     ``state["m"]`` and ``state["v"]`` in place and returns
-    ``(params, new state, {"grad_norm", "lr"})``."""
+    ``(params, new state, {"grad_norm", "lr"})``. With ``shardings``, the
+    trees are shards and the norm is the whole tree's."""
     # clip_by_global_norm's scale, applied a leaf at a time (no clipped copy of the tree)
-    norm = global_norm(grads)
+    norm = global_norm(grads, shardings)
     scale = _clip_scale(norm, cfg.clip_norm)
     step = state["step"] + 1
     lr = schedule(cfg, step)

@@ -12,6 +12,19 @@ MoE dispatch), with ``cfg.remat``'s per-layer checkpoints.
 state in place and returns them (the reference's step donates both); the
 parameters need not require gradients, the step takes them through
 detached aliases of their storage.
+
+With ``param_shardings`` (inside ``sharding.use_mesh``) the step is the
+reference's jitted step on a ``"data"`` mesh of W ranks, run as FSDP
+(``distributed.fsdp``): parameters and AdamW moments are this rank's
+shards, the inputs its rows (``distributed.params.input_shardings``: B/W
+where W divides B, else the whole batch on every rank). Each layer is
+gathered where it runs; the gradient of a sharded leaf comes back from the
+backward as this rank's slice of the mean over ranks (once a
+micro-batch, the f32 accumulator held as shards), and the replicated
+leaves' gradients and the loss are averaged over the ranks in one f32
+all-reduce a step. The loss is so the mean over ranks of the ranks'
+losses, the MoE's load-balance term (sized and routed on the rank's
+tokens) included, as the reference's ``"ep"`` island averages it (``pmean``).
 """
 
 from __future__ import annotations
@@ -22,6 +35,9 @@ import torch
 
 from repro_torch import random as rnd
 from repro_torch.configs import ArchConfig
+from repro_torch.distributed import fsdp
+from repro_torch.distributed import params as layouts
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import transformer
 from repro_torch.train import optimizer as opt
 
@@ -46,9 +62,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int | None 
     return torch.mean(lse - label_logit)
 
 
-def loss_fn(cfg: ArchConfig, params, tokens, labels, image_embeds=None):
-    """``(ce + 0.01·aux, {"ce", "aux"})`` of ``forward``'s logits."""
-    logits, aux, _ = transformer.forward(cfg, params, tokens, image_embeds)
+def loss_fn(cfg: ArchConfig, params, tokens, labels, image_embeds=None, *, param_shardings=None):
+    """``(ce + 0.01·aux, {"ce", "aux"})`` of ``forward``'s logits (this
+    rank's, with ``param_shardings``)."""
+    logits, aux, _ = transformer.forward(cfg, params, tokens, image_embeds,
+                                         param_shardings=param_shardings)
     ce = cross_entropy(logits, labels, vocab=cfg.vocab)
     loss = ce + 0.01 * aux  # MoE load-balance coefficient (GShard-style)
     return loss, {"ce": ce, "aux": aux}
@@ -70,23 +88,23 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.AdamWConfig | None = None, par
     the loss. ``metrics`` holds ``loss``, ``grad_norm`` and ``lr`` as 0-d
     tensors.
 
-    ``param_shardings`` pins the reference's gradient accumulator to the
-    parameters' FSDP × TP layout; the port's mesh has only the ``"data"``
-    dimension, so the only layout is the replicated one and the argument
-    must be ``None``."""
-    if param_shardings is not None:
-        raise ValueError(
-            "make_train_step(param_shardings=...) pins gradients to an FSDP × tensor layout; "
-            "the port's mesh has only the 'data' dimension (no model axis), so parameters and "
-            "gradients are replicated and param_shardings must be None"
-        )
+    ``param_shardings`` is ``distributed.params.param_shardings``' tree of
+    the parameters, made inside ``use_mesh(mesh)``, where the step must be
+    made and run: the step is then the FSDP step of the module docstring,
+    on this rank's shards of the parameters and of the AdamW state and on
+    its rows. It raises outside a mesh, on another placement tree, and on
+    leaves that are not this rank's shards; it never runs on whole
+    parameters in their place. On a mesh of one rank, shards are whole and
+    the step is the unsharded one."""
+    shards = _shard_shapes(cfg, param_shardings)
     opt_cfg = opt_cfg or opt.AdamWConfig()
     accum = max(1, cfg.grad_accum)
+    ps = param_shardings if shards is not None and fsdp.active() else None
 
     def grad_of(params, tokens, labels, image_embeds):
         live = opt.tree_map(lambda p: p.detach().requires_grad_(), params)
         img = image_embeds if cfg.family == "vlm" else None
-        loss, _ = loss_fn(cfg, live, tokens, labels, img)
+        loss, _ = loss_fn(cfg, live, tokens, labels, img, param_shardings=ps)
         grads = torch.autograd.grad(loss, list(opt.leaves(live)), allow_unused=True)
         flat = iter(g if g is not None else torch.zeros_like(p)
                     for g, p in zip(grads, opt.leaves(live)))
@@ -94,6 +112,11 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.AdamWConfig | None = None, par
         return loss.detach(), _unflatten(params, flat)
 
     def train_step(params, opt_state, tokens, labels, image_embeds=None):
+        if shards is not None:
+            got = [tuple(t.shape) for t in opt.leaves(params)]
+            if got != shards:
+                raise ValueError(f"the parameters are not this rank's shards under "
+                                 f"param_shardings: {got} against {shards}")
         if accum == 1:
             loss, grads = grad_of(params, tokens, labels, image_embeds)
         else:
@@ -114,11 +137,44 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.AdamWConfig | None = None, par
                 del g_i
             grads = opt.tree_map(lambda g: g / accum, grads)
             loss = loss / accum
-        params, opt_state, metrics = opt.adamw_update(opt_cfg, params, grads, opt_state)
+        if ps is not None:
+            loss = _mean_replicated(grads, ps, loss)
+        params, opt_state, metrics = opt.adamw_update(opt_cfg, params, grads, opt_state, ps)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step
+
+
+def _shard_shapes(cfg: ArchConfig, param_shardings) -> list[tuple[int, ...]] | None:
+    """The shapes of this rank's shards in leaf order, from the layout of
+    a tree of ``cfg``'s shapes on the meta device; ``None`` without
+    ``param_shardings``. Raises outside a mesh and where
+    ``param_shardings`` is not that layout."""
+    if param_shardings is None:
+        return None
+    if sh.current_mesh() is None:
+        raise ValueError("make_train_step(param_shardings=...) lays the parameters out on the "
+                         "'data' mesh: make and run the step inside sharding.use_mesh(mesh)")
+    whole = transformer.init_params(cfg, rnd.key(0), device="meta")
+    if param_shardings != layouts.param_shardings(cfg, whole):
+        raise ValueError("param_shardings is not distributed.params.param_shardings(cfg, params) "
+                         "on the current mesh")
+    return [tuple(t.shape) for t in opt.leaves(fsdp.shard_tree(whole, param_shardings))]
+
+
+def _mean_replicated(grads: Any, ps: Any, loss: torch.Tensor) -> torch.Tensor:
+    """The replicated leaves' gradients (in place) and ``loss`` (returned)
+    averaged over the ranks in one f32 all-reduce."""
+    rep = [g for g, p in zip(opt.leaves(grads), opt.leaves(ps), strict=True)
+           if fsdp.shard_dim(p) is None]
+    flat = fsdp.mean_over_ranks(torch.cat([*(g.reshape(-1).float() for g in rep),
+                                           loss.reshape(1).float()]))
+    i = 0
+    for g in rep:
+        g.copy_(flat[i : i + g.numel()].view(g.shape))
+        i += g.numel()
+    return flat[i].clone()
 
 
 def _unflatten(tree: Any, flat) -> Any:

@@ -325,21 +325,45 @@ def test_meta_trace_flops_are_the_real_steps(arch, kind):
 
 
 def test_the_collective_rule():
-    """Gathers once a forward pass in the dtype used, twice with remat;
-    gradients reduced once in f32; nothing on one rank."""
+    """Gathers once a forward pass in the dtype used, the stacked layers'
+    twice with remat; the embedding's looked-up rows exchanged (ids
+    all-gathered, rows and their gradients all-to-all) and not the table;
+    every other sharded gradient reduce-scattered in f32 once a micro-batch;
+    the replicated gradients with the loss averaged in one all-reduce and
+    the squared norm summed in another; nothing on one rank. The trace of
+    the step (which raises where it issues other collectives) agrees."""
     cfg = configs.reduced_config(configs.get_config("granite-8b")).replace(dtype=torch.bfloat16)
     shape = configs.Shape("t", 64, 4, "train")
     tree = tf.init_params(cfg, rnd.key(0), device="meta")
     with dryrun.fake_mesh(2):
         psh = params.param_shardings(cfg, tree)
         got = {r: dryrun._collectives(cfg.replace(remat=r), shape, tree, psh, 2) for r in (0, 1)}
-    sharded = [(t, p) for t, p in zip(_flat(tree).values(), _flat(psh).values())
-               if type(p[0]).__name__ == "Shard"]
-    shard_bytes = sum(t.numel() // 2 * 2 for t, _ in sharded)  # half a leaf, 2 bytes each
-    assert got[0]["all-gather"]["bytes"] == shard_bytes
-    assert got[1]["all-gather"]["bytes"] == 2 * shard_bytes
-    grads = got[0]["reduce-scatter"]["bytes"] + got[0]["all-reduce"]["bytes"]
-    assert grads == 4 * sum(t.numel() for t in _flat(tree).values())
+        accum = dryrun._collectives(cfg.replace(grad_accum=2), shape, tree, psh, 2)
+        traced = {r: dryrun.trace_cell(cfg.replace(remat=r), shape)["collectives"] for r in (0, 1)}
+        # 1,024 ids a rank, more than the table's 256 rows: the table moves
+        long = dryrun.trace_cell(cfg, configs.Shape("t", 512, 4, "train"))["collectives"]
+    leaves, places = _flat(tree), _flat(psh)
+    sharded = [k for k in leaves if type(places[k][0]).__name__ == "Shard" and k != ("embed",)]
+    assert type(places[("embed",)][0]).__name__ == "Shard"
+    shard_bytes = sum(leaves[k].numel() // 2 * 2 for k in sharded)  # half a leaf, 2 bytes each
+    layer_bytes = sum(leaves[k].numel() // 2 * 2 for k in sharded if k[0] == "layers")
+    tokens = 2 * 64  # a rank's rows
+    assert 0 < layer_bytes < shard_bytes  # the head is gathered once
+    assert got[0]["all-gather"]["bytes"] == shard_bytes + 8 * tokens
+    assert got[1]["all-gather"]["bytes"] == shard_bytes + layer_bytes + 8 * tokens
+    assert got[0]["all-to-all"] == {"bytes": 2 * tokens * cfg.d_model * 4, "count": 2}
+    assert got[0]["reduce-scatter"]["bytes"] == 4 * sum(leaves[k].numel() for k in sharded)
+    replicated = sum(t.numel() for k, t in leaves.items()
+                     if type(places[k][0]).__name__ != "Shard")
+    assert got[0]["all-reduce"] == {"bytes": 4 * (replicated + 1) + 4, "count": 2}
+    assert accum["reduce-scatter"]["count"] == 2 * got[0]["reduce-scatter"]["count"]
+    assert accum["all-to-all"] == {"bytes": got[0]["all-to-all"]["bytes"], "count": 4}
+    assert accum["all-reduce"] == got[0]["all-reduce"]
+    assert traced == got
+    embed = leaves[("embed",)].numel()
+    assert long["all-to-all"]["count"] == 0
+    assert long["all-gather"]["bytes"] == shard_bytes + embed // 2 * 4
+    assert long["reduce-scatter"]["bytes"] == got[0]["reduce-scatter"]["bytes"] + 4 * embed
     with dryrun.fake_mesh(1):  # control: one rank has none
         assert dryrun._collectives(cfg, shape, tree, params.param_shardings(cfg, tree),
                                    1)["total_bytes"] == 0

@@ -192,7 +192,9 @@ def test_collective_bytes_count_the_port_s_collectives():
         sh._sum_over_ranks(torch.ones(4), torch.ones(2, 3))  # one gather of 10 f32
         got = analysis.collective_bytes(reset=True)
     assert got == {"all-gather": {"bytes": 40, "count": 1},
-                   "all-reduce": {"bytes": 64, "count": 2}, "total_bytes": 104}
+                   "reduce-scatter": {"bytes": 0, "count": 0},
+                   "all-reduce": {"bytes": 64, "count": 2},
+                   "all-to-all": {"bytes": 0, "count": 0}, "total_bytes": 104}
     assert analysis.collective_bytes()["total_bytes"] == 0
     sh._all_reduce(torch.ones(10))  # without a mesh nothing is issued or counted
     assert analysis.collective_bytes()["total_bytes"] == 0

@@ -31,6 +31,7 @@ from repro.train import optimizer as jopt
 from repro.train import train_step as jts
 from repro_torch import configs, convert
 from repro_torch import random as rnd
+from repro_torch.launch import dryrun
 from repro_torch.models import layers, mamba2, moe
 from repro_torch.models import transformer as tf
 from repro_torch.train import optimizer as opt
@@ -379,7 +380,9 @@ def test_ssd_gradient_is_finite_and_sequential_past_the_exp_overflow():
 
 def test_param_shardings_and_the_train_state():
     cfg = configs.reduced_config(configs.get_config("granite-8b"))
-    with pytest.raises(ValueError, match="only the 'data' dimension"):
+    with pytest.raises(ValueError, match="use_mesh"):  # outside a mesh
+        ts.make_train_step(cfg, param_shardings={"embed": None})
+    with dryrun.fake_mesh(2), pytest.raises(ValueError, match="is not"):  # another tree
         ts.make_train_step(cfg, param_shardings={"embed": None})
     params, state = ts.init_train_state(cfg, rnd.key(0), device="cpu")
     jp = jtf.init_params(jconfigs.reduced_config(jconfigs.get_config("granite-8b")),
