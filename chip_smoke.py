@@ -250,7 +250,8 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
 14. (after phase 13) the dry run (``repro_torch.launch.dryrun``): 14a
    ``python -m repro_torch.launch.dryrun --cell ... --jobs 6`` traces one
    cell for each (family × kind), the family's cheapest arch, at full width
-   and depth on the ``data256`` mesh (a fake process group of 256 ranks)
+   and depth on the 256-rank meshes (``16x16`` for the dense and moe
+   families, ``data256`` for the others; a fake process group of 256 ranks)
    with no card visible, and beside it the vlm's prefill_32k at 10 of its
    100 layers (at full depth it alone takes about a minute of one core),
    then prints the report's tables and the cells it cut; 14b, beside them,
@@ -278,6 +279,23 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    teacher-forced on one rank's greedy tokens (3e-2 of max |logit|); 15c
    deepseek-moe-16b at full width, 1 of 28 layers, one step against one
    rank running each rank's row apart.
+
+16. (after phase 15) the model axis (``repro_torch.distributed.tp``:
+   tensor and sequence parallelism, the MoE's islands) on two gloo ranks
+   spawned on the one card as a (1, 2) ``("data", "model")`` mesh, beside
+   the smoke's own process at one rank on the whole batch: 16a qwen3-4b at
+   full width, 2 layers, f32 (in bf16 GEMMs of other shapes round
+   otherwise, as phase 15 found), remat, two steps on [2, 4,096] held
+   against one rank's with phase 15's tolerances, a control with the row-parallel
+   partials left unreduced that must miss the loss and the norm by 100×,
+   each rank's collectives equal to the dry run's rule for the cell on the
+   (1, 2) mesh, its resident bytes at most half of one rank's plus the
+   model-replicated leaves and 64 MiB, its peak beside ``peak_bytes_est``,
+   and the same shards serving (prefill [2, 512] over 258 cache slots a
+   rank, 4 decode steps, each rank's vocabulary columns; 3e-2 of max
+   |logit|); 16b deepseek-moe-16b, 1 of 28 layers, bf16, one step in the ``ep``
+   island (32 of 64 experts a rank), the layer's output against the local
+   MoE on each rank's own tokens (3e-2 of max |y|).
 
 The whole run keeps its autotune cache in a fresh temporary file
 (``REPRO_AUTOTUNE_CACHE``), so every key is tuned on this card in this run.
@@ -4036,7 +4054,8 @@ def _ground_cell(torch, dryrun, cfg, shape, what, smi):
 
 def phase_dryrun(torch, smi):
     """Phase 14: the dry run. 14a: ``python -m repro_torch.launch.dryrun
-    --cell ... --jobs 6`` over :data:`DRYRUN_CELLS` on the ``data256`` mesh
+    --cell ... --jobs 6`` over :data:`DRYRUN_CELLS` on the 256-rank meshes
+    (``16x16`` for the dense and moe cells, ``data256`` for the others)
     with no card visible, beside it the vlm's prefill at
     :data:`DRYRUN_VLM_LAYERS` layers, then the report's tables over the
     records; 14b, beside them, holds the trace at one rank against the
@@ -4086,12 +4105,14 @@ def phase_dryrun(torch, smi):
             for line in out.splitlines():
                 if line.startswith("[dryrun]"):
                     print(line)
-        recs = sorted(pathlib.Path(out_dir, "data256").glob("*.json"))
+        recs = sorted(pathlib.Path(out_dir).glob("*/*.json"))
         check(len(recs) == len(DRYRUN_CELLS) + 1, f"14a: {len(recs)} records")
         for f in recs:
             rec = json.loads(f.read_text())
+            mesh = dryrun.mesh_name(configs.get_config(rec["arch"]), False)
             check(rec["flops"] > 0 and rec["memory"]["peak_bytes_est"] > 0
-                  and rec["chips"] == 256 and rec["mesh"] == "data256", f"14a {f.name}: {rec}")
+                  and rec["chips"] == 256 and rec["mesh"] == mesh == f.parent.name,
+                  f"14a {f.name}: {rec}")
         dry, roof, _ = report.build_tables(pathlib.Path(out_dir))
     for line in (dry + "\n" + roof).splitlines():
         if "N/A" not in line and "…" not in line:  # cells not traced here
@@ -4099,7 +4120,7 @@ def phase_dryrun(torch, smi):
     cut = [f"{a} × {s}" for a, s in configs.runnable_cells() if (a, s) not in DRYRUN_CELLS]
     print(f"[dryrun] 14a {len(DRYRUN_CELLS)} cells (one for each family and kind, the family's "
           f"cheapest arch) and llama-3.2-vision-90b × prefill_32k at {DRYRUN_VLM_LAYERS} of 100 "
-          f"layers on the data256 mesh in {t_grid:.1f} s, {DRYRUN_JOBS} + 1 processes with no card "
+          f"layers on the 256-rank meshes in {t_grid:.1f} s, {DRYRUN_JOBS} + 1 processes with no card "
           f"visible; cut to fit the phase: " + ", ".join(cut))
     print(f"[dryrun] phase 14 took {time.perf_counter() - t_phase:.1f} s (14b "
           f"{t_ground:.1f} s beside 14a) ({smi})")
@@ -4332,12 +4353,13 @@ def _fsdp_join(torch, ctx, tmp: pathlib.Path, deadline: float) -> list[dict]:
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False) for r in range(FSDP_WORLD)]
 
 
-def _one_rank(torch, cfg, seed, token_seed, steps, path: pathlib.Path, serve=False) -> dict:
+def _one_rank(torch, cfg, seed, token_seed, steps, path: pathlib.Path, serve=False,
+              accum=FSDP_WORLD) -> dict:
     """The W-rank step's semantics at one rank, no mesh: ``steps`` steps of
-    ``make_train_step(cfg)`` with the ranks' rows as its micro-batches
-    (each row apart: its own MoE capacity and load-balance term; the losses
-    and gradients averaged), then with ``serve`` a prefill and greedy
-    decode. What the ranks compare with (the first moment and the
+    ``make_train_step(cfg)`` with the ranks' rows as its ``accum``
+    micro-batches (each row apart: its own MoE capacity and load-balance
+    term; the losses and gradients averaged), then with ``serve`` a prefill
+    and greedy decode. What the ranks compare with (the first moment and the
     parameters after step 1, the greedy tokens) goes to ``path`` once the
     card's memory is freed."""
     from repro_torch.models import transformer as tf
@@ -4348,7 +4370,7 @@ def _one_rank(torch, cfg, seed, token_seed, steps, path: pathlib.Path, serve=Fal
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     params, state, n_params, _ = _train_state(torch, ts, opt, cfg, seed)
-    step = ts.make_train_step(cfg.replace(grad_accum=FSDP_WORLD), opt.AdamWConfig(**TRAIN_LR))
+    step = ts.make_train_step(cfg.replace(grad_accum=accum), opt.AdamWConfig(**TRAIN_LR))
     torch.cuda.reset_peak_memory_stats()
     out: dict = {"loss": [], "grad_norm": [], "step_s": [], "n_params": n_params}
     for i in range(steps):
@@ -4426,7 +4448,7 @@ def phase_fsdp(torch, smi):
             raise
         ranks = _fsdp_join(torch, ctx, tmp, deadline)
     replicated = sum(t.numel() * 4 * 3 for t, p in zip(opt.leaves(whole), opt.leaves(psh))
-                     if fsdp.shard_dim(p) is None)  # parameters, m and v
+                     if fsdp.batch_dim(p) is None)  # parameters, m and v
     lr = TRAIN_LR["lr"]
     failures = []
 
@@ -4510,6 +4532,326 @@ def phase_fsdp(torch, smi):
         gate(max(lrel, nrel) <= FSDP_RTOL and max(l2, share) <= FSDP_MOMENT_TOL,
              f"15c rank {r['rank']}: {lrel}, {nrel}, {l2}, {share}")
     print(f"[fsdp] phase 15 took {time.perf_counter() - t_phase:.1f} s ({smi})")
+    check(not failures, "; ".join(failures))
+
+
+# ---------------------------------------------------------------- phase 16
+TP_MESH = (1, 2)  # ("data", "model"): two gloo ranks on the one card, one data rank
+TP_STEPS = 2  # qwen3-4b at FSDP_LAYERS of 36 layers, f32, remat, [2, 4,096] a step
+TP_RANK_SECONDS = 180  # the parent's deadline for phase 16's ranks: a hang fails the phase
+#: 16a holds the ranks' steps against one rank's on the same batch with
+#: phase 15's tolerances (FSDP_RTOL, FSDP_MOMENT_TOL, FSDP_PARAM_TOL), in f32
+#: activations: the model axis splits the GEMMs' columns and their reduction
+#: dimension, so in bf16 each product rounds at other shapes and points than
+#: one rank's (the first moment a relative L2 of 2.1e-3 apart in bf16, as
+#: phase 15 found for GEMMs over other row counts); in f32 what is left is the
+#: f32 order of the sums. The control leaves the row-parallel partials
+#: unreduced and must miss by FSDP_CONTROL times. 16b holds deepseek-moe-16b's
+#: ep island (bf16; 64 experts, 32 a rank) against the local MoE on each
+#: rank's own tokens, within TF_SHARE_BF16 of max |y| (the shared experts' f32
+#: sums and the experts' GEMMs over both ranks' tokens at once).
+
+
+#: 16a's parameter gate holds where AdamW's first step is the gradient's sign:
+#: lr·ĝ/(|ĝ| + eps) moves with |ĝ| only near eps, where a gradient of
+#: cancelling terms (the head's columns no label names, about 1e-8) carries
+#: f32 order errors of a few percent; from |ĝ| ≥ 100·eps such an error moves
+#: the step by under 1e-6 of lr
+TP_SIGN_FLOOR = 100 * 1e-8
+
+
+def _params_miss_tp(torch, got, want, moment):
+    """:func:`_params_miss` where the moment's ĝ = m / (1 − b1) is also past
+    TP_SIGN_FLOOR, beside phase 15's reading: (inside, anywhere, inside by
+    phase 15's mask, ĝ at its worst element)."""
+    inside = anywhere = inside15 = 0.0
+    g15 = 0.0
+    for p, w, m in zip(got, want, moment, strict=True):
+        g = m.abs() / 0.1  # AdamW's b1 = 0.9: m = 0.1 · ĝ after step 1
+        signed = m.abs() > FSDP_MOMENT_TOL * m.abs().max()
+        d = (p - w).abs()
+        excess = d - FSDP_PARAM_TOL[1] * w.abs()
+        if signed.any():
+            e15 = excess.masked_fill(~signed, -1.0)
+            i = int(e15.argmax())
+            if float(e15.reshape(-1)[i]) > inside15:
+                inside15, g15 = float(e15.reshape(-1)[i]), float(g.reshape(-1)[i])
+        sure = signed & (g >= TP_SIGN_FLOOR)
+        if sure.any():
+            inside = max(inside, float(excess[sure].max()))
+        anywhere = max(anywhere, float(d.max()))
+    return inside, anywhere, inside15, g15
+
+
+def _tp_cases():
+    """(config, parameter seed, token seed) of 16a (phase 15's qwen3-4b in
+    f32 activations) and 16b (phase 15's deepseek-moe-16b)."""
+    import torch
+
+    (qwen, q_seed, q_tok), moe = _fsdp_cases()
+    return (qwen.replace(dtype=torch.float32), q_seed, q_tok), moe
+
+
+def _tp_rank(rank: int, world: int, init: str, tmp: str) -> None:
+    """One rank of phase 16: a gloo group on the one card as a ``("data",
+    "model")`` mesh of TP_MESH, running the model axis's steps on its
+    shards and sequence part. It compares its slices with the one-rank
+    run's file and saves what it saw to ``tmp/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import random as rnd
+    from repro_torch.distributed import fsdp, tp
+    from repro_torch.distributed import params as layouts
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline import analysis
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+
+    deadline = time.monotonic() + TP_RANK_SECONDS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    tmp = pathlib.Path(tmp)
+    ocfg = opt.AdamWConfig(**TRAIN_LR)
+    (qwen, q_seed, q_tok), (moe, m_seed, m_tok) = _tp_cases()
+
+    def model(cfg, seed, tok_seed, keep=None):
+        """(shards, placements, AdamW state, the batch, ``keep`` of the whole
+        tree): drawn on the card and dropped."""
+        whole = tf.init_params(cfg, rnd.key(seed))
+        psh = layouts.param_shardings(cfg, whole)
+        shards = fsdp.shard_tree(whole, psh)
+        kept = keep(whole) if keep else None
+        del whole
+        torch.cuda.empty_cache()
+        return shards, psh, opt.adamw_init(shards), _fsdp_tokens(cfg, tok_seed), kept
+
+    def mine(tree, psh):
+        return [t.cuda() for t in opt.leaves(fsdp.shard_tree(tree, psh))]
+
+    dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
+    out: dict = {"rank": rank}
+    try:
+        mesh = init_device_mesh("cuda", TP_MESH, mesh_dim_names=("data", "model"))
+        one = _fsdp_wait(torch, tmp / "one_rank_a.pt", deadline)
+        with sh.use_mesh(mesh):
+            # the control: the row-parallel partials left unreduced over "model"
+            params, psh, state, rows, _ = model(qwen, q_seed, q_tok)
+            step = ts.make_train_step(qwen, ocfg, param_shardings=psh)
+            real = tf._to_residual
+            tf._to_residual = lambda partial, par, dtype: (
+                tp._part(partial, 1) if par.seq else partial).to(dtype)
+            try:
+                _, state, m = step(params, state, rows, rows)
+            finally:
+                tf._to_residual = real
+            out["control"] = (float(m["loss"]), float(m["grad_norm"]))
+            del params, state
+            torch.cuda.empty_cache()
+            # 16a
+            base = torch.cuda.memory_allocated()
+            params, psh, state, rows, _ = model(qwen, q_seed, q_tok)
+            m1 = mine(one["m1"], psh)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out["loss"], out["grad_norm"], out["step_s"] = [], [], []
+            for i in range(TP_STEPS):
+                analysis.collective_bytes(reset=True)
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, rows, rows)
+                torch.cuda.synchronize()
+                out["step_s"].append(time.perf_counter() - t0)
+                out["loss"].append(float(m["loss"]))
+                out["grad_norm"].append(float(m["grad_norm"]))
+                if i == 0:
+                    out["counts"] = analysis.collective_bytes(reset=True)
+                    out["resident"] = torch.cuda.memory_allocated() - base
+                    out["m1"] = _moment_miss(torch, list(opt.leaves(state["m"])), m1)
+                    out["params"] = _params_miss_tp(torch, opt.leaves(params),
+                                                    mine(one["p1"], psh), m1)
+                    del m1
+            out["peak"] = torch.cuda.max_memory_allocated() - base
+            del state
+            # the same shards serve, teacher-forced on the one-rank run's greedy tokens
+            greedy = one["greedy"].cuda()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, cache = tf.prefill(qwen, params, rows[:, :FSDP_PROMPT],
+                                           max_seq_len=FSDP_PROMPT + FSDP_DECODE,
+                                           param_shardings=psh)
+                out["logits"] = [logits.float().cpu()]
+                for i in range(FSDP_DECODE):
+                    logits, cache = tf.decode(qwen, params, cache, greedy[i], FSDP_PROMPT + i,
+                                              param_shardings=psh)
+                    out["logits"].append(logits.float().cpu())
+            torch.cuda.synchronize()
+            out["serve_s"] = time.perf_counter() - t0
+            out["slots"] = int(cache["k"].shape[2])
+            del params, cache, one, logits
+            torch.cuda.empty_cache()
+            # 16b: the ep island against the local MoE on the rank's own tokens
+            params, psh, state, rows, first = model(
+                moe, m_seed, m_tok, keep=lambda w: opt.tree_map(
+                    lambda t: t.clone(), tf.layer(w["layers"], 0)["moe"]))
+            seen = []
+            real_moe = moe_mod.moe_ffn
+
+            def spy(cfg, p, x, par=None):
+                y, aux = real_moe(cfg, p, x, par)
+                if par is not None and not seen:
+                    seen.append((x.detach().clone(), y.detach().clone(), par))
+                return y, aux
+
+            moe_mod.moe_ffn = spy
+            try:
+                t0 = time.perf_counter()
+                _, _, m = ts.make_train_step(moe, ocfg, param_shardings=psh)(params, state, rows,
+                                                                              rows)
+                torch.cuda.synchronize()
+                out["moe_s"] = time.perf_counter() - t0
+            finally:
+                moe_mod.moe_ffn = real_moe
+            del params, state
+            x, y, par = seen[0]
+            with torch.no_grad():
+                want, _ = real_moe(moe, first, x)
+            out["moe"] = {"loss": float(m["loss"]), "mode": moe_mod.moe_mode(moe.n_experts, par.m),
+                          "tokens": int(x.shape[0] * x.shape[1]),
+                          "share": float((y.float() - want.float()).abs().max()
+                                         / want.float().abs().max())}
+        _fsdp_save(torch, out, tmp / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_tp(torch, smi):
+    """Phase 16: the model axis on two gloo ranks on the one card, a
+    ``("data", "model")`` mesh of TP_MESH. 16a qwen3-4b at full width
+    (2 layers, f32, remat) trained two steps against the same steps at one
+    rank (loss, grad-norm, first moment, parameters; an unreduced control;
+    the collectives against the dry run's rule; resident bytes and peak),
+    the same shards serving; 16b deepseek-moe-16b (1 layer, bf16) in its ``ep``
+    island against the local MoE on each rank's tokens."""
+    import torch.multiprocessing as mp
+
+    from repro_torch import configs
+    from repro_torch import random as rnd
+    from repro_torch.distributed import fsdp
+    from repro_torch.distributed import params as layouts
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer
+    from repro_torch.train import optimizer as opt
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    (qwen, q_seed, q_tok), (moe, _, _) = _tp_cases()
+    _published(qwen, QWEN_FULL, "qwen3-4b")
+    check(qwen.remat and moe.dtype == torch.bfloat16, f"16: {qwen}, {moe}")
+    world = TP_MESH[0] * TP_MESH[1]
+    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
+        tmp = pathlib.Path(tmp)
+        ctx = mp.start_processes(_tp_rank, args=(world, f"file://{tmp}/rendezvous", str(tmp)),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + TP_RANK_SECONDS
+        try:
+            one = _one_rank(torch, qwen, q_seed, q_tok, TP_STEPS, tmp / "one_rank_a.pt",
+                            serve=True, accum=1)
+            with dryrun.fake_mesh(world, TP_MESH):  # the dry run's record of the same cell
+                rec = dryrun.trace_cell(qwen, configs.Shape("train_2x4k", TRAIN_SEQ,
+                                                            TRAIN_BATCH, "train"))
+                whole = transformer.init_params(qwen, rnd.key(0), device="meta")
+                psh = layouts.param_shardings(qwen, whole)
+        except BaseException:
+            for p in ctx.processes:
+                p.terminate()
+            raise
+        ranks = _fsdp_join(torch, ctx, tmp, deadline)
+    replicated = sum(t.numel() * 4 * 3 for t, p in zip(opt.leaves(whole), opt.leaves(psh))
+                     if fsdp.model_dim(p) is None)  # parameters, m and v
+    lr = TRAIN_LR["lr"]
+    failures = []
+
+    def gate(ok, what):
+        if not ok:
+            failures.append(what)
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    for r in ranks:
+        k = r["rank"]
+        loss_rel = max(rel(a, b) for a, b in zip(r["loss"], one["loss"]))
+        norm_rel = max(rel(a, b) for a, b in zip(r["grad_norm"], one["grad_norm"]))
+        l2, share = r["m1"]
+        inside, anywhere, inside15, g15 = r["params"]
+        c_loss, c_norm = rel(r["control"][0], one["loss"][0]), rel(r["control"][1],
+                                                                    one["grad_norm"][0])
+        limit = one["resident"] / TP_MESH[1] + replicated + FSDP_RESIDENT_SLACK
+        est = rec["memory"]["peak_bytes_est"]
+        print(f"[tp] 16a rank {k} of {TP_MESH} (data, model): qwen3-4b ({FSDP_LAYERS} of 36 "
+              f"layers, f32, remat) {TP_STEPS} steps on [{TRAIN_BATCH}, {TRAIN_SEQ:,}] (the "
+              f"sequence split over the model ranks between layers, heads, ff and vocabulary "
+              f"inside) against one rank's: losses "
+              + ", ".join(f"{x:.6f}" for x in r["loss"]) + " against "
+              + ", ".join(f"{x:.6f}" for x in one["loss"])
+              + ", grad-norms " + ", ".join(f"{x:.6f}" for x in r["grad_norm"]) + " against "
+              + ", ".join(f"{x:.6f}" for x in one["grad_norm"])
+              + f" (relative {loss_rel:.3g} and {norm_rel:.3g}, limit {FSDP_RTOL}); the first "
+              f"moment within a relative L2 of {l2:.3g} and a leaf's share {share:.3g} (limit "
+              f"{FSDP_MOMENT_TOL}); the parameters after step 1 past {FSDP_PARAM_TOL[1]} "
+              f"relative by {inside:.3g} where the moment is signed and ĝ ≥ {TP_SIGN_FLOOR:g} "
+              f"(limit {FSDP_PARAM_TOL[0]}; by {inside15:.3g} with phase 15's mask alone, at an "
+              f"element of ĝ {g15:.3g}), {anywhere:.3g} apart anywhere (limit {2 * lr}); seconds "
+              f"a step "
+              + ", ".join(f"{x:.3f}" for x in r["step_s"]) + " against one rank's "
+              + ", ".join(f"{x:.3f}" for x in one["step_s"]) + f" ({smi})")
+        print(f"[tp] 16a rank {k} control, the row-parallel partials unreduced: loss "
+              f"{r['control'][0]:.6f} misses by a relative {c_loss:.3g} ({c_loss / FSDP_RTOL:.0f}× "
+              f"the limit), grad-norm {r['control'][1]:.6f} by {c_norm:.3g} "
+              f"({c_norm / FSDP_RTOL:.0f}×; each must be ≥ {FSDP_CONTROL}×) ({smi})")
+        print(f"[tp] 16a rank {k}: collectives of step 1 {r['counts']}, the dry run's rule for "
+              f"the cell on {TP_MESH} {rec['collectives']}; resident bytes after step 1 "
+              f"{r['resident']:,} against one rank's {one['resident']:,} (ratio "
+              f"{r['resident'] / one['resident']:.4f}; limit {limit:,.0f}: 1/{TP_MESH[1]} + the "
+              f"model-replicated leaves' {replicated:,} + {FSDP_RESIDENT_SLACK:,}); peak "
+              f"{r['peak'] / 2**30:.3f} GiB against the dry run's peak_bytes_est "
+              f"{est / 2**30:.3f} GiB: ratio {r['peak'] / est:.4f} (one rank's peak "
+              f"{one['peak'] / 2**30:.3f} GiB) ({smi})")
+        gate(loss_rel <= FSDP_RTOL and norm_rel <= FSDP_RTOL,
+             f"16a rank {k} loss {r['loss']}, grad-norm {r['grad_norm']} against "
+             f"{one['loss']}, {one['grad_norm']}")
+        gate(l2 <= FSDP_MOMENT_TOL and share <= FSDP_MOMENT_TOL,
+             f"16a rank {k} first moment {l2}, {share}")
+        gate(inside <= FSDP_PARAM_TOL[0] and anywhere <= 2 * lr + FSDP_PARAM_TOL[0],
+             f"16a rank {k} parameters {inside}, {anywhere}")
+        gate(c_loss >= FSDP_CONTROL * FSDP_RTOL and c_norm >= FSDP_CONTROL * FSDP_RTOL,
+             f"16a rank {k} control missed by {c_loss}, {c_norm} only")
+        gate(r["counts"] == rec["collectives"], f"16a rank {k} collectives {r['counts']}")
+        gate(r["resident"] <= limit, f"16a rank {k} resident {r['resident']:,} > {limit:,.0f}")
+        gate(r["slots"] == (FSDP_PROMPT + FSDP_DECODE) // TP_MESH[1], f"16a slots {r['slots']}")
+    # the ranks' vocabulary columns put together (one data rank: each holds both rows)
+    worst = max(_share(torch, torch.cat([r["logits"][i] for r in ranks], dim=-1),
+                       one["logits"][i], qwen.vocab) for i in range(FSDP_DECODE + 1))
+    print(f"[tp] 16a the same shards serve: prefill [{TRAIN_BATCH}, {FSDP_PROMPT}] over "
+          f"{(FSDP_PROMPT + FSDP_DECODE) // TP_MESH[1]} cache slots a rank and {FSDP_DECODE} "
+          f"decode steps teacher-forced on one rank's greedy tokens: logits within {worst:.3g} "
+          f"of max |logit| of one rank's (limit {TF_SHARE_BF16}); seconds "
+          + ", ".join(f"{r['serve_s']:.3f}" for r in ranks) + f" ({smi})")
+    gate(worst <= TF_SHARE_BF16, f"16a logits {worst}")
+    for r in ranks:
+        mo = r["moe"]
+        print(f"[tp] 16b rank {r['rank']}: deepseek-moe-16b ({FSDP_MOE_LAYERS} of 28 layers) one "
+              f"step in the {mo['mode']} island ({moe.n_experts} experts, "
+              f"{moe.n_experts // TP_MESH[1]} a rank, capacity from the rank's {mo['tokens']:,} "
+              f"tokens): loss {mo['loss']:.6f}; the layer's output within {mo['share']:.3g} of max "
+              f"|y| of the local MoE on the rank's tokens (limit {TF_SHARE_BF16}); "
+              f"{r['moe_s']:.3f} s ({smi})")
+        gate(mo["mode"] == "ep" and mo["share"] <= TF_SHARE_BF16 and math.isfinite(mo["loss"]),
+             f"16b rank {r['rank']}: {mo}")
+    print(f"[tp] phase 16 took {time.perf_counter() - t_phase:.1f} s ({smi})")
     check(not failures, "; ".join(failures))
 
 
@@ -4650,6 +4992,8 @@ def _phases(torch, argv, shard_dir: str) -> int:
     phase_dryrun(torch, smi)
     # phase 15
     phase_fsdp(torch, smi)
+    # phase 16
+    phase_tp(torch, smi)
     if parent is not None:
         phase_walls(argv[argv.index("--parent") + 1])
     if "--profile" in argv:

@@ -1,21 +1,25 @@
-"""FSDP over the ``"data"`` mesh: each rank stores 1/W of every weight
-matrix, gathers a layer's weights where the layer runs, and gets back
-only its own slice of their gradient.
+"""FSDP over the batch axes of the mesh (``"data"``, with ``"pod"``
+pod-major): each rank stores 1/W of every weight matrix, gathers a
+layer's weights where the layer runs, and gets back only its own slice of
+their gradient.
 
 The reference has no module like this: GSPMD partitions the jitted step
 from the layouts of ``repro.distributed.params``. The port lays the tree
-out by the same layouts (``distributed.params.param_shardings``) and runs
-the collectives itself:
+out by the same layouts (``distributed.params.param_shardings``, a
+placement a mesh dimension) and runs the collectives itself:
 
-* :func:`shard_tree` cuts each ``Shard(d)`` leaf to this rank's contiguous
-  1/W slice along ``d`` (ranks in order); a ``Replicate()`` leaf stays
-  whole. :func:`full_tree` puts the whole tree back on every rank.
+* :func:`shard_tree` cuts each leaf to this rank's contiguous slice along
+  every dimension a mesh dimension shards (ranks in order; a dimension
+  over ``("pod", "data")`` pod-major); a ``Replicate()`` leaf stays whole.
+  :func:`full_tree` puts the whole tree back on every rank.
 * :func:`gather` and :func:`gather_tree` are the models' seams: an
-  all-gather of a shard, in the dtype the model uses the leaf in
-  (``cfg.dtype`` where the model casts at use), whose backward reduces the
-  f32 gradient over the ranks and returns this rank's slice of the mean
-  (a reduce-scatter). A layer gathered inside ``cfg.remat``'s checkpoint is
-  gathered again in the backward, so no layer stays whole.
+  all-gather over the batch axes of a shard, in the dtype the model uses
+  the leaf in (``cfg.dtype`` where the model casts at use), whose backward
+  reduces the f32 gradient over those ranks and returns this rank's slice
+  of the mean (a reduce-scatter). A leaf split over ``"model"`` keeps its
+  model shard: the tensor-parallel layers (``distributed.tp``) use it as
+  it is. A layer gathered inside ``cfg.remat``'s checkpoint is gathered
+  again in the backward, so no layer stays whole.
 * :func:`lookup` is the embedding's seam: the table is sharded on its
   columns, so where a rank looks up fewer rows than the table has, the
   ranks exchange those rows (an all-to-all), not the table, and the rows'
@@ -23,23 +27,23 @@ the collectives itself:
 * :func:`mean_over_ranks` and :func:`sum_over_ranks` reduce f32 tensors
   (the replicated leaves' gradients and the loss; the squared norm).
 
-Every collective is one ``all_reduce``: NCCL and gloo both take it on
-CUDA tensors, so W gloo ranks can share one card. A gather or an
-all-to-all is an ``all_reduce`` SUM of a zero-filled ``[W, ...]`` buffer
-in which each rank fills its own slots, as ``sharding._gather`` builds a
-gather (exact: each entry has one non-zero term). The partials of a
-reduction are added in rank order (two ranks: one ``all_reduce`` of the
-operand, whose one addition has no order), so a given W gives the same
-bits from run to run. Each call is counted in
+Every collective is one ``all_reduce`` a mesh dimension: NCCL and gloo
+both take it on CUDA tensors, so W gloo ranks can share one card. A
+gather or an all-to-all is an ``all_reduce`` SUM of a zero-filled
+``[W, ...]`` buffer in which each rank fills its own slots, as
+``sharding._gather`` builds a gather (exact: each entry has one non-zero
+term). The partials of a reduction are added in rank order (two ranks: one
+``all_reduce`` of the operand, whose one addition has no order), so a given
+W gives the same bits from run to run. Each call is counted in
 ``sharding.COLLECTIVE_COUNTS`` by the dry run's operand convention
 (``repro_torch.launch.dryrun``): an all-gather by the rank's shard in the
 dtype gathered, an all-to-all by the rank's send buffer, a
 reduce-scatter or an all-reduce by the whole f32 operand.
 
-On one rank (no mesh, or a mesh of one) every function here is the
-identity and issues nothing, so the steps keep the bits of the unsharded
-path. On the meta device (the dry run's trace) a gather makes the whole
-leaf and a reduce-scatter the shard, the tensors a native all-gather and
+On one batch rank every batch collective here is the identity and issues
+nothing, so the steps keep the bits of the unsharded path. On the meta
+device (the dry run's trace) a gather makes the whole leaf and a
+reduce-scatter the shard, the tensors a native all-gather and
 reduce-scatter allocate, without the ``[W, ...]`` buffers of the emulation;
 the calls are counted all the same.
 """
@@ -52,26 +56,48 @@ import torch
 
 from repro_torch.distributed import sharding as sh
 
-__all__ = ["active", "check_places", "full_tree", "gather", "gather_tree", "layer_places",
-           "lookup", "mean_over_ranks", "shard_dim", "shard_tree", "sum_over_ranks", "use_dtype"]
+__all__ = ["active", "batch_dim", "check_places", "full_tree", "gather", "gather_tree",
+           "layer_places", "lookup", "mean_over_ranks", "model_dim", "shard_tree",
+           "sum_over_ranks", "use_dtype"]
 
 
 def world() -> int:
-    return sh.axis_size(sh.DATA)
+    """Ranks over the batch axes."""
+    return sh.group_size(sh.batch_axes())
 
 
 def active() -> bool:
     """True on a mesh of more than one rank, where shards differ from
     their leaves."""
-    return world() > 1
+    return sh.current_mesh() is not None and (world() > 1 or sh.axis_size(sh.MODEL) > 1)
 
 
-def shard_dim(placement) -> int | None:
-    """The dimension a placement tuple shards, ``None`` for ``Replicate()``."""
+def _axes_of(placement) -> tuple[str, ...]:
+    """The mesh dimensions of a placement tuple, by its length (the
+    layouts of ``sharding.LAYOUTS``)."""
+    for names in sh.LAYOUTS:
+        if len(names) == len(placement):
+            return names
+    raise ValueError(f"a placement tuple of {len(placement)} entries: {placement}")
+
+
+def _shard_dims(placement) -> dict[str, int]:
+    """``{mesh dimension: the tensor dimension it shards}``."""
     from torch.distributed.tensor import Shard
 
-    dims = [p.dim for p in placement if isinstance(p, Shard)]
-    return dims[0] if dims else None
+    return {n: p.dim for n, p in zip(_axes_of(placement), placement) if isinstance(p, Shard)}
+
+
+def batch_dim(placement) -> int | None:
+    """The tensor dimension a placement tuple shards over the batch axes,
+    ``None`` where it is whole over them."""
+    dims = _shard_dims(placement)
+    return next((dims[a] for a in (sh.POD, sh.DATA) if a in dims), None)
+
+
+def model_dim(placement) -> int | None:
+    """The tensor dimension a placement tuple shards over ``"model"``."""
+    return _shard_dims(placement).get(sh.MODEL)
 
 
 def _map(fn, tree: Any, places: Any) -> Any:
@@ -98,48 +124,61 @@ def layer_places(places: Any, lead: int = 1) -> Any:
 
     if isinstance(places, dict):
         return {k: layer_places(v, lead) for k, v in places.items()}
-    d = shard_dim(places)
-    if d is None:
-        return places
-    if d < lead:
+    if any(isinstance(p, Shard) and p.dim < lead for p in places):
         raise ValueError(f"a layer axis is sharded: {places}")
-    return (Shard(d - lead),)
+    return tuple(Shard(p.dim - lead) if isinstance(p, Shard) else p for p in places)
+
+
+def _slices(placement) -> dict[int, tuple[int, int]]:
+    """``{tensor dimension: (this rank's index, parts)}`` under a placement
+    tuple: the mesh dimensions splitting a dimension in order, outer first."""
+    out: dict[int, tuple[int, int]] = {}
+    for name, d in _shard_dims(placement).items():
+        idx, parts = out.get(d, (0, 1))
+        out[d] = (idx * sh.axis_size(name) + sh.group_rank((name,)), parts * sh.axis_size(name))
+    return out
 
 
 def shard_tree(tree: Any, placements: Any) -> Any:
-    """This rank's leaves of ``tree`` under ``placements``: a ``Shard(d)``
-    leaf as its contiguous 1/W slice along ``d`` (ranks in order), a
-    ``Replicate()`` leaf whole; every leaf a new tensor."""
-    w, r = world(), sh._mesh_rank()
+    """This rank's leaves of ``tree`` under ``placements``: a sharded leaf
+    as its contiguous slice along each sharded dimension (ranks in order),
+    a ``Replicate()`` leaf whole; every leaf a new tensor."""
 
     def one(leaf, p):
-        d = shard_dim(p)
-        if d is None:
-            return leaf.clone()
-        n = leaf.shape[d]
-        if n % w:
-            raise ValueError(f"dimension {d} of a leaf of shape {tuple(leaf.shape)} does not "
-                             f"split over {w} ranks")
-        return leaf.narrow(d, r * (n // w), n // w).clone()
+        for d, (idx, parts) in _slices(p).items():
+            n = leaf.shape[d]
+            if n % parts:
+                raise ValueError(f"dimension {d} of a leaf of shape {tuple(leaf.shape)} does not "
+                                 f"split over {parts} ranks")
+            leaf = leaf.narrow(d, idx * (n // parts), n // parts)
+        return leaf.clone()
 
     return _map(one, tree, placements)
 
 
 def full_tree(shards: Any, placements: Any) -> Any:
     """The whole tree on every rank, from every rank's ``shards`` (each
-    leaf gathered in its own dtype)."""
-    return _map(lambda s, p: s.clone() if shard_dim(p) is None else _all_gather(s, shard_dim(p)),
-                shards, placements)
+    leaf gathered in its own dtype, over the batch axes, then over
+    ``"model"``)."""
+
+    def one(s, p):
+        b, m = batch_dim(p), model_dim(p)
+        if b is not None:
+            s = _all_gather(s, b)
+        if m is not None:
+            s = _all_gather(s, m, (sh.MODEL,))
+        return s.clone() if b is None and m is None else s
+
+    return _map(one, shards, placements)
 
 
 # ------------------------------------------------------------ the collectives
-def _exchange(t: torch.Tensor, kind: str, nbytes: int) -> torch.Tensor:
-    """``[W, *t.shape]``: every rank's ``t`` in rank order, by one
-    ``all_reduce`` of a zero-filled buffer (exact: each entry has one
-    non-zero term), counted as ``kind`` with ``nbytes``."""
-    buf = torch.zeros((world(), *t.shape), dtype=t.dtype, device=t.device)
-    buf[sh._mesh_rank()] = t
-    return sh._all_reduce(buf, kind=kind, nbytes=nbytes)
+def _exchange(t: torch.Tensor, kind: str, nbytes: int, axes=None) -> torch.Tensor:
+    """``[G, *t.shape]``: every rank's ``t`` over the group of ``axes``
+    (default: the batch axes) in rank order, by one ``all_reduce`` of a
+    zero-filled buffer (exact: each entry has one non-zero term), counted
+    as ``kind`` with ``nbytes``."""
+    return sh._gather(t, axes, kind=kind, nbytes=nbytes)
 
 
 def _count(kind: str, nbytes: int) -> None:
@@ -148,15 +187,17 @@ def _count(kind: str, nbytes: int) -> None:
     sh.COLLECTIVE_COUNTS[kind]["count"] += 1
 
 
-def _all_gather(s: torch.Tensor, dim: int) -> torch.Tensor:
-    """The whole leaf from every rank's shard ``s`` along ``dim``."""
+def _all_gather(s: torch.Tensor, dim: int, axes=None) -> torch.Tensor:
+    """The whole tensor along ``dim`` from every rank's shard ``s`` over the
+    group of ``axes`` (default: the batch axes)."""
+    axes = sh.batch_axes() if axes is None else axes
     nbytes = s.numel() * s.element_size()
     if s.device.type == "meta":
         _count("all-gather", nbytes)
         shape = list(s.shape)
-        shape[dim] *= world()
+        shape[dim] *= sh.group_size(axes)
         return torch.empty(shape, dtype=s.dtype, device="meta")
-    buf = _exchange(s, "all-gather", nbytes)  # [W, ..., n/W, ...]
+    buf = _exchange(s, "all-gather", nbytes, axes)  # [G, ..., n/G, ...]
     return buf.movedim(0, dim).flatten(dim, dim + 1)
 
 
@@ -189,14 +230,14 @@ def _reduce_scatter_mean(g: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """The f32 tensor ``t`` summed over the ranks in rank order (one
-    all-reduce); ``t`` itself on one rank."""
-    return _sum(t.float(), "all-reduce") if active() else t
+    """The f32 tensor ``t`` summed over the batch ranks in rank order (one
+    all-reduce); ``t`` itself on one batch rank."""
+    return _sum(t.float(), "all-reduce") if world() > 1 else t
 
 
 def mean_over_ranks(t: torch.Tensor) -> torch.Tensor:
     """:func:`sum_over_ranks` divided by W."""
-    return sum_over_ranks(t) / world() if active() else t
+    return sum_over_ranks(t) / world() if world() > 1 else t
 
 
 # ------------------------------------------------------------ gather at use
@@ -224,16 +265,16 @@ def use_dtype(cfg, leaf: torch.Tensor):
 
 
 def gather(cfg, leaf: torch.Tensor, placement, dtype=None) -> torch.Tensor:
-    """The whole leaf for use from this rank's shard ``leaf``: a
-    ``Shard(d)`` leaf all-gathered in ``dtype`` (default
+    """The leaf for use from this rank's shard ``leaf``: a leaf sharded
+    over the batch axes all-gathered over them in ``dtype`` (default
     :func:`use_dtype`; differentiable: its gradient comes back as this
-    rank's slice of the mean over ranks), a ``Replicate()`` leaf as it is.
-    On one rank, the leaf cast to that dtype."""
-    d = shard_dim(placement)
+    rank's slice of the mean over ranks), its model shard kept; a leaf whole
+    over them as it is. On one batch rank, the leaf cast to that dtype."""
+    d = batch_dim(placement)
     if d is None:
         return leaf
     dtype = dtype or use_dtype(cfg, leaf)
-    if not active():
+    if world() == 1:
         return leaf.to(dtype)
     return _Gather.apply(leaf, d, dtype)
 
@@ -288,8 +329,8 @@ def lookup(cfg, table: torch.Tensor, placement, ids: torch.Tensor) -> torch.Tens
     else the table (:func:`gather`, as stored); a whole table, or one
     rank's, is indexed directly. The ranks look up as many ids each, so
     they all take the same branch."""
-    d = shard_dim(placement)
-    if d is None or not active():
+    d = batch_dim(placement)
+    if d is None or world() == 1:
         return table[ids.long()]
     if d != table.ndim - 1:
         raise ValueError(f"a table sharded on dimension {d}: lookup takes one sharded on its "

@@ -1,21 +1,22 @@
-"""Parameter, cache and input layouts on the ``"data"`` mesh, by leaf name.
+"""Parameter, cache and input layouts on the mesh, by leaf name.
 
-Counterpart of ``repro.distributed.params``. The reference shards every
-weight matrix two ways: its "fan-in-ish" dimension over the data-parallel
-axes (FSDP) and its "parallel" dimension over the model axis. The port keeps
-the reference's name tables (:data:`_RULES`, :func:`_moe_rule`,
-:data:`_CACHE_RULES`) and resolves them as the reference's ``_dim_spec``
-does on a mesh without a model axis (``src/repro/distributed/sharding.py``):
-
-* a ``"batch"`` entry becomes ``Shard(dim)`` over ``"data"`` where the
-  number of ranks divides that dimension, and leaves the dimension whole
-  where it does not (the reference drops an axis that does not divide);
-* ``"tensor"``, ``"expert"``, ``"seq"`` and ``"model"`` leave it whole.
+Counterpart of ``repro.distributed.params``. Every weight matrix is laid
+out two ways: its "fan-in-ish" dimension over the data-parallel axes
+(FSDP, ``"batch"``) and its "parallel" dimension over the model axis
+(``"tensor"``, ``"expert"``). The port keeps the reference's name tables
+(:data:`_RULES`, :func:`_moe_rule` by the MoE's mode on the current model
+axis, :data:`_CACHE_RULES`, whose ``"seq"`` puts a KV cache's slots over
+``"model"``) and resolves them with ``sharding.logical_to_spec``, the
+reference's ``_dim_spec``: an axis that does not divide its dimension is
+dropped (the vocabulary divides, being padded to a multiple of 256).
 
 Each function returns a tree shaped like its input whose leaves are
-``torch.distributed.tensor`` placement tuples, one entry per mesh dimension:
-``(Shard(d),)`` or ``(Replicate(),)``. They lay out the port's FSDP step
-(``distributed.fsdp``: ``train_step.make_train_step(param_shardings=...)``,
+``torch.distributed.tensor`` placement tuples, one entry per mesh
+dimension: ``(Shard(d),)`` or ``(Replicate(),)`` on a ``"data"`` mesh,
+``(Shard(0), Shard(1))`` for a ``wq`` on a ``("data", "model")`` mesh.
+They lay out the port's sharded step (``distributed.fsdp`` over the batch
+axes, ``distributed.tp`` over ``"model"``:
+``train_step.make_train_step(param_shardings=...)``,
 ``transformer.prefill``/``decode``, ``train.checkpoint``'s elastic
 restore) and the dry run's per-device accounting
 (``repro_torch.launch.dryrun``), which traces that step.
@@ -51,7 +52,7 @@ _RULES: dict[str, tuple] = {
 
 def _moe_rule(cfg: ArchConfig, name: str) -> tuple:
     """MoE expert tensors (rank 3 under a ``moe`` key), by the reference's
-    MoE mode on the current model axis (of size 1 in the port)."""
+    MoE mode on the current model axis (``ep`` at one model rank)."""
     from repro_torch.models.moe import moe_mode
 
     mode = moe_mode(cfg.n_experts, max(sh.axis_size("model"), 1))
@@ -71,8 +72,8 @@ def _moe_rule(cfg: ArchConfig, name: str) -> tuple:
 
 
 _CACHE_RULES: dict[str, tuple] = {
-    # [L, B, S, kv, hd]: batch over data; the reference's cache seq goes over
-    # its model axis, which the port does not have
+    # [L, B, S, kv, hd]: batch over the data axes, the cache's slots over
+    # model (decode combines each rank's partial softmax: flash decoding)
     "k": (None, "batch", "seq", None, None),
     "v": (None, "batch", "seq", None, None),
     "xk": (None, "batch", None, None, None),
@@ -83,39 +84,11 @@ _CACHE_RULES: dict[str, tuple] = {
 }
 
 
-def _dim_axis(entry, size: int) -> str | None:
-    """One logical entry resolved to the mesh: ``"data"`` where it names the
-    data-parallel axes and their ranks divide ``size``, else ``None``."""
-    if entry is None:
-        return None
-    resolved: list[str] = []
-    for name in entry if isinstance(entry, tuple) else (entry,):
-        if name == "batch":
-            resolved.extend(sh.batch_axes())
-        elif name in ("pod", "data"):
-            if name in sh.batch_axes():
-                resolved.append(name)
-        elif name not in ("seq", "tensor", "expert", "model"):
-            raise ValueError(f"unknown logical axis {name!r}")
-    resolved = list(dict.fromkeys(resolved))
-    total = 1
-    for name in resolved:
-        total *= sh.axis_size(name)
-    if not resolved or size % total:
-        return None
-    return resolved[0]
-
-
 def _placements(logical, shape) -> tuple:
     """The placement tuple of a leaf of ``shape`` under ``logical``."""
-    from torch.distributed.tensor import Replicate, Shard
-
     if len(logical) != len(shape):
         raise ValueError(f"logical axes {logical} for a leaf of shape {tuple(shape)}")
-    for dim, (entry, size) in enumerate(zip(logical, shape)):
-        if _dim_axis(entry, int(size)) is not None:
-            return (Shard(dim),)
-    return (Replicate(),)
+    return sh.logical_to_spec(logical, shape)
 
 
 def _require_mesh() -> None:
@@ -166,7 +139,7 @@ def cache_shardings(cfg: ArchConfig, cache: Any) -> Any:
 
 def input_shardings(cfg: ArchConfig, specs: dict) -> dict:
     """Placements of the step inputs that ``configs.input_specs`` builds:
-    the batch dimension over ``"data"`` where it divides, ``pos``
+    the batch dimension over the data axes where it divides, ``pos``
     replicated."""
     _require_mesh()
     out: dict[str, Any] = {}

@@ -1,74 +1,100 @@
-"""The mesh context, and the few collectives the sharded plane runs.
+"""The mesh context, the logical layout rule, and the few collectives the
+sharded planes run.
 
-Counterpart of the mesh context of ``repro.distributed.sharding``:
-:func:`use_mesh`, :func:`current_mesh`, :func:`axis_size` and
-:func:`batch_axes`. The mesh is a ``torch.distributed.device_mesh.DeviceMesh``
-with one dimension named ``"data"``, which the caller builds over a process
-group it started::
+Counterpart of ``repro.distributed.sharding``: :func:`use_mesh`,
+:func:`current_mesh`, :func:`axis_size`, :func:`batch_axes`,
+:func:`logical_to_spec`, :func:`named_sharding` and :func:`shard`. The mesh
+is a ``torch.distributed.device_mesh.DeviceMesh`` whose dimensions are
+``("data",)``, ``("data", "model")`` or ``("pod", "data", "model")``, the
+reference's production layouts, built by the caller over a process group
+it started::
 
     dist.init_process_group("nccl", init_method=..., rank=r, world_size=w)
-    mesh = init_device_mesh("cuda", (w,), mesh_dim_names=("data",))
+    mesh = init_device_mesh("cuda", (w // m, m), mesh_dim_names=("data", "model"))
     with use_mesh(mesh):
-        BWKM(k=27, engine="distributed").fit(x)
+        ...
 
-Outside any mesh the plane is one shard and every collective here is the
-identity, as the reference's ``mesh is None`` path is.
+Outside any mesh every collective here is the identity, as the reference's
+``mesh is None`` path is.
+
+Logical axes map to mesh dimensions as the reference maps them::
+
+  batch    -> ("pod", "data")   activations' leading dim / FSDP weight dim
+  seq      -> "model"           the residual stream between layers
+  tensor   -> "model"           heads / ff / vocab / experts' ff
+  expert   -> "model"           the MoE's expert-parallel groups
+
+and an axis that does not divide its dimension is dropped
+(:func:`logical_to_spec`, the reference's ``_dim_spec``). A layout is a
+tuple of ``torch.distributed.tensor`` placements, one a mesh dimension:
+``Shard(d)`` or ``Replicate()``; a dimension over ``("pod", "data")`` is
+``Shard(d)`` on both, pod the outer.
+
+:func:`shard` is a layout statement: it checks the rank and returns its
+input. The port's layers keep each tensor in the layout the reference's
+constraint names (``models.transformer``: the residual split on the
+sequence over ``"model"``, heads and ff split inside attention and the
+MLP), with explicit collectives (``distributed.tp``) where GSPMD would
+insert them. ``shard_map`` is left out by design: the MoE islands
+(``models.moe``) are plain functions with explicit collectives.
 
 The collectives use only ``all_reduce`` (SUM, MIN, MAX): NCCL and gloo both
-take it on CUDA tensors, where gloo has no ``all_gather``. A gather is an
-``all_reduce`` SUM of a zero-filled ``[W, ...]`` buffer in which each rank
-fills its own slot, which is exact, since each entry has one non-zero term.
-Every f32 combine gathers the W partials and adds them in rank order
-(:func:`_sum_over_ranks`), so a result does not depend on the backend's
-reduction order and is the same from run to run at a given W.
+take it on CUDA tensors, where gloo has no ``all_gather``. They run over a
+group of mesh dimensions: by default the batch axes (``"pod"`` and
+``"data"``, flattened pod-major), the ``"model"`` dimension for the tensor
+parallel collectives; over several dimensions one call is an ``all_reduce``
+a dimension. A gather is an ``all_reduce`` SUM of a zero-filled ``[G, ...]``
+buffer in which each rank fills its own slot, which is exact, since each
+entry has one non-zero term. Every f32 combine gathers the G partials and
+adds them in rank order (:func:`_sum_over_ranks`), so a result does not
+depend on the backend's reduction order and is the same from run to run at
+a given G.
 
 Each collective issued here is counted by kind in
 :data:`COLLECTIVE_COUNTS` (its bytes and calls), which
 ``repro_torch.roofline.analysis.collective_bytes`` reads in the shape of the
-reference's ``parse_collective_bytes``.
-
-The FSDP step (``distributed.fsdp``) builds its all-gathers and
-reduce-scatters the same way.
-
-The port splits rows only: there is no ``"model"`` axis. So
-:func:`shard`, the models' layout constraint, returns its input (the
-reference's is a no-op without a model mesh too), and the reference's
-helpers that serve the model axis (``named_sharding``, ``logical_to_spec``,
-``shard_map``) are left out by design.
+reference's ``parse_collective_bytes``. The FSDP step
+(``distributed.fsdp``) and the tensor-parallel layers (``distributed.tp``)
+build their collectives the same way.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any
+from math import prod
+from typing import Any, Sequence
 
 import torch
 
-__all__ = ["axis_size", "batch_axes", "current_mesh", "shard", "use_mesh"]
+__all__ = ["axis_size", "batch_axes", "current_mesh", "logical_to_spec", "named_sharding",
+           "shard", "use_mesh"]
 
-#: the one mesh dimension of the port
-DATA = "data"
+#: the mesh dimensions of the port
+DATA, MODEL, POD = "data", "model", "pod"
+#: the mesh layouts the port takes: the reference's
+LAYOUTS = ((DATA,), (DATA, MODEL), (POD, DATA, MODEL))
 
 _local = threading.local()
 
 #: bytes and calls of the collectives issued in this process, by kind: a
 #: reduction is an ``all-reduce``; a gather, one ``all_reduce`` of a
-#: ``[W, ...]`` buffer, an ``all-gather`` (each call is counted once); the
-#: FSDP step's gradient reductions (``distributed.fsdp``) a ``reduce-scatter``,
-#: its embedding's exchange of rows an ``all-to-all``
+#: ``[G, ...]`` buffer, an ``all-gather`` (each call is counted once); the
+#: FSDP step's gradient reductions (``distributed.fsdp``) and the sums after
+#: a row-parallel product (``distributed.tp``) a ``reduce-scatter``, the
+#: embedding's exchange of rows and the MoE's token exchange an ``all-to-all``
 COLLECTIVE_COUNTS = {kind: {"bytes": 0, "count": 0}
                      for kind in ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")}
 
 
 @contextlib.contextmanager
 def use_mesh(mesh: Any):
-    """Make ``mesh`` (a ``DeviceMesh`` with one dimension named ``"data"``,
-    or ``None``) the current mesh inside the block."""
-    if mesh is not None and tuple(mesh.mesh_dim_names or ()) != (DATA,):
-        raise ValueError(
-            f"the port's mesh has one dimension named {DATA!r}, got {mesh.mesh_dim_names}"
-        )
+    """Make ``mesh`` (a ``DeviceMesh`` with dimensions ``("data",)``,
+    ``("data", "model")`` or ``("pod", "data", "model")``, or ``None``) the
+    current mesh inside the block."""
+    if mesh is not None and tuple(mesh.mesh_dim_names or ()) not in LAYOUTS:
+        raise ValueError(f"the port's mesh has one dimension named {DATA!r}, or the dimensions "
+                         f"{LAYOUTS[1]} or {LAYOUTS[2]}; got {mesh.mesh_dim_names}")
     prev = getattr(_local, "mesh", None)
     _local.mesh = mesh
     try:
@@ -81,6 +107,11 @@ def current_mesh() -> Any:
     return getattr(_local, "mesh", None)
 
 
+def _names() -> tuple[str, ...]:
+    mesh = current_mesh()
+    return () if mesh is None else tuple(mesh.mesh_dim_names)
+
+
 def axis_size(name: str) -> int:
     """Ranks along mesh dimension ``name``; 1 without a mesh or such a dimension."""
     mesh = current_mesh()
@@ -91,33 +122,97 @@ def axis_size(name: str) -> int:
 
 def batch_axes() -> tuple[str, ...]:
     """The data-parallel mesh dimensions present on the current mesh."""
+    return tuple(a for a in (POD, DATA) if a in _names())
+
+
+def group_size(axes: Sequence[str]) -> int:
+    """Ranks of the group over mesh dimensions ``axes``."""
+    return prod(axis_size(a) for a in axes)
+
+
+def group_rank(axes: Sequence[str]) -> int:
+    """This process's rank in the group over ``axes``, row-major in the
+    order given (0 without a mesh)."""
     mesh = current_mesh()
-    return () if mesh is None else (DATA,)
+    r = 0
+    for a in axes:
+        if mesh is not None and a in mesh.mesh_dim_names:
+            r = r * axis_size(a) + int(mesh.get_local_rank(a))
+    return r
+
+
+# ------------------------------------------------------------ the layout rule
+def _dim_spec(entry, size: int) -> tuple[str, ...] | None:
+    """One logical entry resolved to the mesh dimensions that divide
+    ``size`` together (the reference's rule: an entry that does not divide
+    is dropped whole), ``None`` where it resolves to none."""
+    if entry is None:
+        return None
+    resolved: list[str] = []
+    for name in entry if isinstance(entry, tuple) else (entry,):
+        if name == "batch":
+            resolved.extend(batch_axes())
+        elif name in ("seq", "tensor", "expert", MODEL):
+            if axis_size(MODEL) > 1:
+                resolved.append(MODEL)
+        elif name in (POD, DATA):
+            if name in _names():
+                resolved.append(name)
+        else:
+            raise ValueError(f"unknown logical axis {name!r}")
+    resolved = list(dict.fromkeys(resolved))
+    if not resolved or size % prod(axis_size(a) for a in resolved):
+        return None
+    return tuple(resolved)
+
+
+def logical_to_spec(logical: Sequence, shape: Sequence[int]) -> tuple:
+    """The placement tuple of a tensor of ``shape`` whose dimensions have
+    the logical axes ``logical``: for each dimension of the current mesh,
+    ``Shard(d)`` where it splits dimension ``d``, else ``Replicate()``
+    (``()`` without a mesh)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if len(logical) != len(shape):
+        raise ValueError(f"logical axes {tuple(logical)} for a tensor of shape {tuple(shape)}")
+    owner: dict[str, int] = {}
+    for d, (entry, size) in enumerate(zip(logical, shape)):
+        for name in _dim_spec(entry, int(size)) or ():
+            owner.setdefault(name, d)
+    return tuple(Shard(owner[n]) if n in owner else Replicate() for n in _names())
+
+
+def named_sharding(logical: Sequence, shape: Sequence[int]) -> tuple | None:
+    """:func:`logical_to_spec` on the current mesh; ``None`` without one
+    (the reference's ``NamedSharding`` is the mesh with its spec)."""
+    return None if current_mesh() is None else logical_to_spec(logical, shape)
 
 
 def shard(x: torch.Tensor, *logical) -> torch.Tensor:
-    """``x`` itself: a logical layout constraint (one entry per dimension:
-    a logical axis name, a tuple of them, or ``None``), which the port,
-    with no model axis, leaves to the caller's placement."""
+    """``x`` itself: a logical layout statement (one entry per dimension:
+    a logical axis name, a tuple of them, or ``None``). The port's layers
+    hold each tensor in that layout themselves (the module docstring)."""
     if len(logical) != x.ndim:
         raise ValueError(f"{len(logical)} logical axes for a tensor of {x.ndim} dimensions")
     return x
 
 
+# ------------------------------------------------------------ the collectives
 def _mesh_rank() -> int:
-    """This process's rank along ``"data"``; 0 without a mesh."""
-    mesh = current_mesh()
-    return 0 if mesh is None else int(mesh.get_local_rank(DATA))
+    """This process's rank over the batch axes; 0 without a mesh."""
+    return group_rank(batch_axes())
 
 
 _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}
 
 
 def _all_reduce(t: torch.Tensor, op: str = "sum", kind: str = "all-reduce",
-                nbytes: int | None = None) -> torch.Tensor:
-    """``t`` reduced over the ranks in place (``op`` one of sum, min, max);
-    ``t`` itself without a mesh. Integer and min/max reductions are exact.
-    The call is counted under ``kind`` with ``nbytes`` (default: ``t``'s)."""
+                nbytes: int | None = None, axes: Sequence[str] | None = None) -> torch.Tensor:
+    """``t`` reduced over the group of ``axes`` (default: the batch axes)
+    in place (``op`` one of sum, min, max); ``t`` itself without a mesh.
+    Integer and min/max reductions, and sums with one non-zero term an
+    entry, are exact. The call is counted once under ``kind`` with
+    ``nbytes`` (default: ``t``'s)."""
     mesh = current_mesh()
     if mesh is None:
         return t
@@ -126,21 +221,27 @@ def _all_reduce(t: torch.Tensor, op: str = "sum", kind: str = "all-reduce",
     tally = COLLECTIVE_COUNTS[kind]
     tally["bytes"] += t.numel() * t.element_size() if nbytes is None else nbytes
     tally["count"] += 1
-    dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]), group=mesh.get_group(DATA))
+    axes = batch_axes() if axes is None else axes
+    for a in axes:
+        if axis_size(a) > 1 or len(axes) == 1:
+            dist.all_reduce(t, op=getattr(dist.ReduceOp, _OPS[op]), group=mesh.get_group(a))
     return t
 
 
-def _gather(t: torch.Tensor) -> torch.Tensor:
-    """``[W, *t.shape]``: every rank's ``t`` in rank order, exactly."""
-    buf = torch.zeros((axis_size(DATA), *t.shape), dtype=t.dtype, device=t.device)
-    buf[_mesh_rank()] = t
-    return _all_reduce(buf, kind="all-gather")
+def _gather(t: torch.Tensor, axes: Sequence[str] | None = None,
+            kind: str = "all-gather", nbytes: int | None = None) -> torch.Tensor:
+    """``[G, *t.shape]``: every rank's ``t`` over the group of ``axes``
+    (default: the batch axes) in rank order, exactly."""
+    axes = batch_axes() if axes is None else axes
+    buf = torch.zeros((group_size(axes), *t.shape), dtype=t.dtype, device=t.device)
+    buf[group_rank(axes)] = t
+    return _all_reduce(buf, kind=kind, nbytes=nbytes, axes=axes)
 
 
 def _sum_over_ranks(*parts: torch.Tensor) -> tuple[torch.Tensor, ...]:
-    """Each f32 tensor of ``parts`` summed over the ranks, the W partials
-    added in rank order (one gather for all of them); ``parts`` themselves
-    without a mesh."""
+    """Each f32 tensor of ``parts`` summed over the batch ranks, the
+    partials added in rank order (one gather for all of them); ``parts``
+    themselves without a mesh."""
     if current_mesh() is None:
         return parts
     g = _gather(torch.cat([p.reshape(-1).float() for p in parts]))
@@ -155,9 +256,9 @@ def _sum_over_ranks(*parts: torch.Tensor) -> tuple[torch.Tensor, ...]:
 
 
 def _row_block(n_local: int, device) -> tuple[int, int]:
-    """``(n, offset)``: the rows over all ranks, and where this rank's
-    contiguous block of ``n_local`` starts among them (ranks hold their
-    blocks in rank order)."""
+    """``(n, offset)``: the rows over all batch ranks, and where this
+    rank's contiguous block of ``n_local`` starts among them (ranks hold
+    their blocks in rank order)."""
     if current_mesh() is None:
         return n_local, 0
     counts = _gather(torch.tensor(n_local, dtype=torch.int64, device=device)).tolist()

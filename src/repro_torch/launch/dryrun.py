@@ -6,11 +6,15 @@ bytes, collective bytes and a peak-memory estimate for the report
 Counterpart of ``repro.launch.dryrun``, which lowers and compiles each cell
 with XLA against 256 or 512 forced host devices. The port compiles nothing:
 it starts a fake process group of W ranks (``torch.distributed``'s ``fake``
-backend, no device and no communication), builds
-``launch.mesh.make_production_mesh`` over it (W = 256, ``data256``; 512,
-``data512``, with ``--multi-pod``), lays parameters, optimizer state and
-inputs out with ``distributed.params``, and runs the cell's step once on
-meta tensors, which carry shapes and dtypes and no storage:
+backend, no device and no communication), builds the mesh over it, lays
+parameters, optimizer state and inputs out with ``distributed.params``, and
+runs the cell's step once on meta tensors, which carry shapes and dtypes
+and no storage. The dense and moe families run on the reference's
+production mesh, ``launch.mesh.make_production_mesh`` (``16x16``,
+``("data", "model")``; ``2x16x16`` with ``--multi-pod``); the audio, ssm,
+hybrid and vlm families, not yet on the model axis (ROADMAP A19), on the
+same ranks as one ``"data"`` dimension (``make_data_mesh``: ``data256``,
+``data512``). The step:
 
 * train: ``train_step.make_train_step(cfg, param_shardings=...)``'s step
   (loss, gradients with ``cfg.remat``'s checkpoints, the AdamW update in
@@ -20,14 +24,16 @@ meta tensors, which carry shapes and dtypes and no storage:
 
 The step is the one the port executes on W ranks, at one rank's shapes:
 its shards of the parameters and of the optimizer state
-(``distributed.fsdp``: each layer gathered where it runs, each sharded
-gradient reduce-scattered in the backward), its rows of the batch (B/W
-where ``input_shardings`` splits it; the whole batch on every rank where W
-does not divide it: ``per_rank_batch``, ``batch_split``). On the meta
-device a collective makes the tensor a native all-gather or reduce-scatter
-would (the whole leaf, the shard) and moves nothing; the gloo emulation's
-``[W, ...]`` buffers are not traced. At W = 1 the step is the unsharded
-one.
+(``distributed.fsdp`` over the batch axes: each layer gathered where it
+runs, each sharded gradient reduce-scattered in the backward;
+``distributed.tp`` over ``"model"``), its rows of the batch (B/Dp over the
+Dp batch ranks where ``input_shardings`` splits it; the whole batch on
+every rank where Dp does not divide it: ``per_rank_batch``,
+``batch_split``) and, on the model axis, its part of the sequence between
+layers and its ``Sc/M`` cache slots. On the meta device a collective makes
+the tensor a native one would (the whole leaf, the shard) and moves
+nothing; the gloo emulation's ``[W, ...]`` buffers are not traced. At W = 1
+the step is the unsharded one.
 
 What a record holds (the reference's keys where their meaning holds):
 
@@ -44,12 +50,12 @@ What a record holds (the reference's keys where their meaning holds):
   bytes as the reference's ``parse_collective_bytes`` counts them, in the
   shape of ``roofline.analysis.collective_bytes()``; the trace counts the
   collectives the step issues and raises where they differ from the rule.
-  The rule, with W > 1 (one rank has none): every data-sharded parameter
-  leaf is all-gathered in the dtype it is used in (``cfg.dtype`` where the
+  The rule over the Dp batch ranks (Dp = 1 has none): every
+  batch-sharded parameter leaf is all-gathered in the dtype it is used in (``cfg.dtype`` where the
   model casts at use; the embedding as stored, its rows cast after the
   lookup) once per forward pass over it, so ``grad_accum`` times a train
-  step, its operand the rank's shard; a leaf of the stacked layers is
-  gathered again in the backward under ``cfg.remat`` (the embedding, the
+  step, its operand the rank's shard (over both axes); a leaf of the stacked
+  layers is gathered again in the backward under ``cfg.remat`` (the embedding, the
   head and the hybrid's shared block are gathered outside the
   checkpoints, once a pass). But where a pass looks up n < V token ids a
   rank, the embedding (V rows, sharded on its columns) moves those rows
@@ -57,10 +63,35 @@ What a record holds (the reference's keys where their meaning holds):
   and all-to-alls its n rows (n × D in the table's dtype), and a train
   step's backward all-to-alls their f32 gradients. In a train step every
   other gathered leaf's f32 gradient is
-  reduce-scattered once per micro-batch, its operand the whole leaf; the
-  replicated leaves' f32 gradients and the loss are averaged in one
-  all-reduce a step, and the squared gradient norm summed in another (4
-  bytes). A stacked leaf is one call a layer.
+  reduce-scattered once per micro-batch, its operand the leaf whole over
+  the batch axes; the batch-replicated leaves' f32 gradients and the loss
+  are averaged in one all-reduce a step, and the squared gradient norm
+  summed in another (4 bytes). A stacked leaf is one call a layer.
+  The rule over the M model ranks (M = 1 has none; :func:`_model_axis`),
+  with n the tokens of the rank's rows in a pass (whole sequence), the
+  residual split on the sequence where M divides S > 1: the embedding's
+  rows added over the ranks (a reduce-scatter of n × D in the table's
+  dtype where the sequence splits, else an all-reduce); in each layer
+  the sequence gathered before attention and before the MLP (n/M × D),
+  the f32 row-parallel partials reduce-scattered after them (n × D × 4;
+  all-reduced where the sequence is whole), ``wk``/``wv`` gathered where
+  GQA is expanded, a prefill's K/V gathered over the heads where it is
+  not; the MoE's island (``ep``: two all-to-alls of the [E, C, D]
+  buffers; ``ep_split``: those and three of the weights; ``tp``: the
+  sequence gathered and an all-reduce of the f32 [E, C, D] partials; the
+  shared experts as the MLP); the head's sequence gather (train) or the
+  last position's all-reduce (prefill); the loss's row max and
+  (sum-exp, label logit) all-reduces. Decode gathers q (and K/V where GQA
+  is not expanded) over the heads, the partial softmaxes of the ranks'
+  slots, and all-reduces the ``wo``/``w2`` partials. A train step's
+  backward issues each collective's adjoint (an all-gather's
+  reduce-scatter, a reduce-scatter's all-gather, an all-reduce and an
+  all-to-all again, the operand in the gradient's dtype), remat issues a
+  layer's forward collectives again but its last row-parallel sum
+  (``torch.utils.checkpoint`` stops its recompute at the last tensor the
+  backward saved), and the step ends with the
+  model-replicated leaves' f32 gradients and the loss added over the
+  ranks in one all-reduce and the squared norm in another.
 * ``memory``, per rank:
 
   - ``argument_bytes``: the rank's shards of the parameters, the optimizer
@@ -116,8 +147,15 @@ from repro_torch import random as rnd
 from repro_torch.distributed import fsdp
 from repro_torch.distributed import params as param_rules
 from repro_torch.distributed import sharding as sh
-from repro_torch.launch.mesh import make_production_mesh, production_mesh_name, production_world
-from repro_torch.models import transformer
+from repro_torch.launch.mesh import (
+    data_mesh_name,
+    make_data_mesh,
+    make_production_mesh,
+    production_mesh_name,
+    production_shape,
+    production_world,
+)
+from repro_torch.models import moe, transformer
 from repro_torch.roofline import analysis
 from repro_torch.train import optimizer
 from repro_torch.train import train_step as ts
@@ -149,20 +187,39 @@ def fake_group(world: int):
 
 
 @contextlib.contextmanager
-def fake_mesh(world: int):
-    """:func:`fake_group` of ``world`` ranks and its ``"data"`` mesh, made
-    the current mesh inside the block: ``make_production_mesh`` at 256 and
-    512 ranks, any other size directly."""
+def fake_mesh(world: int, shape: tuple[int, ...] | None = None):
+    """:func:`fake_group` of ``world`` ranks and a mesh over it, made the
+    current mesh inside the block: one ``"data"`` dimension without
+    ``shape`` (``make_data_mesh`` at 256 and 512 ranks), else ``shape``
+    over ``("data", "model")`` or ``("pod", "data", "model")``
+    (``make_production_mesh`` at its shapes)."""
     from torch.distributed.device_mesh import init_device_mesh
 
     with fake_group(world):
         multi = {production_world(False): False, production_world(True): True}.get(world)
-        if multi is None:
+        if shape is None and multi is not None:
+            mesh = make_data_mesh(multi_pod=multi, device="cpu")
+        elif shape is None:
             mesh = init_device_mesh("cpu", (world,), mesh_dim_names=(sh.DATA,))
-        else:
+        elif multi is not None and tuple(shape) == production_shape(multi):
             mesh = make_production_mesh(multi_pod=multi, device="cpu")
+        else:
+            names = {2: ("data", "model"), 3: ("pod", "data", "model")}[len(shape)]
+            mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=names)
         with sh.use_mesh(mesh):
             yield mesh
+
+
+def on_model_axis(cfg: configs.ArchConfig) -> bool:
+    """Whether a config's cells run on the production mesh's model axis
+    (the dense and moe families) or on the data mesh (ROADMAP A19)."""
+    return cfg.family in transformer._MODEL_AXIS_FAMILIES
+
+
+def mesh_name(cfg: configs.ArchConfig, multi_pod: bool) -> str:
+    """The mesh a config's records are on: ``16x16``/``2x16x16`` or
+    ``data256``/``data512``."""
+    return production_mesh_name(multi_pod) if on_model_axis(cfg) else data_mesh_name(multi_pod)
 
 
 # ------------------------------------------------------------- the tally
@@ -238,21 +295,21 @@ def _storage_keys(tree) -> dict[int, int]:
 
 
 # ------------------------------------------------------------- the step
-def _local_shape(shape, placement, world: int) -> tuple[int, ...]:
-    """A leaf's per-rank shape under its placement tuple."""
+def _local_shape(shape, placement, axes: tuple[str, ...] | None = None) -> tuple[int, ...]:
+    """A leaf's per-rank shape under its placement tuple on the current
+    mesh, split over the mesh dimensions ``axes`` only (default: all)."""
     from torch.distributed.tensor import Shard
 
     out = list(shape)
-    for p in placement:
-        if isinstance(p, Shard):
-            out[p.dim] //= world
+    for name, p in zip(fsdp._axes_of(placement), placement):
+        if isinstance(p, Shard) and (axes is None or name in axes):
+            out[p.dim] //= sh.axis_size(name)
     return tuple(out)
 
 
 def _is_sharded(placement) -> bool:
-    from torch.distributed.tensor import Shard
-
-    return any(isinstance(p, Shard) for p in placement)
+    """Whether a placement splits its leaf over the batch axes."""
+    return fsdp.batch_dim(placement) is not None
 
 
 def _walk(tree, places, names=()):
@@ -274,13 +331,13 @@ def _layers_of(names, t) -> int:
     return prod(t.shape[: _STACKED.get(names[0], 0)])
 
 
-def _local_inputs(specs: dict, places: dict, world: int) -> dict:
+def _local_inputs(specs: dict, places: dict) -> dict:
     """``specs``' leaves as meta tensors at their per-rank shapes."""
 
     def local(v, p):
         if isinstance(v, dict):
             return {k: local(x, p[k]) for k, x in v.items()}
-        return torch.empty(_local_shape(v.shape, p, world), dtype=v.dtype, device="meta")
+        return torch.empty(_local_shape(v.shape, p), dtype=v.dtype, device="meta")
 
     return {k: local(v, places[k]) for k, v in specs.items()}
 
@@ -311,10 +368,9 @@ def cell_step(cfg: configs.ArchConfig, shape: configs.Shape, *,
     ``cfg.grad_accum`` micro-batches), the ``whole`` parameter tree and
     its ``param_shardings``, the per-rank ``inputs``, their
     ``input_shardings``, ``per_rank_batch`` and ``batch_split``."""
-    world = sh.axis_size(sh.DATA)
     specs = configs.input_specs(cfg, shape)
     in_sh = param_rules.input_shardings(cfg, specs)
-    inputs = _local_inputs(specs, in_sh, world)
+    inputs = _local_inputs(specs, in_sh)
     if torch.device(device).type != "meta":
         gen = torch.Generator().manual_seed(0)
         inputs = {k: _realize(k, v, device, gen) for k, v in inputs.items()}
@@ -325,8 +381,8 @@ def cell_step(cfg: configs.ArchConfig, shape: configs.Shape, *,
     img = (inputs["image_embeds"],) if cfg.family == "vlm" and shape.kind != "decode" else ()
     whole = transformer.init_params(cfg, rnd.key(0), device=device)
     psh = param_rules.param_shardings(cfg, whole)
-    ps = psh if world > 1 else None
-    params = fsdp.shard_tree(whole, psh) if world > 1 else whole
+    ps = psh if fsdp.active() else None
+    params = fsdp.shard_tree(whole, psh) if fsdp.active() else whole
     if shape.kind == "train":
         step = ts.make_train_step(cfg, param_shardings=ps)
         args = (params, optimizer.adamw_init(params), inputs["tokens"], inputs["labels"], *img)
@@ -352,28 +408,35 @@ def cell_step(cfg: configs.ArchConfig, shape: configs.Shape, *,
     return step, args, info
 
 
-def _collectives(cfg, shape, params, places, world: int) -> dict[str, Any]:
+def _collectives(cfg, shape, params, places, world: int | None = None) -> dict[str, Any]:
     """A step's collective operand bytes by the rule of the module
-    docstring (``cfg`` the config the step runs: ``cell_step``'s)."""
+    docstring (``cfg`` the config the step runs: ``cell_step``'s) on the
+    current mesh (``world``, where given, its batch ranks)."""
     out: dict[str, Any] = {k: {"bytes": 0, "count": 0} for k in _KINDS}
 
     def add(kind, nbytes, calls=1):
         out[kind]["bytes"] += nbytes
         out[kind]["count"] += calls
 
-    if world > 1:
-        train = shape.kind == "train"
-        accum = max(1, cfg.grad_accum) if train else 1
-        rows = shape.global_batch // world if shape.global_batch % world == 0 else shape.global_batch
-        tokens = rows * (1 if shape.kind == "decode" else shape.seq_len) // accum  # a pass
+    batch = fsdp.world()
+    if world is not None and world != batch:
+        raise ValueError(f"the rule at {world} batch ranks on a mesh of {batch}")
+    train = shape.kind == "train"
+    accum = max(1, cfg.grad_accum) if train else 1
+    rows = shape.global_batch // batch if shape.global_batch % batch == 0 else shape.global_batch
+    tokens = rows * (1 if shape.kind == "decode" else shape.seq_len) // accum  # a pass
+    model = sh.axis_size(sh.MODEL) > 1 and on_model_axis(cfg)
+    if batch > 1:
         replicated = 0
         for names, t, p in _walk(params, places):
             calls = _layers_of(names, t)
+            gathered = prod(_local_shape(t.shape, p, (sh.MODEL,)))  # whole over the batch
             if not _is_sharded(p):
-                replicated += t.numel()
+                replicated += gathered
                 continue
             embed = names == ("embed",)
-            if embed and tokens < t.shape[0]:  # the rows the ranks look up move, not the table
+            rows_held = _local_shape(t.shape, p, (sh.MODEL,))[0]
+            if embed and tokens < rows_held:  # the rows the ranks look up move, not the table
                 for _ in range(accum):
                     add("all-gather", tokens * 8)
                     add("all-to-all", tokens * t.shape[1] * t.element_size())
@@ -383,21 +446,134 @@ def _collectives(cfg, shape, params, places, world: int) -> dict[str, Any]:
             use = t.element_size() if embed else torch.empty(
                 (), dtype=fsdp.use_dtype(cfg, t)).element_size()
             remat = 2 if train and cfg.remat and names[0] in _STACKED else 1
-            add("all-gather", accum * remat * use * prod(_local_shape(t.shape, p, world)),
+            add("all-gather", accum * remat * use * prod(_local_shape(t.shape, p)),
                 accum * remat * calls)
             if train:
-                add("reduce-scatter", accum * t.numel() * 4, accum * calls)
+                add("reduce-scatter", accum * gathered * 4, accum * calls)
         if train:  # the replicated gradients with the loss, then the squared norm
             add("all-reduce", (replicated + 1) * 4, 1)
             add("all-reduce", 4, 1)
+    if model:
+        _model_axis(cfg, shape, params, places, rows, accum, add)
     out["total_bytes"] = sum(v["bytes"] for v in out.values())
     return out
+
+
+def _model_axis(cfg, shape, params, places, rows: int, accum: int, add) -> None:
+    """The collectives over ``"model"`` of a step of the dense or moe
+    family (the module docstring's rule), added with ``add(kind, bytes)``."""
+    m = sh.axis_size(sh.MODEL)
+    train, decode = shape.kind == "train", shape.kind == "decode"
+    s = 1 if decode else shape.seq_len
+    seq = s % m == 0 and s > 1
+    rows = rows // accum  # a micro-batch
+    n = rows * s  # the tokens of the rank's rows in a pass
+    d, hd, kv, h = cfg.d_model, cfg.hd, cfg.n_kv_heads, cfg.n_heads
+    act = torch.empty((), dtype=cfg.dtype).element_size()
+    flat = dict(((names, (t, p)) for names, t, p in _walk(params, places)))
+    table = flat[("embed",)][0].element_size()
+    layer = {names[1:]: (t, p) for names, (t, p) in flat.items() if names[0] == "layers"}
+    use = torch.empty((), dtype=fsdp.use_dtype(cfg, layer[("attn", "wq")][0])).element_size()
+    expand = transformer._should_expand_gqa(cfg)
+    wk_split = fsdp.model_dim(layer[("attn", "wk")][1]) is not None
+    fwd: list[tuple[str, int]] = []  # (kind, bytes) of one layer's forward
+
+    def to_residual(nbytes_whole):
+        fwd.append(("reduce-scatter" if seq else "all-reduce", nbytes_whole))
+
+    def gather_seq():
+        if seq:
+            fwd.append(("all-gather", n // m * d * act))
+
+    if decode:
+        fwd.append(("all-gather", rows * (h // m) * hd * act))  # q's heads
+        if expand and wk_split:
+            fwd += [("all-gather", d * kv * hd // m * use)] * 2
+        if not expand:
+            fwd += [("all-gather", rows * (kv // m) * hd * act)] * 2
+        fwd.append(("all-gather", rows * h * (hd + 2) * 4))  # the partial softmaxes
+        fwd.append(("all-reduce", rows * d * 4))
+    else:
+        gather_seq()
+        if expand and wk_split:
+            fwd += [("all-gather", d * kv * hd // m * use)] * 2
+        if shape.kind == "prefill" and not expand:
+            fwd += [("all-gather", n * (kv // m) * hd * act)] * 2
+        to_residual(n * d * 4)
+    if cfg.family == "moe":
+        e, f = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+        mode = moe.moe_mode(e, m)
+        if mode == "tp" or cfg.n_shared_experts:
+            gather_seq()
+        t = n // m if seq and mode != "tp" else n
+        cap = moe._capacity(cfg, t, e)
+        if mode == "ep":
+            fwd += [("all-to-all", e * cap * d * act)] * 2
+        elif mode == "ep_split":
+            r = m // e
+            cap = -(-cap // r) * r
+            fwd += [("all-to-all", e * cap * d * act)] * 2 + [("all-to-all", d * f * use)] * 3
+        else:
+            fwd.append(("all-reduce", e * cap * d * 4))
+        if cfg.n_shared_experts:
+            to_residual(n * d * 4)
+    else:
+        gather_seq()
+        to_residual(n * d * 4)
+
+    def adjoint(kind, nbytes):
+        """The backward's collective of a forward one (the operand in the
+        gradient's dtype: the activations', or the weight's in use)."""
+        if kind == "all-gather":
+            return "reduce-scatter", nbytes * m
+        if kind == "reduce-scatter":  # the f32 partials' gradient is the output's
+            return "all-gather", nbytes // 4 * act // m
+        if kind == "all-reduce":
+            return "all-reduce", nbytes // 4 * act
+        return kind, nbytes
+
+    layers = cfg.n_layers
+    # remat recomputes a layer up to the last tensor its backward saved:
+    # a layer that ends in a row-parallel sum (the MLP's, the shared
+    # experts') does not run that sum again
+    again = fwd[:-1] if cfg.family == "dense" or cfg.n_shared_experts else fwd
+    for _ in range(accum):
+        add("reduce-scatter" if seq else "all-reduce", n * d * table)  # the embedding's rows
+        for _ in range(layers):
+            for kind, nbytes in fwd + (again if train and cfg.remat else []):
+                add(kind, nbytes)
+        if train:
+            if seq:
+                add("all-gather", n // m * d * act)  # the head's sequence
+            add("all-reduce", rows * (s - 1) * 4)  # the row max
+            add("all-reduce", 2 * rows * (s - 1) * 4)  # sum-exp and the label logit
+            add("all-reduce", 2 * rows * (s - 1) * 4)  # ... in the backward
+            if seq:
+                add("reduce-scatter", n * d * act)
+            for _ in range(layers):
+                for kind, nbytes in fwd:
+                    add(*adjoint(kind, nbytes))
+            if seq:
+                add("all-gather", n // m * d * table)  # the embedding rows' gradient
+            else:
+                add("all-reduce", n * d * table)
+        elif shape.kind == "prefill" and seq:
+            add("all-reduce", rows * d * act)  # the last position
+    if train:
+        rep = sum(prod(t.shape) // _shard_parts(p) for t, p in flat.values()
+                  if fsdp.model_dim(p) is None)
+        add("all-reduce", (rep + 1) * 4)
+        add("all-reduce", 4)
+
+
+def _shard_parts(placement) -> int:
+    """The ranks a placement splits its leaf over."""
+    return prod(sh.axis_size(n) for n in fsdp._shard_dims(placement))
 
 
 def trace_cell(cfg: configs.ArchConfig, shape: configs.Shape) -> dict[str, Any]:
     """Trace the cell's step once on the meta device on the current mesh
     and return the record's cost fields (the module docstring)."""
-    world = sh.axis_size(sh.DATA)
     t0 = time.perf_counter()
     step, args, info = cell_step(cfg, shape, device="meta")
     whole, psh = info["whole"], info["param_shardings"]
@@ -406,7 +582,7 @@ def trace_cell(cfg: configs.ArchConfig, shape: configs.Shape) -> dict[str, Any]:
     with _Tally(set(held)) as tally:
         result = step(*args)
     trace_s = time.perf_counter() - t0
-    collectives = _collectives(info["cfg"], shape, whole, psh, world)
+    collectives = _collectives(info["cfg"], shape, whole, psh)
     traced = analysis.collective_bytes(reset=True)
     if traced != collectives:
         raise RuntimeError(f"{cfg.name} × {shape.name}: the traced step's collectives {traced} "
@@ -473,16 +649,17 @@ def _probe_costs(cfg, shape) -> dict:
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, probe: bool = False,
              overrides: dict | None = None, tag: str = "") -> dict:
-    """The record of one cell on the production mesh, traced inside a fake
-    process group of its ranks, which is gone when this returns or raises."""
+    """The record of one cell on its production mesh (:func:`mesh_name`),
+    traced inside a fake process group of its ranks, which is gone when
+    this returns or raises."""
     cfg = configs.get_config(arch)
     if overrides:
         cfg = cfg.replace(**overrides)
     shape = configs.SHAPES[shape_name]
     world = production_world(multi_pod)
-    rec: dict = {"arch": arch, "shape": shape_name, "mesh": production_mesh_name(multi_pod),
+    rec: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_name(cfg, multi_pod),
                  "chips": world, "tag": tag}
-    with fake_mesh(world):
+    with fake_mesh(world, production_shape(multi_pod) if on_model_axis(cfg) else None):
         rec.update(trace_cell(cfg, shape))
         if probe:
             rec["probe"] = _probe_costs(cfg, shape)
@@ -569,7 +746,7 @@ def main(argv: list[str] | None = None) -> None:
     suffix = f"__{args.tag}" if args.tag else ""
 
     def out_path(arch, shape, multi):
-        outdir = RESULTS / production_mesh_name(multi)
+        outdir = RESULTS / mesh_name(configs.get_config(arch), multi)
         outdir.mkdir(parents=True, exist_ok=True)
         return outdir / f"{arch.replace('.', '_')}__{shape}{suffix}.json"
 

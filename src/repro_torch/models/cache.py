@@ -3,6 +3,13 @@ arch has one), constant-size SSM/conv states for Mamba/hybrid, per-invocation
 KV for Zamba2's shared block, cached cross-attention KV for the VLM.
 Counterpart of ``repro.models.cache``; :func:`cache_specs` is the dry
 run's stand-in, the same tree on the meta device.
+
+On a mesh whose ``"model"`` dimension has M > 1 ranks a dense or moe
+cache holds this rank's ``Sc/M`` slots (``distributed.params``' layout
+puts the slots over ``"model"``; ``transformer.decode`` combines the ranks'
+partial softmaxes), so M must divide ``Sc``. :func:`init_cache` then gives
+the rank's shapes; :func:`cache_specs` the whole tree's, which
+``distributed.params.cache_shardings`` lays out.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp
 from repro_torch.models import mamba2
 
 __all__ = ["init_cache", "cache_seq_len", "cache_specs"]
@@ -40,8 +48,21 @@ def _mamba_state(cfg, l, b, device):
     }
 
 
+def _held_slots(cfg: ArchConfig, sc: int) -> int:
+    """The slots of ``sc`` this rank holds: ``sc/M`` on a model axis of M
+    ranks (raising where M does not divide them), else all."""
+    m = tp.model_size()
+    if m == 1 or cfg.family not in ("dense", "moe"):
+        return sc
+    if sc % m:
+        raise ValueError(f"{cfg.name}: a cache of {sc} slots does not split over the {m} ranks "
+                         "of 'model'; size it (max_seq_len, or the window) to a multiple of them")
+    return sc // m
+
+
 def init_cache(
-    cfg: ArchConfig, batch: int, seq_len: int, *, device: str | torch.device = "cuda"
+    cfg: ArchConfig, batch: int, seq_len: int, *, device: str | torch.device = "cuda",
+    local: bool = True,
 ) -> dict[str, Any]:
     """The reference's cache tree of zeros on ``device``, slot positions at
     -1 (empty):
@@ -54,10 +75,15 @@ def init_cache(
       [G, B, Sc, kv, hd]``), ``slot_pos`` and, with a tail, ``mamba_tail``;
     - vlm: the self-attention layers' ``k``/``v``, ``slot_pos``, and
       ``xk``/``xv [G, B, T_img, kv, hd]``.
+
+    On the model axis (``local``, the module docstring) ``Sc`` is the
+    rank's ``Sc/M``; ``batch`` is the caller's rows throughout.
     """
     device = resolve_device(device)
     b = batch
     sc = cache_seq_len(cfg, seq_len)
+    if local:
+        sc = _held_slots(cfg, sc)
     kv, hd = cfg.n_kv_heads, cfg.hd
     if cfg.family == "ssm":
         return _mamba_state(cfg, cfg.n_layers, b, device)
@@ -88,6 +114,6 @@ def init_cache(
 
 
 def cache_specs(cfg: ArchConfig, batch: int, seq_len: int) -> dict[str, Any]:
-    """:func:`init_cache`'s tree on the meta device: its shapes and dtypes,
-    no storage (the reference's ``jax.eval_shape`` stand-ins)."""
-    return init_cache(cfg, batch, seq_len, device="meta")
+    """:func:`init_cache`'s whole tree on the meta device: its shapes and
+    dtypes, no storage (the reference's ``jax.eval_shape`` stand-ins)."""
+    return init_cache(cfg, batch, seq_len, device="meta", local=False)

@@ -29,6 +29,8 @@ __all__ = [
     "swiglu",
     "attention",
     "decode_attention",
+    "decode_attention_partial",
+    "decode_combine",
     "cross_attention",
 ]
 
@@ -264,6 +266,52 @@ def decode_attention(
     p = torch.softmax(logits, dim=-1)  # [B, KV, G, Sc]
     out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(p.dtype))
     return out.reshape(b, h, hd).to(q.dtype)
+
+
+def decode_attention_partial(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    slot_pos: torch.Tensor,
+    pos,
+    *,
+    window: int | None = None,
+) -> torch.Tensor:
+    """:func:`decode_attention` over a part of the cache's slots, left
+    unnormalised for :func:`decode_combine`: f32 ``[B, KV, G, hd + 2]``
+    holding, for each query head, the weighted sum of V under
+    ``exp(logit − m)``, then ``m`` (the slots' max logit, −1e30 where none
+    is attendable) and the sum of the weights."""
+    b, h, hd = q.shape
+    kv = k_cache.shape[2]
+    g = h // kv
+    scale = 1.0 / math.sqrt(hd)
+    logits = _scores(q.reshape(b, 1, kv, g, hd), k_cache, scale)[:, :, :, 0]  # [B, KV, G, Sc]
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        valid &= slot_pos > pos - window
+    logits = torch.where(valid[:, None, None, :], logits, _NEG)
+    m = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - m)
+    acc = torch.einsum("bkgs,bskh->bkgh", e, v_cache.float())
+    return torch.cat([acc, m, e.sum(-1, keepdim=True)], dim=-1)
+
+
+def decode_combine(parts: torch.Tensor) -> torch.Tensor:
+    """The attention output f32 ``[B, H, hd]`` from the partials ``[R, B,
+    KV, G, hd + 2]`` of :func:`decode_attention_partial` over R disjoint
+    parts of the slots, added in part order (flash decoding's combine). A
+    part with no attendable slot has weight ``exp(−1e30 − m) = 0``."""
+    acc, m, l = parts[..., :-2], parts[..., -2:-1], parts[..., -1:]
+    top = m.amax(0)
+    num = torch.zeros_like(acc[0])
+    den = torch.zeros_like(l[0])
+    for r in range(parts.shape[0]):
+        w = torch.exp(m[r] - top)
+        num = num + acc[r] * w
+        den = den + l[r] * w
+    b, kv, g, hd = num.shape
+    return (num / den).reshape(b, kv * g, hd)
 
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,7 @@
 Families:
   dense / audio — pre-norm GQA attention + SwiGLU (RoPE, optional
                   qk-norm/SWA)
-  moe           — attention + MoE FFN (``moe.py``, single-device path)
+  moe           — attention + MoE FFN (``moe.py``)
   ssm           — Mamba2/SSD stack (``mamba2.py``; attention-free)
   hybrid        — Mamba2 backbone + one *shared* attention+MLP block invoked
                   every N layers on concat(h, embeddings) (Zamba2)
@@ -34,6 +34,27 @@ once a pass. A MoE layer sizes its capacity from the rank's tokens and its
 ``aux`` is the rank's; the train step averages the loss, aux included,
 over the ranks (the reference's ``"ep"`` island at one model rank).
 
+On a mesh whose ``"model"`` dimension has M > 1 ranks the dense and moe
+families run the reference's model axis, Megatron-style
+(``distributed.tp``); the other families raise ``NotImplementedError``
+(ROADMAP A19). Between blocks the residual stream is ``[B/Dp, S/M, D]`` a
+rank where M divides S > 1, else whole on the model ranks (the reference's
+``shard(x, "batch", "seq", None)``). Attention and the MLP gather the
+sequence before their column-parallel products (``wq``/``wk``/``wv``,
+``w1``/``w3``: H/M heads, F/M columns a rank) and add the row-parallel
+``wo``/``w2`` partials over the ranks in f32, each rank keeping its part of
+the sequence. GQA is expanded as the reference's ``_should_expand_gqa``
+decides (``n_kv_heads`` not dividing M): ``wk``/``wv`` are gathered whole
+and each rank takes its heads' repeats. The embedding is vocab-parallel
+(each rank looks up the ids in its rows, the ranks' rows added), the head
+too: :func:`forward` returns the rank's ``Vp/M`` columns of the logits and
+``train_step.cross_entropy`` reduces its row max, sum and label logit over
+the ranks. A KV cache holds ``Sc/M`` slots a rank (``cache.init_cache``);
+decode writes the new token's K/V into its slot on the rank that owns it,
+and each rank's partial softmax over its slots is combined over the ranks
+in rank order (flash decoding). The MoE runs the reference's ``ep``,
+``ep_split`` or ``tp`` island (``moe.moe_ffn``).
+
 Caches are functional for callers: :func:`prefill`, :func:`decode` and
 :func:`dense_block_decode` return new caches and leave the ones they were
 given as they were, nested trees included, as the reference's do. The
@@ -44,7 +65,7 @@ ring slots and recurrent states in place, so a step copies no cache.
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -52,7 +73,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import random as rnd
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.distributed import fsdp
+from repro_torch.distributed import fsdp, tp
 from repro_torch.distributed.sharding import current_mesh, shard, use_mesh
 from repro_torch.models import cache as cache_mod
 from repro_torch.models import mamba2, moe
@@ -60,6 +81,8 @@ from repro_torch.models.layers import (
     attention,
     cross_attention,
     decode_attention,
+    decode_attention_partial,
+    decode_combine,
     matmul,
     rmsnorm,
     rope,
@@ -70,10 +93,55 @@ from repro_torch.models.layers import (
 __all__ = ["init_params", "forward", "prefill", "decode", "dense_block_decode"]
 
 
-def _pos_ctx(cfg: ArchConfig, s: int, device):
-    """(positions, shared rope tables) computed once per step."""
+class _Par(NamedTuple):
+    """The model axis of a step: its ``m`` ranks, and whether the residual
+    stream is split on the sequence over them."""
+
+    m: int
+    seq: bool
+
+
+#: the families on the model axis; the others wait for ROADMAP A19
+_MODEL_AXIS_FAMILIES = ("dense", "moe")
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if tp.active() and cfg.family not in _MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family does not run on a mesh whose 'model' "
+            f"dimension has {tp.model_size()} ranks yet (ROADMAP A19); use a 'data' mesh")
+
+
+def _par(cfg: ArchConfig, ps, s: int) -> _Par | None:
+    """The model axis of a step over ``s`` positions (``None`` without
+    placements or a model axis). Raises where the config does not split
+    over it."""
+    _check_family(cfg)
+    if ps is None or not tp.active():
+        return None
+    m = tp.model_size()
+    sizes = {"heads": cfg.n_heads, "vocab_padded": cfg.vocab_padded}
+    if not _should_expand_gqa(cfg):
+        sizes["n_kv_heads"] = cfg.n_kv_heads
+    if cfg.family == "dense":
+        sizes["d_ff"] = cfg.d_ff
+    else:
+        f = cfg.moe_d_ff or cfg.d_ff
+        if moe.moe_mode(cfg.n_experts, m) != "ep":
+            sizes["moe_d_ff"] = f
+        if cfg.n_shared_experts:
+            sizes["shared d_ff"] = cfg.n_shared_experts * f
+    bad = {k: v for k, v in sizes.items() if v % m}
+    if bad:
+        raise ValueError(f"{cfg.name}: {bad} do not split over the {m} ranks of 'model'")
+    return _Par(m, s % m == 0 and s > 1)
+
+
+def _pos_ctx(cfg: ArchConfig, s: int, device, par: _Par | None = None):
+    """(positions, shared rope tables, the model axis) computed once per
+    step."""
     pos = torch.arange(s, device=device)
-    return pos, rope_tables(pos, cfg.hd, cfg.rope_theta) if cfg.n_heads else None
+    return pos, rope_tables(pos, cfg.hd, cfg.rope_theta) if cfg.n_heads else None, par
 
 
 # ------------------------------------------------------------------ init
@@ -240,15 +308,95 @@ def _wt(cfg, w, dtype):
 
 
 def _should_expand_gqa(cfg: ArchConfig) -> bool:
-    """Never without a model axis, which the port does not have."""
+    """The reference's rule: on a model axis of M > 1 ranks, where M
+    divides the heads and not the KV heads."""
     if cfg.expand_gqa != "auto":
         return bool(cfg.expand_gqa)
-    return False
+    m = tp.model_size()
+    if m <= 1:
+        return False
+    return cfg.n_kv_heads % m != 0 and cfg.n_heads % m == 0
+
+
+def _matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of the operands' values, accumulated and returned in f32:
+    a row-parallel partial, added over the model ranks before it is
+    rounded to the activations' dtype."""
+    return a.float() @ b.float()
+
+
+def _to_residual(partial: torch.Tensor, par: _Par, dtype) -> torch.Tensor:
+    """Row-parallel partials ``[B, S, D]`` (or ``[B, D]``) added over the
+    model ranks into the residual stream's layout, in ``dtype``."""
+    if par.seq:
+        return tp.scatter_sum(partial, 1, dtype)
+    return tp.all_sum(partial, dtype)
+
+
+def _kv_weights(cfg, p, dtype, expand: bool):
+    """``wk``/``wv`` for use: whole (gathered over the model ranks where
+    they are split) when GQA is expanded, else the rank's KV heads."""
+    wk, wv = _wt(cfg, p["wk"], dtype), _wt(cfg, p["wv"], dtype)
+    if expand and wk.shape[-1] != cfg.n_kv_heads * cfg.hd:
+        wk, wv = tp.gather_seq(wk, 1), tp.gather_seq(wv, 1)
+    return wk, wv
+
+
+def _rank_heads(cfg, k, v):
+    """The expanded K/V heads of this rank's query heads, from every KV
+    head ``[B, S, kv, hd]``."""
+    hl = cfg.n_heads // tp.model_size()
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = tp.model_rank() * hl
+    return (k.repeat_interleave(g, dim=2)[:, :, lo:lo + hl],
+            v.repeat_interleave(g, dim=2)[:, :, lo:lo + hl])
+
+
+def _attn_full_tp(cfg: ArchConfig, p: dict, x, pos_ctx, *, return_kv=False):
+    """:func:`_attn_full` on the model axis: ``x`` the rank's part of the
+    residual stream (normed); returns the rank's part of the output and,
+    with ``return_kv``, every KV head's K/V over the whole sequence."""
+    positions, tables, par = pos_ctx
+    h = tp.gather_seq(x) if par.seq else x
+    b, s, _ = h.shape
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    hl = cfg.n_heads // par.m
+    expand = _should_expand_gqa(cfg)
+    wk, wv = _kv_weights(cfg, p, h.dtype, expand)
+    kl = kv if expand else kv // par.m
+    q = matmul(h, _wt(cfg, p["wq"], h.dtype)).reshape(b, s, hl, hd)
+    k = matmul(h, wk).reshape(b, s, kl, hd)
+    v = matmul(h, wv).reshape(b, s, kl, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    q = rope(q, positions, cfg.rope_theta, tables)
+    k = rope(k, positions, cfg.rope_theta, tables)
+    kv_out = None
+    if return_kv:
+        kv_out = (k, v) if expand else (tp.gather_seq(k, 2), tp.gather_seq(v, 2))
+    if expand:
+        k, v = _rank_heads(cfg, k, v)
+    o = attention(q, k, v, window=cfg.window, impl=cfg.attn_impl, chunk=cfg.attn_chunk)
+    out = _to_residual(_matmul_f32(o.reshape(b, s, hl * hd), _wt(cfg, p["wo"], h.dtype)), par,
+                       x.dtype)
+    return (out, kv_out) if return_kv else out
+
+
+def _mlp_tp(cfg, p, x, par: _Par):
+    """The SwiGLU MLP on the model axis: ``x`` the rank's part of the
+    residual stream (normed)."""
+    h = tp.gather_seq(x) if par.seq else x
+    a = torch.nn.functional.silu(matmul(h, _wt(cfg, p["w1"], h.dtype))) * matmul(
+        h, _wt(cfg, p["w3"], h.dtype))
+    return _to_residual(_matmul_f32(a, _wt(cfg, p["w2"], h.dtype)), par, x.dtype)
 
 
 def _attn_full(cfg: ArchConfig, p: dict, x, pos_ctx, *, return_kv=False):
     """Full-sequence attention sub-block. x [B, S, D]."""
-    positions, tables = pos_ctx
+    positions, tables, par = pos_ctx
+    if par is not None:
+        return _attn_full_tp(cfg, p, x, pos_ctx, return_kv=return_kv)
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = matmul(x, _wt(cfg, p["wq"], x.dtype)).reshape(b, s, h, hd)
@@ -294,12 +442,13 @@ def _mlp(cfg, p, x):
                   _wt(cfg, p["w2"], x.dtype))
 
 
-def _ffn(cfg: ArchConfig, block: dict, x):
+def _ffn(cfg: ArchConfig, block: dict, x, par: _Par | None = None):
     """Post-attention FFN (dense or MoE). Returns (out, aux_loss)."""
     h = rmsnorm(x, block["ln2"])
     if cfg.family == "moe":
-        return moe.moe_ffn(cfg, block["moe"], h)
-    return _mlp(cfg, block["mlp"], h), torch.zeros((), dtype=torch.float32, device=x.device)
+        return moe.moe_ffn(cfg, block["moe"], h, par)
+    f = _mlp(cfg, block["mlp"], h) if par is None else _mlp_tp(cfg, block["mlp"], h, par)
+    return f, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def _decoder_block_full(cfg, block, x, pos_ctx, *, return_kv=False):
@@ -309,7 +458,7 @@ def _decoder_block_full(cfg, block, x, pos_ctx, *, return_kv=False):
     o = _attn_full(cfg, block["attn"], rmsnorm(x, block["ln1"]), pos_ctx, return_kv=return_kv)
     o, kvs = o if return_kv else (o, None)
     x = x + o
-    f, aux = _ffn(cfg, block, x)
+    f, aux = _ffn(cfg, block, x, pos_ctx[2])
     return shard(x + f, "batch", "seq", None), kvs, aux
 
 
@@ -359,23 +508,49 @@ def _shared_block_full(cfg, params, x, x0, pos_ctx, *, return_kv=False):
     return shard(x + h, "batch", "seq", None), kvs
 
 
-def _embed(cfg, params, tokens, ps=None):
+def _embed(cfg, params, tokens, ps=None, par: _Par | None = None):
     """Rows of the embedding in ``cfg.dtype`` (gathered, then cast: the
     same values as the reference's cast-then-gather). Sharded, the rows
     come through ``fsdp.lookup`` as stored, so the gradient adds in that
-    dtype too."""
+    dtype too. On the model axis each rank looks the ids up in its
+    ``Vp/M`` rows (zero rows for the others' ids) and the ranks' rows are
+    added (exact: one non-zero term), into the residual stream's layout."""
     if ps is None:
         return _wt(cfg, params["embed"][tokens.long()], cfg.dtype)
-    return _wt(cfg, fsdp.lookup(cfg, params["embed"], ps["embed"], tokens), cfg.dtype)
+    if par is None:
+        return _wt(cfg, fsdp.lookup(cfg, params["embed"], ps["embed"], tokens), cfg.dtype)
+    table = params["embed"]
+    rows = table.shape[0]
+    local = tokens.long() - tp.model_rank() * rows
+    inside = (local >= 0) & (local < rows)
+    found = fsdp.lookup(cfg, table, ps["embed"], torch.where(inside, local, 0))
+    found = found * inside[..., None].to(found.dtype)
+    return _wt(cfg, _to_residual(found, par, found.dtype), cfg.dtype)
 
 
-def _head(cfg, params, x, ps=None):
-    """f32 logits ``[..., vocab_padded]``, padding columns at −1e30."""
+def _last_position(x: torch.Tensor, par: _Par | None) -> torch.Tensor:
+    """``x[:, -1:]`` of the residual stream, whole: on a sequence split
+    over the model ranks, the last rank's, added over the ranks."""
+    if par is None or not par.seq:
+        return x[:, -1:]
+    last = x[:, -1:] * float(tp.model_rank() == par.m - 1)
+    return tp.all_sum(last)
+
+
+def _head(cfg, params, x, ps=None, par: _Par | None = None):
+    """f32 logits ``[..., vocab_padded]``, padding columns at −1e30. On the
+    model axis, this rank's ``Vp/M`` columns of every position's logits
+    (``x`` the rank's part of the sequence where ``par.seq``)."""
     params = _use_keys(cfg, params, ps, ("final_norm", "out_head"))
     x = rmsnorm(x, params["final_norm"])
-    logits = x.float() @ _wt(cfg, params["out_head"], x.dtype).float()
+    if par is not None and par.seq:
+        x = tp.gather_seq(x)
+    w = _wt(cfg, params["out_head"], x.dtype)
+    logits = x.float() @ w.float()
     if cfg.vocab_padded > cfg.vocab:  # mask the padding columns
-        cols = torch.arange(cfg.vocab_padded, device=x.device)
+        cols = torch.arange(w.shape[-1], device=x.device)
+        if par is not None:
+            cols = cols + tp.model_rank() * w.shape[-1]
         logits = logits.masked_fill(cols >= cfg.vocab, -1e30)
     return logits
 
@@ -448,6 +623,7 @@ def forward(
     collect_cache: bool = False,
     head_last_only: bool = False,
     param_shardings=None,
+    _sink=None,
 ):
     """Full-sequence forward. Returns (logits [B,S,V] f32, aux_loss,
     kv_stacks). With ``collect_cache``, ``kv_stacks`` is the reference's:
@@ -458,11 +634,15 @@ def forward(
 
     ``head_last_only`` computes the unembedding for the final position only
     (prefill never needs [B, S, V] logits). With ``param_shardings``,
-    ``params`` are this rank's shards (the module docstring)."""
+    ``params`` are this rank's shards (the module docstring); on the model
+    axis the logits are the rank's vocabulary columns. ``_sink(i, k, v)``
+    (dense and moe) takes each layer's K/V, every KV head over the whole
+    sequence, in place of ``kv_stacks``."""
     ps = _shardings(params, param_shardings)
     b, s = tokens.shape
-    pos_ctx = _pos_ctx(cfg, s, tokens.device)
-    x = _embed(cfg, params, tokens, ps)
+    par = _par(cfg, ps, s)
+    pos_ctx = _pos_ctx(cfg, s, tokens.device, par)
+    x = _embed(cfg, params, tokens, ps, par)
     aux_total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     kvs = None
     remat = cfg.remat and torch.is_grad_enabled()
@@ -527,18 +707,21 @@ def forward(
             for blk in _unstack(params["mamba_tail"], cfg.n_layers - g * per):
                 x, _, _ = run(tail_block, ssm_cfg, blk, x, pos_ctx)
     else:
-        collect = collect_cache and cfg.family != "ssm"
-        if collect:
+        collect = (collect_cache or _sink is not None) and cfg.family != "ssm"
+        if collect and _sink is None:
             kvs = _kv_stacks((cfg.n_layers,), b, s, cfg, x.dtype, x.device)
         block = _at_use(_decoder_block_full, _layer_places(ps, "layers"))
         for i, blk in enumerate(_unstack(params["layers"], cfg.n_layers)):
             x, kv_l, a = run(block, cfg, blk, x, pos_ctx, return_kv=collect)
             aux_total = aux_total + a
-            if collect:
+            if collect and _sink is not None:
+                _sink(i, *kv_l)
+            elif collect:
                 kvs[0][i], kvs[1][i] = kv_l
     if head_last_only:
-        x = x[:, -1:]
-    return _head(cfg, params, x, ps), aux_total, kvs
+        x = _last_position(x, par)
+        par = par and par._replace(seq=False)
+    return _head(cfg, params, x, ps, par), aux_total, kvs
 
 
 # ------------------------------------------------------------------ prefill
@@ -562,8 +745,11 @@ def prefill(
     b, s = tokens.shape
     max_seq_len = max_seq_len or s
     if cfg.family in ("ssm", "hybrid"):
+        _check_family(cfg)
         return _prefill_recurrent(cfg, params, tokens, max_seq_len,
                                   _shardings(params, param_shardings))
+    if _par(cfg, _shardings(params, param_shardings), s) is not None:
+        return _prefill_model_axis(cfg, params, tokens, max_seq_len, param_shardings)
     logits, _, kvs = forward(cfg, params, tokens, image_embeds, collect_cache=True,
                              head_last_only=True, param_shardings=param_shardings)
     image = {}
@@ -584,6 +770,29 @@ def prefill(
     cache = cache_mod.init_cache(cfg, b, max_seq_len, device=dev)
     cache.update(image)
     _place(cache, k_stack, v_stack, s, sc)
+    return logits[:, 0], cache
+
+
+def _prefill_model_axis(cfg, params, tokens, max_seq_len, param_shardings):
+    """Prefill on the model axis: each layer's K/V go straight to the
+    cache's slots this rank holds (``Sc/M`` of them), the logits are the
+    rank's vocabulary columns."""
+    b, s = tokens.shape
+    cache = cache_mod.init_cache(cfg, b, max_seq_len, device=tokens.device)
+    held = cache["slot_pos"].shape[1]
+    sc = held * tp.model_size()
+    positions = torch.arange(s - min(s, sc), s)  # on the host: the meta device has no mask
+    slots = positions % sc - tp.model_rank() * held
+    mine = (slots >= 0) & (slots < held)
+    positions, slots = positions[mine].to(tokens.device), slots[mine].to(tokens.device)
+
+    def sink(i, k, v):
+        cache["k"][i][:, slots] = k[:, positions]
+        cache["v"][i][:, slots] = v[:, positions]
+
+    logits, _, _ = forward(cfg, params, tokens, head_last_only=True,
+                           param_shardings=param_shardings, _sink=sink)
+    cache["slot_pos"][:, slots] = positions.to(torch.int32)[None, :]
     return logits[:, 0], cache
 
 
@@ -632,7 +841,7 @@ def _prefill_recurrent(cfg: ArchConfig, params: dict, tokens: torch.Tensor, max_
     k_g, v_g = _kv_stacks((g,), b, s, cfg, x.dtype, x.device)
     mcache = cache["mamba"]
     shared = _use_keys(cfg, params, ps, _SHARED)
-    gp, tp = _layer_places(ps, "mamba_groups", 2), _layer_places(ps, "mamba_tail")
+    gp, tail_p = _layer_places(ps, "mamba_groups", 2), _layer_places(ps, "mamba_tail")
     for gi in range(g):
         x, (k_g[gi], v_g[gi]) = _shared_block_full(cfg, shared, x, x0, pos_ctx, return_kv=True)
         group = layer(params["mamba_groups"], gi)
@@ -643,7 +852,7 @@ def _prefill_recurrent(cfg: ArchConfig, params: dict, tokens: torch.Tensor, max_
     if "mamba_tail" in params:
         tcache = cache["mamba_tail"]
         for i in range(cfg.n_layers - g * per):
-            x = _mamba_prefill(cfg, _use(cfg, layer(params["mamba_tail"], i), tp), x,
+            x = _mamba_prefill(cfg, _use(cfg, layer(params["mamba_tail"], i), tail_p), x,
                                tcache["conv"][i], tcache["ssm"][i])
     kv = dict(cache["shared"], slot_pos=cache["slot_pos"])
     _place(kv, k_g, v_g, s, sc)
@@ -651,15 +860,57 @@ def _prefill_recurrent(cfg: ArchConfig, params: dict, tokens: torch.Tensor, max_
 
 
 # ------------------------------------------------------------------ decode
-def _block_decode_(cfg: ArchConfig, blk: dict, x, kc, vc, slot_pos, pos: int):
+def _attn_decode_tp_(cfg: ArchConfig, p: dict, x, k_cache, v_cache, slot_pos, pos: int,
+                     par: _Par):
+    """:func:`_attn_decode_` on the model axis, over the rank's ``Sc/M``
+    slots: the new token's K/V (every KV head) go into its slot on the rank
+    that holds it, each rank's partial softmax over its slots is combined
+    over the ranks, and the rank's heads go through ``wo``."""
+    b, d = x.shape
+    kv, hd = cfg.n_kv_heads, cfg.hd
+    hl = cfg.n_heads // par.m
+    expand = _should_expand_gqa(cfg)
+    wk, wv = _kv_weights(cfg, p, x.dtype, expand)
+    kl = kv if expand else kv // par.m
+    q = matmul(x, _wt(cfg, p["wq"], x.dtype)).reshape(b, 1, hl, hd)
+    k = matmul(x, wk).reshape(b, 1, kl, hd)
+    v = matmul(x, wv).reshape(b, 1, kl, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    posv = torch.tensor([pos], device=x.device)
+    q = tp.gather_seq(rope(q, posv, cfg.rope_theta), 2)
+    k = rope(k, posv, cfg.rope_theta)
+    if not expand:
+        k, v = tp.gather_seq(k, 2), tp.gather_seq(v, 2)
+    held = k_cache.shape[1]
+    slot = pos % (held * par.m) - tp.model_rank() * held
+    if 0 <= slot < held:
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
+    part = decode_attention_partial(q[:, 0], k_cache, v_cache, slot_pos, pos, window=cfg.window)
+    o = decode_combine(tp.gather_seq(part[None], 0)).to(x.dtype)  # [B, H, hd]
+    lo = tp.model_rank() * hl
+    partial = _matmul_f32(o[:, lo:lo + hl].reshape(b, hl * hd), _wt(cfg, p["wo"], x.dtype))
+    return tp.all_sum(partial, x.dtype)
+
+
+def _block_decode_(cfg: ArchConfig, blk: dict, x, kc, vc, slot_pos, pos: int,
+                   par: _Par | None = None):
     """:func:`dense_block_decode` writing the new K/V into ``kc``/``vc`` in
     place; returns the layer's output."""
-    x = x + _attn_decode_(cfg, blk["attn"], rmsnorm(x, blk["ln1"]), kc, vc, slot_pos, pos)
-    if cfg.family == "moe":
-        f, _ = moe.moe_ffn(cfg, blk["moe"], rmsnorm(x, blk["ln2"])[:, None, :])
-        f = f[:, 0]
+    h = rmsnorm(x, blk["ln1"])
+    if par is None:
+        x = x + _attn_decode_(cfg, blk["attn"], h, kc, vc, slot_pos, pos)
     else:
+        x = x + _attn_decode_tp_(cfg, blk["attn"], h, kc, vc, slot_pos, pos, par)
+    if cfg.family == "moe":
+        f, _ = moe.moe_ffn(cfg, blk["moe"], rmsnorm(x, blk["ln2"])[:, None, :], par)
+        f = f[:, 0]
+    elif par is None:
         f = _mlp(cfg, blk["mlp"], rmsnorm(x, blk["ln2"]))
+    else:
+        f = _mlp_tp(cfg, blk["mlp"], rmsnorm(x, blk["ln2"]), par)
     return x + f
 
 
@@ -703,7 +954,8 @@ def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos
     states into ``cache``'s own tensors; returns the logits. The generation
     loops' step (the reference donates the cache there). ``ps``: the
     placements of ``params``' shards (``_shardings``), or ``None``."""
-    x = _embed(cfg, params, token, ps)  # [B, D]
+    par = _par(cfg, ps, 1)
+    x = _embed(cfg, params, token, ps, par)  # [B, D]
     if cfg.family == "ssm":
         lp = _layer_places(ps, "layers")
         for i in range(cfg.n_layers):
@@ -712,14 +964,17 @@ def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos
         return _head(cfg, params, x, ps)
     sc = cache["slot_pos"].shape[1]
     slot_pos = cache["slot_pos"]
-    slot_pos[:, pos % sc] = pos  # the token sees itself
+    if par is None:
+        slot_pos[:, pos % sc] = pos  # the token sees itself
+    elif 0 <= pos % (sc * par.m) - tp.model_rank() * sc < sc:  # on the rank holding its slot
+        slot_pos[:, pos % (sc * par.m) - tp.model_rank() * sc] = pos
     if cfg.family == "hybrid":
         g = cfg.n_layers // cfg.shared_attn_every
         per = cfg.shared_attn_every
         x0 = x
         sp = _use_keys(cfg, params, ps, _SHARED)
         blk = sp["shared_block"]
-        gp, tp = _layer_places(ps, "mamba_groups", 2), _layer_places(ps, "mamba_tail")
+        gp, tail_p = _layer_places(ps, "mamba_groups", 2), _layer_places(ps, "mamba_tail")
         mcache, shared = cache["mamba"], cache["shared"]
         for gi in range(g):
             # the shared block (single token)
@@ -736,7 +991,7 @@ def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos
         if "mamba_tail" in params:
             tcache = cache["mamba_tail"]
             for i in range(cfg.n_layers - g * per):
-                x = _mamba_block_decode_(cfg, _use(cfg, layer(params["mamba_tail"], i), tp), x,
+                x = _mamba_block_decode_(cfg, _use(cfg, layer(params["mamba_tail"], i), tail_p), x,
                                          tcache["conv"][i], tcache["ssm"][i])
         return _head(cfg, params, x, ps)
     k_all, v_all = cache["k"], cache["v"]
@@ -756,8 +1011,8 @@ def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos
     lp = _layer_places(ps, "layers")
     for i in range(cfg.n_layers):
         x = _block_decode_(cfg, _use(cfg, layer(params["layers"], i), lp), x, k_all[i], v_all[i],
-                           slot_pos, pos)
-    return _head(cfg, params, x, ps)
+                           slot_pos, pos, par)
+    return _head(cfg, params, x, ps, par)
 
 
 def _clone_tree(tree: dict) -> dict:
@@ -769,7 +1024,8 @@ def decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos,
     """One decode step. token [B], pos an int or a 0-d tensor →
     (logits [B,V], new cache); ``cache`` stays as it was. With
     ``param_shardings``, ``params`` are this rank's shards, and ``cache``
-    and ``token`` its rows."""
+    and ``token`` its rows (on the model axis, the cache its ``Sc/M`` slots
+    and the logits its vocabulary columns)."""
     ps = _shardings(params, param_shardings)
     new = _clone_tree(cache)
     return _decode(cfg, params, new, token, int(pos), ps), new

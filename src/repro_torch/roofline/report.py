@@ -2,10 +2,12 @@
 ``repro_torch.launch.dryrun`` writes.
 
 Counterpart of ``repro.roofline.report``. The numbers are analytic: each
-record is a trace on the meta device, per device of the ``data256`` (and
-``data512``) mesh, and the roofline terms divide it by the H100 data-sheet
-rates of ``roofline.analysis`` (``PEAK_FLOPS`` bf16 dense, ``HBM_BW``,
-``NVLINK_BW``)::
+record is a trace on the meta device, per device of its mesh (the dense and
+moe families on the reference's ``16x16`` and ``2x16x16`` ``("data",
+"model")`` meshes, the others on ``data256`` and ``data512``; each table
+cell names its record's mesh), and the roofline terms divide it by the
+H100 data-sheet rates of ``roofline.analysis`` (``PEAK_FLOPS`` bf16 dense,
+``HBM_BW``, ``NVLINK_BW``)::
 
   PYTHONPATH=src python -m repro_torch.roofline.report [--results results/dryrun] [--write]
 """
@@ -21,8 +23,9 @@ from repro_torch.roofline import analysis
 
 __all__ = ["build_tables", "main", "roofline_row"]
 
-#: the meshes of the two table columns, as the dry run names them
-MESHES = ("data256", "data512")
+#: the meshes of the two table columns (one pod, two pods), as the dry run
+#: names them: the model-axis mesh where a config has one, else the data mesh
+MESHES = (("16x16", "data256"), ("2x16x16", "data512"))
 
 
 def _load(results: pathlib.Path, mesh: str) -> dict[tuple[str, str], dict]:
@@ -101,41 +104,47 @@ def roofline_row(rec: dict, cfg, shape) -> dict:
     }
 
 
-def _dry_cells(rec: dict | None) -> tuple[str, str, str]:
-    """(peak GiB, trace s, batch split) of a record, or placeholders."""
+def _dry_cells(rec: dict | None) -> tuple[str, str, str, str]:
+    """(mesh, peak GiB, trace s, batch split) of a record, or placeholders."""
     if rec is None:
-        return "…", "—", "—"
+        return "—", "…", "—", "—"
     split = ("split" if rec["batch_split"]
              else f"whole ({rec['per_rank_batch']} on every rank)")
-    return f"{rec['memory']['peak_bytes_est'] / 2**30:.2f}", f"{rec['trace_s']:.1f}", split
+    return (rec["mesh"], f"{rec['memory']['peak_bytes_est'] / 2**30:.2f}", f"{rec['trace_s']:.1f}",
+            split)
+
+
+def _record(loaded: dict, column: tuple[str, ...], cell) -> dict | None:
+    """A cell's record in a table column: on its model-axis mesh, else on
+    its data mesh."""
+    return next((loaded[m][cell] for m in column if cell in loaded[m]), None)
 
 
 def build_tables(results: pathlib.Path) -> tuple[str, str, list[dict]]:
-    """(the dry-run table, the roofline table of ``data256``, its rows)."""
-    loaded = {m: _load(results, m) for m in MESHES}
-    head = " | ".join(f"{m} peak GiB | {m} trace s | {m} batch" for m in MESHES)
-    dry = [f"| arch | shape | {head} |", "|---|---|" + "---|" * (3 * len(MESHES))]
+    """(the dry-run table, the roofline table of one pod, its rows)."""
+    loaded = {m: _load(results, m) for column in MESHES for m in column}
+    head = " | ".join(f"{p} mesh | peak GiB | trace s | batch" for p in ("pod", "2 pods"))
+    dry = [f"| arch | shape | {head} |", "|---|---|" + "---|" * (4 * len(MESHES))]
     runnable = set(configs.runnable_cells())
     for arch in configs.ARCHS:
         for sname in configs.SHAPES:
             if (arch, sname) not in runnable:
-                na = " | ".join("N/A (full attention) | — | —" for _ in MESHES)
+                na = " | ".join("— | N/A (full attention) | — | —" for _ in MESHES)
                 dry.append(f"| {arch} | {sname} | {na} |")
                 continue
-            cells = " | ".join(" | ".join(_dry_cells(loaded[m].get((arch, sname))))
-                               for m in MESHES)
+            cells = " | ".join(" | ".join(_dry_cells(_record(loaded, c, (arch, sname))))
+                               for c in MESHES)
             dry.append(f"| {arch} | {sname} | {cells} |")
 
     roof = [
-        "| arch | shape | compute s | memory s (ub) | collective s | dominant | comp:coll "
-        "| MODEL/traced | roofline frac | to move the dominant term |",
-        "|---|---|---|---|---|---|---|---|---|---|",
+        "| arch | shape | mesh | compute s | memory s (ub) | collective s | dominant "
+        "| comp:coll | MODEL/traced | roofline frac | to move the dominant term |",
+        "|---|---|---|---|---|---|---|---|---|---|---|",
     ]
     rows = []
-    single = loaded[MESHES[0]]
     for arch in configs.ARCHS:
         for sname in configs.SHAPES:
-            rec = single.get((arch, sname))
+            rec = _record(loaded, MESHES[0], (arch, sname))
             if rec is None:
                 continue
             shape = configs.SHAPES[sname]
@@ -144,7 +153,7 @@ def build_tables(results: pathlib.Path) -> tuple[str, str, list[dict]]:
             cc = (f"{row['compute_s'] / max(row['collective_s'], 1e-12):.1f}"
                   if row["collective_s"] > 0 else "∞")
             roof.append(
-                f"| {row['arch']} | {row['shape']} | {row['compute_s']:.3e} | "
+                f"| {row['arch']} | {row['shape']} | {rec['mesh']} | {row['compute_s']:.3e} | "
                 f"{row['memory_s']:.3e} | {row['collective_s']:.3e} | "
                 f"{row['dominant']} | {cc} | {row['model_flops_ratio']:.2f} | "
                 f"{row['roofline_fraction']:.1%} | {_advice(row, shape, rec)} |"

@@ -117,7 +117,7 @@ def save(
                              "sharding.use_mesh(mesh)")
         state = {k: fsdp.full_tree(v, shardings[k]) if k in shardings else v
                  for k, v in state.items()}
-        if sh._mesh_rank() != 0:
+        if sh._mesh_rank() != 0 or sh.group_rank((sh.MODEL,)) != 0:
             _barrier()
             return final
         try:
@@ -157,10 +157,13 @@ def save(
 
 
 def _barrier() -> None:
-    """Every rank of the current mesh waits for the others."""
+    """Every rank of the current mesh waits for the others (a barrier a
+    mesh dimension: past the last, every rank has entered the first)."""
     import torch.distributed as dist
 
-    dist.barrier(group=sh.current_mesh().get_group(sh.DATA))
+    mesh = sh.current_mesh()
+    for name in mesh.mesh_dim_names:
+        dist.barrier(group=mesh.get_group(name))
 
 
 def _steps(directory: pathlib.Path) -> list[tuple[int, pathlib.Path]]:

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.distributed import fsdp
 from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import tp
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm", "clip_by_global_norm"]
 
@@ -92,11 +93,15 @@ def global_norm(tree: Any, shardings: Any = None) -> torch.Tensor:
     ``tree`` holds this rank's shards."""
     if shardings is None or not fsdp.active():
         return torch.sqrt(sum(torch.sum(l.float() ** 2) for l in leaves(tree)))
-    first = sh._mesh_rank() == 0
+    first, model_first = sh._mesh_rank() == 0, tp.model_rank() == 0
     sq = torch.zeros(1, dtype=torch.float32, device=next(leaves(tree)).device)
     for l, p in zip(leaves(tree), leaves(shardings), strict=True):
-        if first or fsdp.shard_dim(p) is not None:  # a replicated leaf counts once
+        # a leaf whole over a group of ranks counts on the first of them
+        if (first or fsdp.batch_dim(p) is not None) and (
+                model_first or fsdp.model_dim(p) is not None):
             sq = sq + torch.sum(l.float() ** 2)
+    if tp.active():
+        sq = tp._sum(sq, "all-reduce", torch.float32)
     return torch.sqrt(fsdp.sum_over_ranks(sq)[0])
 
 

@@ -25,6 +25,17 @@ leaves' gradients and the loss are averaged over the ranks in one f32
 all-reduce a step. The loss is so the mean over ranks of the ranks'
 losses, the MoE's load-balance term (sized and routed on the rank's
 tokens) included, as the reference's ``"ep"`` island averages it (``pmean``).
+
+On a mesh with a ``"model"`` dimension of M > 1 ranks (the dense and moe
+families; ``models.transformer``'s model axis) the logits are the rank's
+vocabulary columns and :func:`cross_entropy` is vocab-parallel: the row
+max, the sum of exponentials and the label's logit (taken on the rank that
+holds its column) are reduced over the model ranks. Each rank's loss is
+``(ce + 0.01·aux) / M``, and every collective's backward is its adjoint,
+so a rank's gradients are those of the sum of the model ranks' losses: the
+gradients of the leaves whole over ``"model"`` are added over those ranks
+(with the loss, in one f32 all-reduce), then averaged over the batch ranks
+as above.
 """
 
 from __future__ import annotations
@@ -38,37 +49,57 @@ from repro_torch.configs import ArchConfig
 from repro_torch.distributed import fsdp
 from repro_torch.distributed import params as layouts
 from repro_torch.distributed import sharding as sh
+from repro_torch.distributed import tp
 from repro_torch.models import transformer
 from repro_torch.train import optimizer as opt
 
 __all__ = ["cross_entropy", "loss_fn", "make_train_step", "init_train_state"]
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int | None = None) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, vocab: int | None = None, *,
+                  vocab_parallel: bool = False) -> torch.Tensor:
     """Mean next-token CE. logits [B, S, Vp] (f32), labels [B, S] int.
 
     Columns ``>= vocab`` (the 256-padding) are masked out of the
-    logsumexp; the label logit is ``sum(logits · onehot)``."""
+    logsumexp; the label logit is ``sum(logits · onehot)``. With
+    ``vocab_parallel`` the logits are this model rank's ``Vp/M`` columns
+    (rank r's from ``r·Vp/M``): the row max, the sum of exponentials and
+    the label logit are reduced over the model ranks, and every rank
+    returns the same CE. Its backward is the adjoint of those reductions,
+    so a rank's gradient is that of the sum of the ranks' CEs: the train
+    step weights each by 1/M."""
     logits = logits.float()
     vp = logits.shape[-1]
+    first = tp.model_rank() * vp if vocab_parallel else 0
     col = torch.arange(vp, device=logits.device)
-    if vocab is not None and vocab < vp:
+    if vocab_parallel:
+        col = col + first
+    if vocab is not None and vocab < first + vp:
         logits = torch.where(col < vocab, logits, -1e30)
     shifted = logits[:, :-1]
     targets = labels[:, 1:].long()
-    lse = torch.logsumexp(shifted, dim=-1)
+    if not vocab_parallel:
+        lse = torch.logsumexp(shifted, dim=-1)
     onehot = targets[..., None] == col
     label_logit = torch.sum(torch.where(onehot, shifted, 0.0), dim=-1)
-    return torch.mean(lse - label_logit)
+    if not vocab_parallel:
+        return torch.mean(lse - label_logit)
+    top = tp.all_max(shifted.amax(-1))
+    sums = tp.all_sum(torch.stack([torch.exp(shifted - top[..., None]).sum(-1), label_logit]))
+    return torch.mean(torch.log(sums[0]) + top - sums[1])
 
 
 def loss_fn(cfg: ArchConfig, params, tokens, labels, image_embeds=None, *, param_shardings=None):
     """``(ce + 0.01·aux, {"ce", "aux"})`` of ``forward``'s logits (this
-    rank's, with ``param_shardings``)."""
+    rank's, with ``param_shardings``; on the model axis the loss is
+    divided by its M ranks, the module docstring)."""
     logits, aux, _ = transformer.forward(cfg, params, tokens, image_embeds,
                                          param_shardings=param_shardings)
-    ce = cross_entropy(logits, labels, vocab=cfg.vocab)
+    m = tp.model_size() if param_shardings is not None else 1
+    ce = cross_entropy(logits, labels, vocab=cfg.vocab, vocab_parallel=m > 1)
     loss = ce + 0.01 * aux  # MoE load-balance coefficient (GShard-style)
+    if m > 1:
+        loss = loss / m
     return loss, {"ce": ce, "aux": aux}
 
 
@@ -138,6 +169,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: opt.AdamWConfig | None = None, par
             grads = opt.tree_map(lambda g: g / accum, grads)
             loss = loss / accum
         if ps is not None:
+            loss = _sum_model_replicated(grads, ps, loss)
             loss = _mean_replicated(grads, ps, loss)
         params, opt_state, metrics = opt.adamw_update(opt_cfg, params, grads, opt_state, ps)
         metrics["loss"] = loss
@@ -163,13 +195,35 @@ def _shard_shapes(cfg: ArchConfig, param_shardings) -> list[tuple[int, ...]] | N
     return [tuple(t.shape) for t in opt.leaves(fsdp.shard_tree(whole, param_shardings))]
 
 
-def _mean_replicated(grads: Any, ps: Any, loss: torch.Tensor) -> torch.Tensor:
-    """The replicated leaves' gradients (in place) and ``loss`` (returned)
-    averaged over the ranks in one f32 all-reduce."""
+def _sum_model_replicated(grads: Any, ps: Any, loss: torch.Tensor) -> torch.Tensor:
+    """The gradients of the leaves whole over ``"model"`` (in place) and
+    ``loss`` (returned) added over the model ranks in rank order, in one
+    f32 all-reduce; as they are on one model rank."""
+    if not tp.active():
+        return loss
     rep = [g for g, p in zip(opt.leaves(grads), opt.leaves(ps), strict=True)
-           if fsdp.shard_dim(p) is None]
+           if fsdp.model_dim(p) is None]
+    flat = tp._sum(torch.cat([*(g.reshape(-1).float() for g in rep), loss.reshape(1).float()]),
+                   "all-reduce", torch.float32)
+    return _put_back(rep, flat)
+
+
+def _mean_replicated(grads: Any, ps: Any, loss: torch.Tensor) -> torch.Tensor:
+    """The gradients of the leaves whole over the batch axes (in place) and
+    ``loss`` (returned) averaged over the batch ranks in one f32
+    all-reduce; as they are on one batch rank."""
+    if fsdp.world() == 1:
+        return loss
+    rep = [g for g, p in zip(opt.leaves(grads), opt.leaves(ps), strict=True)
+           if fsdp.batch_dim(p) is None]
     flat = fsdp.mean_over_ranks(torch.cat([*(g.reshape(-1).float() for g in rep),
                                            loss.reshape(1).float()]))
+    return _put_back(rep, flat)
+
+
+def _put_back(rep: list, flat: torch.Tensor) -> torch.Tensor:
+    """``flat``'s values copied into the tensors of ``rep`` in order; its
+    last value returned."""
     i = 0
     for g in rep:
         g.copy_(flat[i : i + g.numel()].view(g.shape))

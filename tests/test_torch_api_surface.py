@@ -27,16 +27,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src" / "repro_torch"
 
 #: modules of the port that have no counterpart in the reference
-PORT_ONLY = {"convert", "device", "random", "scan", "kernels._build", "distributed.fsdp"}
+PORT_ONLY = {"convert", "device", "random", "scan", "kernels._build", "distributed.fsdp",
+             "distributed.tp"}
 #: names whose ROADMAP A item is still open: none since the dry run
 #: (``make_production_mesh``, ``input_specs``, ``cache_specs``) was ported
 NOT_YET: set[str] = set()
 #: names dropped by design: the port selects no impl and has no prune knob
-#: (``*_pallas`` entry points are matched by suffix); its mesh has no model
-#: axis, so the helpers that place tensors on one are left out
+#: (``*_pallas`` entry points are matched by suffix); it has no ``shard_map``:
+#: the MoE's islands are plain functions with explicit collectives
 BY_DESIGN = {"backend", "pallas_available", "resolve_impl", "set_default_impl",
-             "resolve_prune", "set_default_prune",
-             "named_sharding", "logical_to_spec", "shard_map"}
+             "resolve_prune", "set_default_prune", "shard_map"}
 
 
 def _port_modules():

@@ -439,7 +439,8 @@ def test_run_cell_leaves_no_process_group(monkeypatch):
 def test_main_writes_records_the_report_reads(tmp_path, monkeypatch, capsys):
     monkeypatch.setattr(dryrun, "RESULTS", tmp_path)
     dryrun.main(["--arch", "mixtral-8x22b", "--shape", "long_500k", "--set", "n_layers=1"])
-    rec = json.loads((tmp_path / "data256" / "mixtral-8x22b__long_500k.json").read_text())
+    # mixtral is a moe config: on the 16 × 16 ("data", "model") mesh
+    rec = json.loads((tmp_path / "16x16" / "mixtral-8x22b__long_500k.json").read_text())
     assert rec["chips"] == 256 and not rec["batch_split"] and rec["per_rank_batch"] == 1
     assert rec["collectives"]["all-gather"]["count"] > 0 and "trace_s" in rec
     dry, roof, rows = report.build_tables(tmp_path)
