@@ -188,10 +188,12 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    32 decode steps (tok/s, peak memory); (b) a codebook of the prefill
    cache's own rows (K = 34,816 a layer, uint16 codes), one
    ``decode_quantized`` step against ``decode`` within 1e-3 of max
-   |logit|; (c) ``fit_kv_codebook(k=256)``, 72 streaming fits of 32,768
-   rows, every audit entry ``streaming``; (d) ``random_kv_codebook``, each
-   source's round-trip MSE beside random's (the mean must be lower for
-   BWKM) and equal to B1's mean d1 on its rows within 1e-5; (e) the uint8
+   |logit|; (c) ``fit_kv_codebook(k=256)`` on K and V of every third
+   layer, 24 streaming fits of 32,768 rows, every audit entry
+   ``streaming``; (d) ``random_kv_codebook``, each fitted source's
+   round-trip MSE beside random's (the mean must be lower for BWKM) and
+   equal to B1's mean d1 on its rows within 1e-5; (e)-(f) serve from a
+   codebook of BWKM's layers and random's elsewhere: (e) the uint8
    cache exactly 2·hd times smaller than the bf16 one; (f)
    ``generate_quantized`` and ``teacher_forced_nll`` for fp, BWKM and
    random (a readout); (g) B1, B4 and B5 launched and no plain distance
@@ -250,8 +252,7 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
 14. (after phase 13) the dry run (``repro_torch.launch.dryrun``): 14a
    ``python -m repro_torch.launch.dryrun --cell ... --jobs 6`` traces one
    cell for each (family × kind), the family's cheapest arch, at full width
-   and depth on the 256-rank meshes (``16x16`` for the dense and moe
-   families, ``data256`` for the others; a fake process group of 256 ranks)
+   and depth on the ``16x16`` mesh (a fake process group of 256 ranks)
    with no card visible, and beside it the vlm's prefill_32k at 10 of its
    100 layers (at full depth it alone takes about a minute of one core),
    then prints the report's tables and the cells it cut; 14b, beside them,
@@ -295,7 +296,18 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    rank, 4 decode steps, each rank's vocabulary columns; 3e-2 of max
    |logit|); 16b deepseek-moe-16b, 1 of 28 layers, bf16, one step in the ``ep``
    island (32 of 64 experts a rank), the layer's output against the local
-   MoE on each rank's own tokens (3e-2 of max |y|).
+   MoE on each rank's own tokens (3e-2 of max |y|); 16c mamba2-130m (4 of
+   24 layers; the Mamba heads split, the gated norm's sums added over the
+   ranks), 16d zamba2-1.2b (6 of 38 layers: one group and the shared
+   block) and 16e musicgen-medium (2 of 48 layers), each in f32 with 16a's
+   checks, two steps on [2, 2,048], prefill [2, 512] and 4 decode steps
+   (16e in a session of 517 slots, which the two ranks do not split: each
+   holds the cache whole, gated on its slot count, and decodes over all of
+   it with no combine);
+   16f llama-3.2-vision-90b (5 of 100 layers: 4 self, 1 cross; bf16)
+   serving only, prefill [2, 512] with bf16 image embeddings [2, 1,601,
+   8,192] and 4 decode steps (3e-2 of max |logit|), each rank drawing the
+   whole tree in turn.
 
 The whole run keeps its autotune cache in a fresh temporary file
 (``REPRO_AUTOTUNE_CACHE``), so every key is tuned on this card in this run.
@@ -3039,6 +3051,9 @@ VQ_FULL = dict(n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, hd=128, d_ff
                vocab=49152)
 VQ_BATCH, VQ_PROMPT, VQ_STEPS = 8, 512, 32  # prompts, tokens each, greedy decode steps
 VQ_K = 256  # the codebooks' k: uint8 codes
+#: the KV layers 11a fits: K and V of every third layer, 24 of the 72 sources;
+#: the others serve from the random codebook
+VQ_FIT_LAYERS = range(0, 36, 3)
 ROUTER_ARCH, ROUTER_LAYERS = "deepseek-moe-16b", 2  # widths as published, depth cut from 28
 ROUTER_TOKENS = (64, 512)
 
@@ -3224,19 +3239,21 @@ def phase_vq(torch, rnd, ref, da, fau, cu, msu, counters, smi):
               f"{scale:.3g})")
         del exact, qcache, kcb, vcb, raw, quant
         torch.cuda.empty_cache()
-        # (c) 72 streaming fits
+        # (c) 24 streaming fits: K and V of every third layer
         t0 = time.perf_counter()
-        cb = vq.fit_kv_codebook(cfg, params, fit_prompts, k=VQ_K)
+        cb = vq.fit_kv_codebook(cfg, params, fit_prompts, k=VQ_K, layers=VQ_FIT_LAYERS)
         fit_wall = time.perf_counter() - t0
         audit = cb.meta["layers"]
         n_rows = VQ_BATCH * VQ_PROMPT * kv
-        check(len(audit) == 2 * L and all(m["engine"] == "streaming" for m in audit)
+        fitted = list(VQ_FIT_LAYERS)
+        check(len(audit) == 2 * len(fitted) and all(m["engine"] == "streaming" for m in audit)
               and all(m["n_points"] == n_rows for m in audit),
               f"codebook audit: {len(audit)} fits, engines {sorted({m['engine'] for m in audit})}, "
               f"rows {sorted({m['n_points'] for m in audit})}")
         check(cb.code_dtype == torch.uint8 and np.isfinite(cb.k_centroids).all()
               and np.isfinite(cb.v_centroids).all(), "the fitted codebook is not finite uint8")
-        print(f"[vq] (c) fit_kv_codebook(k={VQ_K}) over {VQ_BATCH} fit prompts × {VQ_PROMPT}: "
+        print(f"[vq] (c) fit_kv_codebook(k={VQ_K}, layers {fitted[0]}, {fitted[1]}, ..., "
+              f"{fitted[-1]}) over {VQ_BATCH} fit prompts × {VQ_PROMPT}: "
               f"{len(audit)} streaming fits of {n_rows:,} rows each in {fit_wall:.1f} s "
               f"({fit_wall / len(audit):.2f} s a fit, its prefill included); distances "
               f"{cb.meta['distances_total']:.4e}; stop reasons "
@@ -3249,7 +3266,7 @@ def phase_vq(torch, rnd, ref, da, fau, cu, msu, counters, smi):
         mse = {"bwkm": [], "random": []}
         worst = 0.0
         lines = []
-        for layer in range(L):
+        for layer in fitted:
             parts = []
             for kind in ("k", "v"):
                 rows = fcache[kind][layer].reshape(-1, hd).float()
@@ -3262,17 +3279,23 @@ def phase_vq(torch, rnd, ref, da, fau, cu, msu, counters, smi):
                     mse[name].append(m)
                 parts.append(f"{kind} {mse['bwkm'][-1]:.4f} / {mse['random'][-1]:.4f}")
             lines.append(f"{layer}: " + ", ".join(parts))
-        for i in range(0, L, 6):
+        for i in range(0, len(lines), 6):
             print("[vq] (d) round-trip MSE, BWKM / random, layer: " + "; ".join(lines[i:i + 6]))
         mb, mr = float(np.mean(mse["bwkm"])), float(np.mean(mse["random"]))
-        check(mb < mr, f"mean round-trip MSE over the {2 * L} sources: BWKM {mb:.5g} >= random "
-              f"{mr:.5g}")
+        check(mb < mr, f"mean round-trip MSE over the {2 * len(fitted)} sources: BWKM {mb:.5g} >= "
+              f"random {mr:.5g}")
         check(worst <= 1e-5, f"round-trip MSE against B1's mean d1: {worst:.3g} > 1e-5 relative")
-        print(f"[vq] (d) mean over the {2 * L} sources: BWKM {mb:.5f}, random {mr:.5f} "
+        print(f"[vq] (d) mean over the {2 * len(fitted)} sources: BWKM {mb:.5f}, random {mr:.5f} "
               f"({mr / mb:.3f}×); BWKM lower on {sum(b < r for b, r in zip(mse['bwkm'], mse['random']))}"
-              f" of {2 * L}; every MSE equals B1's mean d1 on its rows within {worst:.2e} "
-              f"relative (limit 1e-5); random codebook {t_rand:.1f} s")
+              f" of {2 * len(fitted)}; every MSE equals B1's mean d1 on its rows within "
+              f"{worst:.2e} "
+              f"relative (limit 1e-5); random codebook (all {2 * L} sources) {t_rand:.1f} s")
         del fcache
+        # (e)-(f) serve from BWKM's layers, and from the random codebook's elsewhere
+        stacks = {kind: rand.centroids(kind).copy() for kind in ("k", "v")}
+        for kind in stacks:
+            stacks[kind][fitted] = cb.centroids(kind)[fitted]
+        cb = vq.KVCodebook(stacks["k"], stacks["v"], cb.meta)
         # (e) bytes
         raw_bytes = vq.kv_cache_nbytes(cache)
         qcache = vq.quantize_cache(cb, cache)
@@ -3303,7 +3326,8 @@ def phase_vq(torch, rnd, ref, da, fau, cu, msu, counters, smi):
         print(f"[vq] (f) generate_quantized: {VQ_STEPS} decode steps over codes in {wall_f:.3f} s "
               f"({tps_f:.1f} tok/s against {tps_a:.1f} raw; {same:.3f} of its tokens equal the "
               f"raw run's); teacher-forced NLL over {VQ_STEPS + 1} positions: fp "
-              f"{nll['fp']:.4f}, BWKM {nll['bwkm']:.4f}, random {nll['random']:.4f} (random "
+              f"{nll['fp']:.4f}, BWKM (every third layer, random elsewhere) {nll['bwkm']:.4f}, "
+              f"random {nll['random']:.4f} (random "
               f"weights: a readout, not a gate; {nll['fp_s']:.2f} / {nll['bwkm_s']:.2f} / "
               f"{nll['random_s']:.2f} s) ({smi})")
     launches = _read(counters)
@@ -4054,9 +4078,8 @@ def _ground_cell(torch, dryrun, cfg, shape, what, smi):
 
 def phase_dryrun(torch, smi):
     """Phase 14: the dry run. 14a: ``python -m repro_torch.launch.dryrun
-    --cell ... --jobs 6`` over :data:`DRYRUN_CELLS` on the 256-rank meshes
-    (``16x16`` for the dense and moe cells, ``data256`` for the others)
-    with no card visible, beside it the vlm's prefill at
+    --cell ... --jobs 6`` over :data:`DRYRUN_CELLS` on the 256-rank
+    ``16x16`` mesh with no card visible, beside it the vlm's prefill at
     :data:`DRYRUN_VLM_LAYERS` layers, then the report's tables over the
     records; 14b, beside them, holds the trace at one rank against the
     same steps run on the card (qwen3-4b and deepseek-moe-16b at full
@@ -4109,9 +4132,8 @@ def phase_dryrun(torch, smi):
         check(len(recs) == len(DRYRUN_CELLS) + 1, f"14a: {len(recs)} records")
         for f in recs:
             rec = json.loads(f.read_text())
-            mesh = dryrun.mesh_name(configs.get_config(rec["arch"]), False)
             check(rec["flops"] > 0 and rec["memory"]["peak_bytes_est"] > 0
-                  and rec["chips"] == 256 and rec["mesh"] == mesh == f.parent.name,
+                  and rec["chips"] == 256 and rec["mesh"] == "16x16" == f.parent.name,
                   f"14a {f.name}: {rec}")
         dry, roof, _ = report.build_tables(pathlib.Path(out_dir))
     for line in (dry + "\n" + roof).splitlines():
@@ -4200,10 +4222,10 @@ def _fsdp_cases():
             (configs.get_config(ROUTER_ARCH).replace(n_layers=FSDP_MOE_LAYERS), 152, 15))
 
 
-def _fsdp_tokens(cfg, seed):
+def _fsdp_tokens(cfg, seed, seq=TRAIN_SEQ):
     from repro_torch.data import TokenStream
 
-    return TokenStream(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=seed).batch(0)[0]
+    return TokenStream(cfg.vocab, seq, TRAIN_BATCH, seed=seed).batch(0)[0]
 
 
 def _host_tree(tree):
@@ -4354,19 +4376,19 @@ def _fsdp_join(torch, ctx, tmp: pathlib.Path, deadline: float) -> list[dict]:
 
 
 def _one_rank(torch, cfg, seed, token_seed, steps, path: pathlib.Path, serve=False,
-              accum=FSDP_WORLD) -> dict:
+              accum=FSDP_WORLD, seq=TRAIN_SEQ, session=FSDP_PROMPT + FSDP_DECODE) -> dict:
     """The W-rank step's semantics at one rank, no mesh: ``steps`` steps of
     ``make_train_step(cfg)`` with the ranks' rows as its ``accum``
     micro-batches (each row apart: its own MoE capacity and load-balance
     term; the losses and gradients averaged), then with ``serve`` a prefill
-    and greedy decode. What the ranks compare with (the first moment and the
+    and greedy decode in a cache sized for ``session`` positions. What the ranks compare with (the first moment and the
     parameters after step 1, the greedy tokens) goes to ``path`` once the
     card's memory is freed."""
     from repro_torch.models import transformer as tf
     from repro_torch.train import optimizer as opt
     from repro_torch.train import train_step as ts
 
-    tokens = _fsdp_tokens(cfg, token_seed)
+    tokens = _fsdp_tokens(cfg, token_seed, seq)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     params, state, n_params, _ = _train_state(torch, ts, opt, cfg, seed)
@@ -4388,8 +4410,7 @@ def _one_rank(torch, cfg, seed, token_seed, steps, path: pathlib.Path, serve=Fal
     if serve:
         greedy, out["logits"] = [], []
         with torch.no_grad():
-            last, cache = tf.prefill(cfg, params, tokens[:, :FSDP_PROMPT],
-                                     max_seq_len=FSDP_PROMPT + FSDP_DECODE)
+            last, cache = tf.prefill(cfg, params, tokens[:, :FSDP_PROMPT], max_seq_len=session)
             for i in range(FSDP_DECODE + 1):
                 out["logits"].append(last.float().cpu())
                 if i == FSDP_DECODE:
@@ -4538,7 +4559,7 @@ def phase_fsdp(torch, smi):
 # ---------------------------------------------------------------- phase 16
 TP_MESH = (1, 2)  # ("data", "model"): two gloo ranks on the one card, one data rank
 TP_STEPS = 2  # qwen3-4b at FSDP_LAYERS of 36 layers, f32, remat, [2, 4,096] a step
-TP_RANK_SECONDS = 180  # the parent's deadline for phase 16's ranks: a hang fails the phase
+TP_RANK_SECONDS = 300  # the parent's deadline for phase 16's ranks: a hang fails the phase
 #: 16a holds the ranks' steps against one rank's on the same batch with
 #: phase 15's tolerances (FSDP_RTOL, FSDP_MOMENT_TOL, FSDP_PARAM_TOL), in f32
 #: activations: the model axis splits the GEMMs' columns and their reduction
@@ -4583,20 +4604,99 @@ def _params_miss_tp(torch, got, want, moment):
     return inside, anywhere, inside15, g15
 
 
+#: 16c-16e: the other families at full width, their depth cut, in f32 as 16a,
+#: two steps on [TRAIN_BATCH, TP_FAMILY_SEQ] against one rank's with 16a's
+#: checks, then serving: (part, arch, layers, parameter seed, token seed).
+#: zamba2-1.2b's 6 layers are one group and the shared block.
+TP_FAMILIES = (("16c", "mamba2-130m", 4, 160, 30), ("16d", "zamba2-1.2b", 6, 161, 31),
+               ("16e", "musicgen-medium", 2, 162, 32))
+TP_FAMILY_SEQ = 2048
+#: the serving session of each part that trains: 16e's one slot longer than
+#: the others', an odd count of slots that the two model ranks do not split,
+#: so each rank holds that cache whole and decode attends over all of it
+#: with no combine of partial softmaxes
+TP_SESSION = {"16e": FSDP_PROMPT + FSDP_DECODE + 1}
+
+
+def _tp_session(part: str) -> int:
+    return TP_SESSION.get(part, FSDP_PROMPT + FSDP_DECODE)
+
+
+def _tp_held(part: str) -> int:
+    """The cache slots a model rank holds in ``part``'s session: its half,
+    or all of them where the two ranks do not split them."""
+    sc = _tp_session(part)
+    return sc if sc % TP_MESH[1] else sc // TP_MESH[1]
+#: 16f: llama-3.2-vision-90b at 5 of its 100 layers (4 self layers, 1 cross
+#: layer), bf16, serving only, with bf16 image embeddings
+TP_VLM = ("16f", "llama-3.2-vision-90b", 5, 163, 33)
+
+
 def _tp_cases():
-    """(config, parameter seed, token seed) of 16a (phase 15's qwen3-4b in
-    f32 activations) and 16b (phase 15's deepseek-moe-16b)."""
+    """(part, config, parameter seed, token seed, sequence) of the parts
+    that train: 16a (phase 15's qwen3-4b in f32 activations) and 16c-16e;
+    and 16b's (phase 15's deepseek-moe-16b)."""
     import torch
 
+    from repro_torch import configs
+
     (qwen, q_seed, q_tok), moe = _fsdp_cases()
-    return (qwen.replace(dtype=torch.float32), q_seed, q_tok), moe
+    parts = [("16a", qwen.replace(dtype=torch.float32), q_seed, q_tok, TRAIN_SEQ)]
+    for part, arch, layers, seed, tok in TP_FAMILIES:
+        cfg = configs.get_config(arch).replace(n_layers=layers, dtype=torch.float32)
+        parts.append((part, cfg, seed, tok, TP_FAMILY_SEQ))
+    return parts, moe
+
+
+def _tp_vlm():
+    """16f's (config, parameter seed, token seed)."""
+    from repro_torch import configs
+
+    _, arch, layers, seed, tok = TP_VLM
+    return configs.get_config(arch).replace(n_layers=layers), seed, tok
+
+
+def _vlm_images(torch, cfg, seed):
+    """16f's bf16 image embeddings [TRAIN_BATCH, T_img, D], drawn on the card."""
+    from repro_torch import random as rnd
+
+    return rnd.normal(rnd.key(seed), (TRAIN_BATCH, cfg.n_image_tokens, cfg.d_model),
+                      device="cuda").to(torch.bfloat16)
+
+
+def _one_rank_vlm(torch, path: pathlib.Path) -> float:
+    """16f at one rank: prefill [TRAIN_BATCH, FSDP_PROMPT] with the image
+    embeddings and FSDP_DECODE greedy steps. The logits and the greedy
+    tokens go to ``path`` once the tree is freed; returns the seconds."""
+    from repro_torch import random as rnd
+    from repro_torch.models import transformer as tf
+
+    cfg, seed, tok = _tp_vlm()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, rnd.key(seed))
+    prompt = _fsdp_tokens(cfg, tok, FSDP_PROMPT)
+    saved: dict = {"logits": [], "greedy": []}
+    with torch.no_grad():
+        last, cache = tf.prefill(cfg, params, prompt, _vlm_images(torch, cfg, tok + 1),
+                                 max_seq_len=FSDP_PROMPT + FSDP_DECODE)
+        for i in range(FSDP_DECODE + 1):
+            saved["logits"].append(last.float().cpu())
+            if i == FSDP_DECODE:
+                break
+            saved["greedy"].append(torch.argmax(last[:, :cfg.vocab], -1).to(torch.int32))
+            last, cache = tf.decode(cfg, params, cache, saved["greedy"][-1], FSDP_PROMPT + i)
+    saved["greedy"] = torch.stack(saved["greedy"]).cpu()
+    del params, cache, last
+    torch.cuda.empty_cache()
+    _fsdp_save(torch, saved, path)
+    return time.perf_counter() - t0
 
 
 def _tp_rank(rank: int, world: int, init: str, tmp: str) -> None:
     """One rank of phase 16: a gloo group on the one card as a ``("data",
     "model")`` mesh of TP_MESH, running the model axis's steps on its
     shards and sequence part. It compares its slices with the one-rank
-    run's file and saves what it saw to ``tmp/rank<r>.pt``."""
+    runs' files and saves what it saw to ``tmp/rank<r>.pt``."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -4616,9 +4716,9 @@ def _tp_rank(rank: int, world: int, init: str, tmp: str) -> None:
     torch.cuda.set_device(0)
     tmp = pathlib.Path(tmp)
     ocfg = opt.AdamWConfig(**TRAIN_LR)
-    (qwen, q_seed, q_tok), (moe, m_seed, m_tok) = _tp_cases()
+    parts, (moe, m_seed, m_tok) = _tp_cases()
 
-    def model(cfg, seed, tok_seed, keep=None):
+    def model(cfg, seed, tok_seed, keep=None, seq=TRAIN_SEQ):
         """(shards, placements, AdamW state, the batch, ``keep`` of the whole
         tree): drawn on the card and dropped."""
         whole = tf.init_params(cfg, rnd.key(seed))
@@ -4627,72 +4727,81 @@ def _tp_rank(rank: int, world: int, init: str, tmp: str) -> None:
         kept = keep(whole) if keep else None
         del whole
         torch.cuda.empty_cache()
-        return shards, psh, opt.adamw_init(shards), _fsdp_tokens(cfg, tok_seed), kept
+        return shards, psh, opt.adamw_init(shards), _fsdp_tokens(cfg, tok_seed, seq), kept
 
     def mine(tree, psh):
         return [t.cuda() for t in opt.leaves(fsdp.shard_tree(tree, psh))]
 
+    def train_and_serve(part, cfg, seed, tok_seed, seq) -> dict:
+        """A part's control step, its TP_STEPS steps against the one-rank
+        run's file and the same shards serving."""
+        t_part = time.perf_counter()
+        one = _fsdp_wait(torch, tmp / f"one_rank_{part}.pt", deadline)
+        got: dict = {}
+        # the control: the row-parallel partials left unreduced over "model"
+        params, psh, state, rows, _ = model(cfg, seed, tok_seed, seq=seq)
+        step = ts.make_train_step(cfg, ocfg, param_shardings=psh)
+        real = tf._to_residual
+        tf._to_residual = lambda partial, par, dtype: (
+            tp._part(partial, 1) if par.seq else partial).to(dtype)
+        try:
+            _, state, m = step(params, state, rows, rows)
+        finally:
+            tf._to_residual = real
+        got["control"] = (float(m["loss"]), float(m["grad_norm"]))
+        del params, state
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        params, psh, state, rows, _ = model(cfg, seed, tok_seed, seq=seq)
+        m1 = mine(one["m1"], psh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        got["loss"], got["grad_norm"], got["step_s"] = [], [], []
+        for i in range(TP_STEPS):
+            analysis.collective_bytes(reset=True)
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, rows, rows)
+            torch.cuda.synchronize()
+            got["step_s"].append(time.perf_counter() - t0)
+            got["loss"].append(float(m["loss"]))
+            got["grad_norm"].append(float(m["grad_norm"]))
+            if i == 0:
+                got["counts"] = analysis.collective_bytes(reset=True)
+                got["resident"] = torch.cuda.memory_allocated() - base
+                got["m1"] = _moment_miss(torch, list(opt.leaves(state["m"])), m1)
+                got["params"] = _params_miss_tp(torch, opt.leaves(params),
+                                                mine(one["p1"], psh), m1)
+                del m1
+        got["peak"] = torch.cuda.max_memory_allocated() - base
+        del state
+        # the same shards serve, teacher-forced on the one-rank run's greedy tokens
+        greedy = one["greedy"].cuda()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, cache = tf.prefill(cfg, params, rows[:, :FSDP_PROMPT],
+                                       max_seq_len=_tp_session(part), param_shardings=psh)
+            got["logits"] = [logits.float().cpu()]
+            for i in range(FSDP_DECODE):
+                logits, cache = tf.decode(cfg, params, cache, greedy[i], FSDP_PROMPT + i,
+                                          param_shardings=psh, max_seq_len=_tp_session(part))
+                got["logits"].append(logits.float().cpu())
+        torch.cuda.synchronize()
+        got["serve_s"] = time.perf_counter() - t0
+        got["slots"] = int(cache["slot_pos"].shape[1]) if "slot_pos" in cache else None
+        del params, cache, one, logits
+        torch.cuda.empty_cache()
+        got["s"] = time.perf_counter() - t_part
+        return got
+
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world)
-    out: dict = {"rank": rank}
+    out: dict = {"rank": rank, "parts": {}}
     try:
         mesh = init_device_mesh("cuda", TP_MESH, mesh_dim_names=("data", "model"))
-        one = _fsdp_wait(torch, tmp / "one_rank_a.pt", deadline)
         with sh.use_mesh(mesh):
-            # the control: the row-parallel partials left unreduced over "model"
-            params, psh, state, rows, _ = model(qwen, q_seed, q_tok)
-            step = ts.make_train_step(qwen, ocfg, param_shardings=psh)
-            real = tf._to_residual
-            tf._to_residual = lambda partial, par, dtype: (
-                tp._part(partial, 1) if par.seq else partial).to(dtype)
-            try:
-                _, state, m = step(params, state, rows, rows)
-            finally:
-                tf._to_residual = real
-            out["control"] = (float(m["loss"]), float(m["grad_norm"]))
-            del params, state
-            torch.cuda.empty_cache()
-            # 16a
-            base = torch.cuda.memory_allocated()
-            params, psh, state, rows, _ = model(qwen, q_seed, q_tok)
-            m1 = mine(one["m1"], psh)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            out["loss"], out["grad_norm"], out["step_s"] = [], [], []
-            for i in range(TP_STEPS):
-                analysis.collective_bytes(reset=True)
-                t0 = time.perf_counter()
-                params, state, m = step(params, state, rows, rows)
-                torch.cuda.synchronize()
-                out["step_s"].append(time.perf_counter() - t0)
-                out["loss"].append(float(m["loss"]))
-                out["grad_norm"].append(float(m["grad_norm"]))
-                if i == 0:
-                    out["counts"] = analysis.collective_bytes(reset=True)
-                    out["resident"] = torch.cuda.memory_allocated() - base
-                    out["m1"] = _moment_miss(torch, list(opt.leaves(state["m"])), m1)
-                    out["params"] = _params_miss_tp(torch, opt.leaves(params),
-                                                    mine(one["p1"], psh), m1)
-                    del m1
-            out["peak"] = torch.cuda.max_memory_allocated() - base
-            del state
-            # the same shards serve, teacher-forced on the one-rank run's greedy tokens
-            greedy = one["greedy"].cuda()
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                logits, cache = tf.prefill(qwen, params, rows[:, :FSDP_PROMPT],
-                                           max_seq_len=FSDP_PROMPT + FSDP_DECODE,
-                                           param_shardings=psh)
-                out["logits"] = [logits.float().cpu()]
-                for i in range(FSDP_DECODE):
-                    logits, cache = tf.decode(qwen, params, cache, greedy[i], FSDP_PROMPT + i,
-                                              param_shardings=psh)
-                    out["logits"].append(logits.float().cpu())
-            torch.cuda.synchronize()
-            out["serve_s"] = time.perf_counter() - t0
-            out["slots"] = int(cache["k"].shape[2])
-            del params, cache, one, logits
-            torch.cuda.empty_cache()
+            part, cfg, seed, tok, seq = parts[0]
+            out["parts"][part] = train_and_serve(part, cfg, seed, tok, seq)  # 16a
             # 16b: the ep island against the local MoE on the rank's own tokens
+            t_part = time.perf_counter()
             params, psh, state, rows, first = model(
                 moe, m_seed, m_tok, keep=lambda w: opt.tree_map(
                     lambda t: t.clone(), tf.layer(w["layers"], 0)["moe"]))
@@ -4721,7 +4830,41 @@ def _tp_rank(rank: int, world: int, init: str, tmp: str) -> None:
             out["moe"] = {"loss": float(m["loss"]), "mode": moe_mod.moe_mode(moe.n_experts, par.m),
                           "tokens": int(x.shape[0] * x.shape[1]),
                           "share": float((y.float() - want.float()).abs().max()
-                                         / want.float().abs().max())}
+                                         / want.float().abs().max()),
+                          "s": time.perf_counter() - t_part}
+            del x, y, first, want, seen
+            torch.cuda.empty_cache()
+            for part, cfg, seed, tok, seq in parts[1:]:  # 16c-16e
+                out["parts"][part] = train_and_serve(part, cfg, seed, tok, seq)
+            # 16f: the vlm serves; the ranks draw the whole tree one at a time
+            t_part = time.perf_counter()
+            one = _fsdp_wait(torch, tmp / "one_rank_16f.pt", deadline)
+            vcfg, vseed, vtok = _tp_vlm()
+            for r in range(world):
+                if r == rank:
+                    whole = tf.init_params(vcfg, rnd.key(vseed))
+                    psh = layouts.param_shardings(vcfg, whole)
+                    params = fsdp.shard_tree(whole, psh)
+                    del whole
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            prompt = _fsdp_tokens(vcfg, vtok, FSDP_PROMPT)
+            greedy = one["greedy"].cuda()
+            logits_seen = []
+            with torch.no_grad():
+                logits, cache = tf.prefill(vcfg, params, prompt, _vlm_images(torch, vcfg, vtok + 1),
+                                           max_seq_len=FSDP_PROMPT + FSDP_DECODE,
+                                           param_shardings=psh)
+                logits_seen.append(logits.float().cpu())
+                for i in range(FSDP_DECODE):
+                    logits, cache = tf.decode(vcfg, params, cache, greedy[i], FSDP_PROMPT + i,
+                                              param_shardings=psh,
+                                              max_seq_len=FSDP_PROMPT + FSDP_DECODE)
+                    logits_seen.append(logits.float().cpu())
+            out["vlm"] = {"logits": logits_seen, "slots": int(cache["slot_pos"].shape[1]),
+                          "image_kv": tuple(cache["xk"].shape), "s": time.perf_counter() - t_part}
+            del params, cache, logits
+            torch.cuda.empty_cache()
         _fsdp_save(torch, out, tmp / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -4734,7 +4877,10 @@ def phase_tp(torch, smi):
     rank (loss, grad-norm, first moment, parameters; an unreduced control;
     the collectives against the dry run's rule; resident bytes and peak),
     the same shards serving; 16b deepseek-moe-16b (1 layer, bf16) in its ``ep``
-    island against the local MoE on each rank's tokens."""
+    island against the local MoE on each rank's tokens; 16c-16e the same
+    checks as 16a for mamba2-130m (4 layers), zamba2-1.2b (6 layers) and
+    musicgen-medium (2 layers) on [2, 2,048]; 16f llama-3.2-vision-90b (5
+    layers, bf16) serving with image embeddings."""
     import torch.multiprocessing as mp
 
     from repro_torch import configs
@@ -4747,30 +4893,39 @@ def phase_tp(torch, smi):
 
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
-    (qwen, q_seed, q_tok), (moe, _, _) = _tp_cases()
+    parts, (moe, _, _) = _tp_cases()
+    qwen = parts[0][1]
     _published(qwen, QWEN_FULL, "qwen3-4b")
     check(qwen.remat and moe.dtype == torch.bfloat16, f"16: {qwen}, {moe}")
     world = TP_MESH[0] * TP_MESH[1]
+    one, rec, replicated, one_s = {}, {}, {}, {}
     with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
         tmp = pathlib.Path(tmp)
         ctx = mp.start_processes(_tp_rank, args=(world, f"file://{tmp}/rendezvous", str(tmp)),
                                  nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + TP_RANK_SECONDS
         try:
-            one = _one_rank(torch, qwen, q_seed, q_tok, TP_STEPS, tmp / "one_rank_a.pt",
-                            serve=True, accum=1)
-            with dryrun.fake_mesh(world, TP_MESH):  # the dry run's record of the same cell
-                rec = dryrun.trace_cell(qwen, configs.Shape("train_2x4k", TRAIN_SEQ,
-                                                            TRAIN_BATCH, "train"))
-                whole = transformer.init_params(qwen, rnd.key(0), device="meta")
-                psh = layouts.param_shardings(qwen, whole)
+            for part, cfg, seed, tok, seq in parts:
+                t0 = time.perf_counter()
+                one[part] = _one_rank(torch, cfg, seed, tok, TP_STEPS, tmp / f"one_rank_{part}.pt",
+                                      serve=True, accum=1, seq=seq, session=_tp_session(part))
+                one_s[part] = time.perf_counter() - t0
+            one_s["16f"] = _one_rank_vlm(torch, tmp / "one_rank_16f.pt")
+            one["16f"] = torch.load(tmp / "one_rank_16f.pt", weights_only=False)
+            for part, cfg, _, _, seq in parts:  # the dry run's record of each cell
+                with dryrun.fake_mesh(world, TP_MESH):
+                    rec[part] = dryrun.trace_cell(cfg, configs.Shape(f"train_2x{seq}", seq,
+                                                                     TRAIN_BATCH, "train"))
+                    whole = transformer.init_params(cfg, rnd.key(0), device="meta")
+                    psh = layouts.param_shardings(cfg, whole)
+                replicated[part] = sum(t.numel() * 4 * 3 for t, p in
+                                       zip(opt.leaves(whole), opt.leaves(psh))
+                                       if fsdp.model_dim(p) is None)  # parameters, m and v
         except BaseException:
             for p in ctx.processes:
                 p.terminate()
             raise
         ranks = _fsdp_join(torch, ctx, tmp, deadline)
-    replicated = sum(t.numel() * 4 * 3 for t, p in zip(opt.leaves(whole), opt.leaves(psh))
-                     if fsdp.model_dim(p) is None)  # parameters, m and v
     lr = TRAIN_LR["lr"]
     failures = []
 
@@ -4781,66 +4936,78 @@ def phase_tp(torch, smi):
     def rel(a, b):
         return abs(a - b) / abs(b)
 
-    for r in ranks:
-        k = r["rank"]
-        loss_rel = max(rel(a, b) for a, b in zip(r["loss"], one["loss"]))
-        norm_rel = max(rel(a, b) for a, b in zip(r["grad_norm"], one["grad_norm"]))
-        l2, share = r["m1"]
-        inside, anywhere, inside15, g15 = r["params"]
-        c_loss, c_norm = rel(r["control"][0], one["loss"][0]), rel(r["control"][1],
-                                                                    one["grad_norm"][0])
-        limit = one["resident"] / TP_MESH[1] + replicated + FSDP_RESIDENT_SLACK
-        est = rec["memory"]["peak_bytes_est"]
-        print(f"[tp] 16a rank {k} of {TP_MESH} (data, model): qwen3-4b ({FSDP_LAYERS} of 36 "
-              f"layers, f32, remat) {TP_STEPS} steps on [{TRAIN_BATCH}, {TRAIN_SEQ:,}] (the "
-              f"sequence split over the model ranks between layers, heads, ff and vocabulary "
-              f"inside) against one rank's: losses "
-              + ", ".join(f"{x:.6f}" for x in r["loss"]) + " against "
-              + ", ".join(f"{x:.6f}" for x in one["loss"])
-              + ", grad-norms " + ", ".join(f"{x:.6f}" for x in r["grad_norm"]) + " against "
-              + ", ".join(f"{x:.6f}" for x in one["grad_norm"])
-              + f" (relative {loss_rel:.3g} and {norm_rel:.3g}, limit {FSDP_RTOL}); the first "
-              f"moment within a relative L2 of {l2:.3g} and a leaf's share {share:.3g} (limit "
-              f"{FSDP_MOMENT_TOL}); the parameters after step 1 past {FSDP_PARAM_TOL[1]} "
-              f"relative by {inside:.3g} where the moment is signed and ĝ ≥ {TP_SIGN_FLOOR:g} "
-              f"(limit {FSDP_PARAM_TOL[0]}; by {inside15:.3g} with phase 15's mask alone, at an "
-              f"element of ĝ {g15:.3g}), {anywhere:.3g} apart anywhere (limit {2 * lr}); seconds "
-              f"a step "
-              + ", ".join(f"{x:.3f}" for x in r["step_s"]) + " against one rank's "
-              + ", ".join(f"{x:.3f}" for x in one["step_s"]) + f" ({smi})")
-        print(f"[tp] 16a rank {k} control, the row-parallel partials unreduced: loss "
-              f"{r['control'][0]:.6f} misses by a relative {c_loss:.3g} ({c_loss / FSDP_RTOL:.0f}× "
-              f"the limit), grad-norm {r['control'][1]:.6f} by {c_norm:.3g} "
-              f"({c_norm / FSDP_RTOL:.0f}×; each must be ≥ {FSDP_CONTROL}×) ({smi})")
-        print(f"[tp] 16a rank {k}: collectives of step 1 {r['counts']}, the dry run's rule for "
-              f"the cell on {TP_MESH} {rec['collectives']}; resident bytes after step 1 "
-              f"{r['resident']:,} against one rank's {one['resident']:,} (ratio "
-              f"{r['resident'] / one['resident']:.4f}; limit {limit:,.0f}: 1/{TP_MESH[1]} + the "
-              f"model-replicated leaves' {replicated:,} + {FSDP_RESIDENT_SLACK:,}); peak "
-              f"{r['peak'] / 2**30:.3f} GiB against the dry run's peak_bytes_est "
-              f"{est / 2**30:.3f} GiB: ratio {r['peak'] / est:.4f} (one rank's peak "
-              f"{one['peak'] / 2**30:.3f} GiB) ({smi})")
-        gate(loss_rel <= FSDP_RTOL and norm_rel <= FSDP_RTOL,
-             f"16a rank {k} loss {r['loss']}, grad-norm {r['grad_norm']} against "
-             f"{one['loss']}, {one['grad_norm']}")
-        gate(l2 <= FSDP_MOMENT_TOL and share <= FSDP_MOMENT_TOL,
-             f"16a rank {k} first moment {l2}, {share}")
-        gate(inside <= FSDP_PARAM_TOL[0] and anywhere <= 2 * lr + FSDP_PARAM_TOL[0],
-             f"16a rank {k} parameters {inside}, {anywhere}")
-        gate(c_loss >= FSDP_CONTROL * FSDP_RTOL and c_norm >= FSDP_CONTROL * FSDP_RTOL,
-             f"16a rank {k} control missed by {c_loss}, {c_norm} only")
-        gate(r["counts"] == rec["collectives"], f"16a rank {k} collectives {r['counts']}")
-        gate(r["resident"] <= limit, f"16a rank {k} resident {r['resident']:,} > {limit:,.0f}")
-        gate(r["slots"] == (FSDP_PROMPT + FSDP_DECODE) // TP_MESH[1], f"16a slots {r['slots']}")
-    # the ranks' vocabulary columns put together (one data rank: each holds both rows)
-    worst = max(_share(torch, torch.cat([r["logits"][i] for r in ranks], dim=-1),
-                       one["logits"][i], qwen.vocab) for i in range(FSDP_DECODE + 1))
-    print(f"[tp] 16a the same shards serve: prefill [{TRAIN_BATCH}, {FSDP_PROMPT}] over "
-          f"{(FSDP_PROMPT + FSDP_DECODE) // TP_MESH[1]} cache slots a rank and {FSDP_DECODE} "
-          f"decode steps teacher-forced on one rank's greedy tokens: logits within {worst:.3g} "
-          f"of max |logit| of one rank's (limit {TF_SHARE_BF16}); seconds "
-          + ", ".join(f"{r['serve_s']:.3f}" for r in ranks) + f" ({smi})")
-    gate(worst <= TF_SHARE_BF16, f"16a logits {worst}")
+    for part, cfg, _, _, seq in parts:
+        o = one[part]
+        what = (f"{cfg.name} ({cfg.n_layers} of {configs.get_config(cfg.name).n_layers} layers, "
+                f"f32{', remat' if cfg.remat else ''})")
+        for r in ranks:
+            k, g = r["rank"], r["parts"][part]
+            loss_rel = max(rel(a, b) for a, b in zip(g["loss"], o["loss"]))
+            norm_rel = max(rel(a, b) for a, b in zip(g["grad_norm"], o["grad_norm"]))
+            l2, share = g["m1"]
+            inside, anywhere, inside15, g15 = g["params"]
+            c_loss, c_norm = rel(g["control"][0], o["loss"][0]), rel(g["control"][1],
+                                                                    o["grad_norm"][0])
+            limit = o["resident"] / TP_MESH[1] + replicated[part] + FSDP_RESIDENT_SLACK
+            est = rec[part]["memory"]["peak_bytes_est"]
+            print(f"[tp] {part} rank {k} of {TP_MESH} (data, model): {what} {TP_STEPS} steps on "
+                  f"[{TRAIN_BATCH}, {seq:,}] against one rank's: losses "
+                  + ", ".join(f"{x:.6f}" for x in g["loss"]) + " against "
+                  + ", ".join(f"{x:.6f}" for x in o["loss"])
+                  + ", grad-norms " + ", ".join(f"{x:.6f}" for x in g["grad_norm"]) + " against "
+                  + ", ".join(f"{x:.6f}" for x in o["grad_norm"])
+                  + f" (relative {loss_rel:.3g} and {norm_rel:.3g}, limit {FSDP_RTOL}); the first "
+                  f"moment within a relative L2 of {l2:.3g} and a leaf's share {share:.3g} (limit "
+                  f"{FSDP_MOMENT_TOL}); the parameters after step 1 past {FSDP_PARAM_TOL[1]} "
+                  f"relative by {inside:.3g} where the moment is signed and ĝ ≥ "
+                  f"{TP_SIGN_FLOOR:g} "
+                  f"(limit {FSDP_PARAM_TOL[0]}; by {inside15:.3g} with phase 15's mask alone, at "
+                  f"an element of ĝ {g15:.3g}), {anywhere:.3g} apart anywhere (limit {2 * lr}); "
+                  f"seconds a step " + ", ".join(f"{x:.3f}" for x in g["step_s"])
+                  + " against one rank's " + ", ".join(f"{x:.3f}" for x in o["step_s"])
+                  + f" ({smi})")
+            print(f"[tp] {part} rank {k} control, the row-parallel partials unreduced: loss "
+                  f"{g['control'][0]:.6f} misses by a relative {c_loss:.3g} "
+                  f"({c_loss / FSDP_RTOL:.0f}× the limit), grad-norm {g['control'][1]:.6f} by "
+                  f"{c_norm:.3g} ({c_norm / FSDP_RTOL:.0f}×; each must be ≥ {FSDP_CONTROL}×)")
+            print(f"[tp] {part} rank {k}: collectives of step 1 {g['counts']}, the dry run's rule "
+                  f"for the cell on {TP_MESH} {rec[part]['collectives']}; resident bytes after "
+                  f"step 1 {g['resident']:,} against one rank's {o['resident']:,} (ratio "
+                  f"{g['resident'] / o['resident']:.4f}; limit {limit:,.0f}: 1/{TP_MESH[1]} + the "
+                  f"model-replicated leaves' {replicated[part]:,} + {FSDP_RESIDENT_SLACK:,}); peak "
+                  f"{g['peak'] / 2**30:.3f} GiB against the dry run's peak_bytes_est "
+                  f"{est / 2**30:.3f} GiB: ratio {g['peak'] / est:.4f} (one rank's peak "
+                  f"{o['peak'] / 2**30:.3f} GiB); the part took {g['s']:.1f} s on the ranks, "
+                  f"{one_s[part]:.1f} s at one rank ({smi})")
+            gate(loss_rel <= FSDP_RTOL and norm_rel <= FSDP_RTOL,
+                 f"{part} rank {k} loss {g['loss']}, grad-norm {g['grad_norm']} against "
+                 f"{o['loss']}, {o['grad_norm']}")
+            gate(l2 <= FSDP_MOMENT_TOL and share <= FSDP_MOMENT_TOL,
+                 f"{part} rank {k} first moment {l2}, {share}")
+            gate(inside <= FSDP_PARAM_TOL[0] and anywhere <= 2 * lr + FSDP_PARAM_TOL[0],
+                 f"{part} rank {k} parameters {inside}, {anywhere}")
+            gate(c_loss >= FSDP_CONTROL * FSDP_RTOL and c_norm >= FSDP_CONTROL * FSDP_RTOL,
+                 f"{part} rank {k} control missed by {c_loss}, {c_norm} only")
+            gate(g["counts"] == rec[part]["collectives"], f"{part} rank {k} collectives "
+                 f"{g['counts']}")
+            gate(g["resident"] <= limit, f"{part} rank {k} resident {g['resident']:,} > "
+                 f"{limit:,.0f}")
+            gate(g["slots"] in (None, _tp_held(part)), f"{part} rank {k} slots {g['slots']}")
+        # the ranks' vocabulary columns put together (one data rank: each holds both rows)
+        worst = max(_share(torch, torch.cat([r["parts"][part]["logits"][i] for r in ranks],
+                                            dim=-1), o["logits"][i], cfg.vocab)
+                    for i in range(FSDP_DECODE + 1))
+        slots = ranks[0]["parts"][part]["slots"]
+        sc = _tp_session(part)
+        print(f"[tp] {part} the same shards serve: prefill [{TRAIN_BATCH}, {FSDP_PROMPT}]"
+              + (f" over {slots} cache slots a rank of {sc}"
+                 + (" (whole on each rank: decode over all of them, no combine)"
+                    if slots == sc else "") if slots else " (the ssm state on the rank's heads)")
+              + f" and {FSDP_DECODE} decode steps teacher-forced on one rank's greedy tokens: "
+              f"logits within {worst:.3g} of max |logit| of one rank's (limit {TF_SHARE_BF16}); "
+              f"seconds " + ", ".join(f"{r['parts'][part]['serve_s']:.3f}" for r in ranks)
+              + f" ({smi})")
+        gate(worst <= TF_SHARE_BF16, f"{part} logits {worst}")
     for r in ranks:
         mo = r["moe"]
         print(f"[tp] 16b rank {r['rank']}: deepseek-moe-16b ({FSDP_MOE_LAYERS} of 28 layers) one "
@@ -4848,9 +5015,24 @@ def phase_tp(torch, smi):
               f"{moe.n_experts // TP_MESH[1]} a rank, capacity from the rank's {mo['tokens']:,} "
               f"tokens): loss {mo['loss']:.6f}; the layer's output within {mo['share']:.3g} of max "
               f"|y| of the local MoE on the rank's tokens (limit {TF_SHARE_BF16}); "
-              f"{r['moe_s']:.3f} s ({smi})")
+              f"{r['moe_s']:.3f} s a step, the part {mo['s']:.1f} s ({smi})")
         gate(mo["mode"] == "ep" and mo["share"] <= TF_SHARE_BF16 and math.isfinite(mo["loss"]),
              f"16b rank {r['rank']}: {mo}")
+    vcfg = _tp_vlm()[0]
+    worst = max(_share(torch, torch.cat([r["vlm"]["logits"][i] for r in ranks], dim=-1),
+                       one["16f"]["logits"][i], vcfg.vocab) for i in range(FSDP_DECODE + 1))
+    v = ranks[0]["vlm"]
+    print(f"[tp] 16f llama-3.2-vision-90b ({vcfg.n_layers} of 100 layers: 4 self, 1 cross; bf16) "
+          f"serving on {TP_MESH}: prefill [{TRAIN_BATCH}, {FSDP_PROMPT}] with bf16 image "
+          f"embeddings [{TRAIN_BATCH}, {vcfg.n_image_tokens:,}, {vcfg.d_model:,}] over "
+          f"{v['slots']} "
+          f"cache slots a rank, the image K/V whole {v['image_kv']}, and {FSDP_DECODE} decode "
+          f"steps teacher-forced on one rank's greedy tokens: logits within {worst:.3g} of max "
+          f"|logit| of one rank's (limit {TF_SHARE_BF16}); the part took "
+          + ", ".join(f"{r['vlm']['s']:.1f}" for r in ranks) + f" s on the ranks, "
+          f"{one_s['16f']:.1f} s at one rank ({smi})")
+    gate(worst <= TF_SHARE_BF16, f"16f logits {worst}")
+    gate(v["slots"] == (FSDP_PROMPT + FSDP_DECODE) // TP_MESH[1], f"16f slots {v['slots']}")
     print(f"[tp] phase 16 took {time.perf_counter() - t_phase:.1f} s ({smi})")
     check(not failures, "; ".join(failures))
 
@@ -4891,6 +5073,15 @@ def _phases(torch, argv, shard_dir: str) -> int:
     from repro_torch.kernels import fused_assign_update as fau
     from repro_torch.kernels import min_sqdist_update as msu
 
+    laps: list[tuple[str, float]] = []
+    t_last = [time.perf_counter()]
+
+    def lap(phase: str) -> None:
+        """The seconds since the last lap, as ``phase``'s."""
+        now = time.perf_counter()
+        laps.append((phase, now - t_last[0]))
+        t_last[0] = now
+
     # phase 1
     t0 = time.perf_counter()
     parent = (_Parent.start(_build, argv[argv.index("--parent") + 1])
@@ -4907,6 +5098,7 @@ def _phases(torch, argv, shard_dir: str) -> int:
                 kernel = line.split("'")[1]
             elif "registers" in line or "spill" in line:
                 print(f"[build] {name} {kernel}: {line.strip()}")
+    lap("1")
     # phase 2
     errs, rel, n_checks, ties = phase_kernels(torch, ref, da, fau, kmeans_ll._FAR)
     print(f"[kernels] B1-B3 match their plain versions in {n_checks} cases "
@@ -4929,6 +5121,7 @@ def _phases(torch, argv, shard_dir: str) -> int:
           f"at K = 1, d = {WIDE_D[0]:,}) match their plain versions (f32 tol 1e-5, sums to "
           "Σ|terms|); max abs err: " + ", ".join(f"{b} {v:.3g}" for b, v in wide.items()))
     counters = _kernel_counters()
+    lap("2")
     # phase 6 first: the streaming engine over the data as shards, before the
     # data goes on the card; it leaves the data on the card for phases 3–5
     t0 = time.perf_counter()
@@ -4937,12 +5130,14 @@ def _phases(torch, argv, shard_dir: str) -> int:
     stream_launches, x, stream_score = phase_stream(torch, repro_torch, rnd, ops, ref, fau,
                                                     partition, counters, xs, shard_dir)
     del xs
+    lap("6")
     # phase 3
     phase_determinism(torch, ops, da, fau, cu, msu, partition, x, kmeans_ll._FAR)
     print("[determinism] pruned == dense bit for bit at 0/10/100 % active (fused at the "
           "representatives and over all rows at K = 561 and K = 800, two-pass at K·(d+1) = "
           "18,000); two B2 runs at each of those shapes, two full-n B1, B4 and B5 runs and two "
           "full-n block_stats runs bit-equal; full-n B5 over 400 slots == B5 over its valid ones")
+    lap("3")
     # phase 4
     launches, incore_score, incore = phase_fit(torch, repro_torch, ref, da, fau, x, parent)
     print(f"[stream] the streamed fit's score against the in-core fit's: "
@@ -4952,8 +5147,10 @@ def _phases(torch, argv, shard_dir: str) -> int:
     launches.update(B4=ll_launches["B4"], B5=ll_launches["B5"])
     for b in launches:
         launches[b] += stream_launches[b]
+    lap("4")
     # phase 5
     times = phase_times(torch, ref, da, fau, cu, msu, x, ll_path, rep_folds, parent)
+    lap("5")
     # phase 7
     service_launches = phase_service(torch, repro_torch, rnd, ops, counters, x)
     for b in launches:
@@ -4962,23 +5159,28 @@ def _phases(torch, argv, shard_dir: str) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    lap("7")
     # phase 8
     tradeoff_launches = phase_tradeoff(torch, repro_torch, rnd, ref, da, fau, cu, counters, x, smi)
     for b in launches:
         launches[b] += tradeoff_launches[b]
+    lap("8")
     # phase 9
     dist_launches = phase_distributed(torch, repro_torch, rnd, partition, counters, x, shard_dir,
                                       incore, smi)
     for b in launches:
         launches[b] += dist_launches[b]
+    lap("9")
     # phase 10
     phase_autotune(torch, repro_torch, x, ll_path, smi)
+    lap("10")
     # phase 11
     vq_launches, vq_errs = phase_vq(torch, rnd, ref, da, fau, cu, msu, counters, smi)
     for b in launches:
         launches[b] += vq_launches[b]
     for b, e in vq_errs.items():
         errs[b, "float32"] = max(errs[b, "float32"], e)
+    lap("11")
     # phase 12
     family_launches, family_errs = phase_families(torch, rnd, ref, da, fau, cu, msu, counters,
                                                   smi)
@@ -4986,18 +5188,25 @@ def _phases(torch, argv, shard_dir: str) -> int:
         launches[b] += family_launches[b]
     for b, e in family_errs.items():
         errs[b, "float32"] = max(errs[b, "float32"], e)
+    lap("12")
     # phase 13
     phase_train(torch, smi)
+    lap("13")
     # phase 14
     phase_dryrun(torch, smi)
+    lap("14")
     # phase 15
     phase_fsdp(torch, smi)
+    lap("15")
     # phase 16
     phase_tp(torch, smi)
+    lap("16")
     if parent is not None:
         phase_walls(argv[argv.index("--parent") + 1])
     if "--profile" in argv:
         phase_profile(torch, repro_torch, rnd, x, pathlib.Path(argv[argv.index("--profile") + 1]))
+    print("[time] seconds a phase: " + ", ".join(f"{p} {t:.1f}" for p, t in laps)
+          + f"; phases 1-16 {sum(t for _, t in laps):.1f} s")
     print(smi)
     sources = {
         "B1": ("assign_top2", "src/repro_torch/kernels/csrc/distance_assign.cu",

@@ -9,7 +9,8 @@ them where the layout changes:
 * :func:`gather_seq`: the residual stream, split on the sequence between
   layers, gathered whole before a column-parallel product (an all-gather;
   its backward adds the M ranks' gradients and keeps this rank's part, a
-  reduce-scatter);
+  reduce-scatter), and :func:`whole`, the same for a weight stored split
+  where the step uses it whole;
 * :func:`scatter_sum`: the partial products of a row-parallel product
   added over the ranks, this rank keeping its part of the sequence (a
   reduce-scatter; its backward an all-gather), and :func:`all_sum`, the
@@ -39,13 +40,15 @@ backward on the autograd engine's thread (a CUDA backward) finds it.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.distributed import fsdp
 from repro_torch.distributed import sharding as sh
 
-__all__ = ["active", "all_max", "all_sum", "all_to_all", "gather_seq", "model_rank",
-           "model_size", "scatter_sum"]
+__all__ = ["Splits", "active", "all_max", "all_sum", "all_to_all", "divides", "gather_seq",
+           "model_rank", "model_size", "scatter_sum", "splits", "whole"]
 
 _AXES = (sh.MODEL,)
 
@@ -61,6 +64,38 @@ def model_rank() -> int:
 def active() -> bool:
     """True on a mesh whose ``"model"`` dimension has more than one rank."""
     return model_size() > 1
+
+
+def divides(size: int) -> bool:
+    """Whether a width of ``size`` splits over the current model axis: the
+    reference's ``logical_to_spec`` keeps a width that M does not divide
+    whole on every model rank (``False`` at M = 1)."""
+    return sh._dim_spec(sh.MODEL, size) is not None
+
+
+class Splits(NamedTuple):
+    """Which of a config's widths split over the model axis; each one that
+    does not runs whole on every model rank."""
+
+    heads: bool  # the attention's query heads
+    kv: bool  # its KV heads (where they do not and the heads do: GQA expanded)
+    ff: bool  # the MLP's d_ff
+    ssm: bool  # a Mamba layer's heads
+    shared_ff: bool  # the MoE's shared experts' width
+
+
+def splits(cfg) -> Splits:
+    """:class:`Splits` of ``cfg`` on the current mesh, by :func:`divides`,
+    the one rule the placements follow too."""
+    ssm = cfg.family in ("ssm", "hybrid")
+    return Splits(
+        heads=bool(cfg.n_heads) and divides(cfg.n_heads),
+        kv=bool(cfg.n_kv_heads) and divides(cfg.n_kv_heads),
+        ff=divides(cfg.d_ff),
+        ssm=ssm and divides(cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim),  # mamba_dims' H
+        shared_ff=bool(cfg.n_shared_experts)
+        and divides(cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff)),
+    )
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -160,6 +195,13 @@ def gather_seq(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     of the residual stream, the heads of a product, a weight's model
     shard); differentiable."""
     return _GatherSeq.apply(x, dim)
+
+
+def whole(w: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``w`` whole along ``dim`` (``size`` entries): gathered over the model
+    ranks where it is stored split, itself where it is not (the layouts'
+    rule drops the axis where it does not divide); differentiable."""
+    return w if w.shape[dim] == size else gather_seq(w, dim)
 
 
 def scatter_sum(x: torch.Tensor, dim: int = 1, dtype=None) -> torch.Tensor:

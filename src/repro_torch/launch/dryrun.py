@@ -9,18 +9,16 @@ it starts a fake process group of W ranks (``torch.distributed``'s ``fake``
 backend, no device and no communication), builds the mesh over it, lays
 parameters, optimizer state and inputs out with ``distributed.params``, and
 runs the cell's step once on meta tensors, which carry shapes and dtypes
-and no storage. The dense and moe families run on the reference's
-production mesh, ``launch.mesh.make_production_mesh`` (``16x16``,
-``("data", "model")``; ``2x16x16`` with ``--multi-pod``); the audio, ssm,
-hybrid and vlm families, not yet on the model axis (ROADMAP A19), on the
-same ranks as one ``"data"`` dimension (``make_data_mesh``: ``data256``,
-``data512``). The step:
+and no storage. Every config runs on the reference's production mesh,
+``launch.mesh.make_production_mesh`` (``16x16``, ``("data", "model")``;
+``2x16x16`` with ``--multi-pod``). The step:
 
 * train: ``train_step.make_train_step(cfg, param_shardings=...)``'s step
   (loss, gradients with ``cfg.remat``'s checkpoints, the AdamW update in
   place);
 * prefill: ``transformer.prefill(..., max_seq_len=S, param_shardings=...)``;
-* decode: ``transformer.decode`` at position S − 1 over a full cache.
+* decode: ``transformer.decode`` at position S − 1 over a full cache
+  (``max_seq_len`` S).
 
 The step is the one the port executes on W ranks, at one rank's shapes:
 its shards of the parameters and of the optimizer state
@@ -72,26 +70,37 @@ What a record holds (the reference's keys where their meaning holds):
   residual split on the sequence where M divides S > 1: the embedding's
   rows added over the ranks (a reduce-scatter of n × D in the table's
   dtype where the sequence splits, else an all-reduce); in each layer
-  the sequence gathered before attention and before the MLP (n/M × D),
-  the f32 row-parallel partials reduce-scattered after them (n × D × 4;
-  all-reduced where the sequence is whole), ``wk``/``wv`` gathered where
-  GQA is expanded, a prefill's K/V gathered over the heads where it is
-  not; the MoE's island (``ep``: two all-to-alls of the [E, C, D]
-  buffers; ``ep_split``: those and three of the weights; ``tp``: the
-  sequence gathered and an all-reduce of the f32 [E, C, D] partials; the
-  shared experts as the MLP); the head's sequence gather (train) or the
-  last position's all-reduce (prefill); the loss's row max and
-  (sum-exp, label logit) all-reduces. Decode gathers q (and K/V where GQA
-  is not expanded) over the heads, the partial softmaxes of the ranks'
-  slots, and all-reduces the ``wo``/``w2`` partials. A train step's
-  backward issues each collective's adjoint (an all-gather's
+  the sequence gathered before attention, the MLP, a Mamba layer and a
+  cross layer (n/M × D), the f32 row-parallel partials reduce-scattered
+  after them (n × D × 4; all-reduced where the sequence is whole),
+  ``wk``/``wv`` gathered where GQA is expanded, a prefill's K/V gathered
+  over the heads where it is not; where M does not divide a block's heads
+  (or ``d_ff``) the block runs whole: each of its weights stored split is
+  gathered whole (in the dtype it is used in) and no partials are added; a
+  Mamba layer gathers ``in_proj`` where it is stored split, all-reduces
+  its gated norm's f32 sums of squares (n × 4) and reduce-scatters
+  ``out_proj``'s partials where its heads split, else gathers
+  ``out_proj``; the hybrid gathers ``shared_in`` once a pass; a vlm
+  cross layer gathers its image K/V weights where GQA is expanded and a
+  prefill gathers its image K/V over the heads where it is not; the MoE's
+  island (``ep``: two all-to-alls of the [E, C, D] buffers; ``ep_split``:
+  those and three of the weights; ``tp``: the sequence gathered and an
+  all-reduce of the f32 [E, C, D] partials; the shared experts as the
+  MLP); the head's sequence gather (train) or the last position's
+  all-reduce (prefill); the loss's row max and (sum-exp, label logit)
+  all-reduces. Decode gathers q (and K/V where GQA is not expanded) over
+  the heads, the partial softmaxes of the ranks' slots where M divides
+  the cache's slots (none over a whole cache), and all-reduces the
+  ``wo``/``w2``/``out_proj`` partials and the gated norm's sums. A train
+  step's backward issues each collective's adjoint (an all-gather's
   reduce-scatter, a reduce-scatter's all-gather, an all-reduce and an
   all-to-all again, the operand in the gradient's dtype), remat issues a
-  layer's forward collectives again but its last row-parallel sum
+  layer's forward collectives again but the row-parallel sum that ends a
+  decoder layer, a Mamba layer or the shared block
   (``torch.utils.checkpoint`` stops its recompute at the last tensor the
-  backward saved), and the step ends with the
-  model-replicated leaves' f32 gradients and the loss added over the
-  ranks in one all-reduce and the squared norm in another.
+  backward saved; a cross layer's gates save both its sums), and the step
+  ends with the model-replicated leaves' f32 gradients and the loss added
+  over the ranks in one all-reduce and the squared norm in another.
 * ``memory``, per rank:
 
   - ``argument_bytes``: the rank's shards of the parameters, the optimizer
@@ -144,18 +153,18 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import configs
 from repro_torch import random as rnd
-from repro_torch.distributed import fsdp
+from repro_torch.distributed import fsdp, tp
 from repro_torch.distributed import params as param_rules
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import (
-    data_mesh_name,
     make_data_mesh,
     make_production_mesh,
     production_mesh_name,
     production_shape,
     production_world,
 )
-from repro_torch.models import moe, transformer
+from repro_torch.models import cache as cache_mod
+from repro_torch.models import mamba2, moe, transformer
 from repro_torch.roofline import analysis
 from repro_torch.train import optimizer
 from repro_torch.train import train_step as ts
@@ -208,18 +217,6 @@ def fake_mesh(world: int, shape: tuple[int, ...] | None = None):
             mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=names)
         with sh.use_mesh(mesh):
             yield mesh
-
-
-def on_model_axis(cfg: configs.ArchConfig) -> bool:
-    """Whether a config's cells run on the production mesh's model axis
-    (the dense and moe families) or on the data mesh (ROADMAP A19)."""
-    return cfg.family in transformer._MODEL_AXIS_FAMILIES
-
-
-def mesh_name(cfg: configs.ArchConfig, multi_pod: bool) -> str:
-    """The mesh a config's records are on: ``16x16``/``2x16x16`` or
-    ``data256``/``data512``."""
-    return production_mesh_name(multi_pod) if on_model_axis(cfg) else data_mesh_name(multi_pod)
 
 
 # ------------------------------------------------------------- the tally
@@ -399,7 +396,7 @@ def cell_step(cfg: configs.ArchConfig, shape: configs.Shape, *,
         def step(params, cache, token):
             with torch.no_grad():
                 return transformer.decode(cfg, params, cache, token, shape.seq_len - 1,
-                                          param_shardings=ps)
+                                          param_shardings=ps, max_seq_len=shape.seq_len)
 
         args = (params, inputs["cache"], inputs["token"])
     info = {"cfg": cfg, "whole": whole, "param_shardings": psh, "inputs": inputs,
@@ -425,7 +422,7 @@ def _collectives(cfg, shape, params, places, world: int | None = None) -> dict[s
     accum = max(1, cfg.grad_accum) if train else 1
     rows = shape.global_batch // batch if shape.global_batch % batch == 0 else shape.global_batch
     tokens = rows * (1 if shape.kind == "decode" else shape.seq_len) // accum  # a pass
-    model = sh.axis_size(sh.MODEL) > 1 and on_model_axis(cfg)
+    model = sh.axis_size(sh.MODEL) > 1
     if batch > 1:
         replicated = 0
         for names, t, p in _walk(params, places):
@@ -460,87 +457,171 @@ def _collectives(cfg, shape, params, places, world: int | None = None) -> dict[s
 
 
 def _model_axis(cfg, shape, params, places, rows: int, accum: int, add) -> None:
-    """The collectives over ``"model"`` of a step of the dense or moe
-    family (the module docstring's rule), added with ``add(kind, bytes)``."""
+    """The collectives over ``"model"`` of a step (the module docstring's
+    rule), added with ``add(kind, bytes)``."""
     m = sh.axis_size(sh.MODEL)
     train, decode = shape.kind == "train", shape.kind == "decode"
     s = 1 if decode else shape.seq_len
-    seq = s % m == 0 and s > 1
+    seq = s > 1 and tp.divides(s)
     rows = rows // accum  # a micro-batch
     n = rows * s  # the tokens of the rank's rows in a pass
     d, hd, kv, h = cfg.d_model, cfg.hd, cfg.n_kv_heads, cfg.n_heads
     act = torch.empty((), dtype=cfg.dtype).element_size()
-    flat = dict(((names, (t, p)) for names, t, p in _walk(params, places)))
+    flat = {names: (t, p) for names, t, p in _walk(params, places)}
     table = flat[("embed",)][0].element_size()
-    layer = {names[1:]: (t, p) for names, (t, p) in flat.items() if names[0] == "layers"}
-    use = torch.empty((), dtype=fsdp.use_dtype(cfg, layer[("attn", "wq")][0])).element_size()
-    expand = transformer._should_expand_gqa(cfg)
-    wk_split = fsdp.model_dim(layer[("attn", "wk")][1]) is not None
-    fwd: list[tuple[str, int]] = []  # (kind, bytes) of one layer's forward
+    split = tp.splits(cfg)  # the widths that split; the others run whole
+    heads = split.heads
+    kv_whole = heads and not split.kv
 
-    def to_residual(nbytes_whole):
-        fwd.append(("reduce-scatter" if seq else "all-reduce", nbytes_whole))
+    # an entry: (kind, bytes, the backward's kind, its bytes)
+    def gather(nbytes):
+        """An all-gather; its adjoint the reduce-scatter of the whole."""
+        return ("all-gather", nbytes, "reduce-scatter", nbytes * m)
 
-    def gather_seq():
+    def to_residual():
+        """Row-parallel f32 partials of n × D added into the residual stream
+        (the gradient in the activations' dtype)."""
         if seq:
-            fwd.append(("all-gather", n // m * d * act))
+            return ("reduce-scatter", n * d * 4, "all-gather", n // m * d * act)
+        return ("all-reduce", n * d * 4, "all-reduce", n * d * act)
 
-    if decode:
-        fwd.append(("all-gather", rows * (h // m) * hd * act))  # q's heads
-        if expand and wk_split:
-            fwd += [("all-gather", d * kv * hd // m * use)] * 2
-        if not expand:
-            fwd += [("all-gather", rows * (kv // m) * hd * act)] * 2
-        fwd.append(("all-gather", rows * h * (hd + 2) * 4))  # the partial softmaxes
-        fwd.append(("all-reduce", rows * d * 4))
-    else:
-        gather_seq()
-        if expand and wk_split:
-            fwd += [("all-gather", d * kv * hd // m * use)] * 2
-        if shape.kind == "prefill" and not expand:
-            fwd += [("all-gather", n * (kv // m) * hd * act)] * 2
-        to_residual(n * d * 4)
-    if cfg.family == "moe":
+    def seq_gather():
+        return [gather(n // m * d * act)] if seq else []
+
+    def weight(*names, size):
+        """A weight of ``size`` elements gathered whole where it is stored
+        split over the model ranks, in the dtype it is used in."""
+        t, p = flat[names]
+        if fsdp.model_dim(p) is None:
+            return []
+        return [gather(size // m * torch.empty((), dtype=fsdp.use_dtype(cfg, t)).element_size())]
+
+    def attn_weights(*at, keys=("wq", "wk", "wv", "wo")):
+        """An attention block's weights ``keys`` gathered whole where they
+        are stored split (its heads do not split, or ``wk``/``wv`` where
+        GQA is expanded)."""
+        sizes = {"wq": d * h * hd, "wk": d * kv * hd, "wv": d * kv * hd, "wo": h * hd * d}
+        return [w for k in keys for w in weight(*at, k, size=sizes[k])]
+
+    decode_sum = ("all-reduce", rows * d * 4, None, 0)  # a decode step's f32 partials
+
+    def attn(*at):
+        """A self-attention block, its weights under ``at``."""
+        if not heads:
+            return seq_gather() + attn_weights(*at)
+        out = seq_gather()
+        if kv_whole:
+            out += attn_weights(*at, keys=("wk", "wv"))
+        elif shape.kind == "prefill":  # the cache's K/V, every KV head
+            out += [gather(n * (kv // m) * hd * act)] * 2
+        return out + [to_residual()]
+
+    def attn_decode(*at, whole_cache):
+        if heads:
+            out = [gather(rows * (h // m) * hd * act)]  # q's heads
+            if kv_whole:
+                out += attn_weights(*at, keys=("wk", "wv"))
+            else:
+                out += [gather(rows * (kv // m) * hd * act)] * 2
+        else:
+            out = attn_weights(*at)
+        if not whole_cache:
+            out.append(gather(rows * h * (hd + 2) * 4))  # the partial softmaxes
+        return out + ([decode_sum] if heads else [])
+
+    def mlp():
+        """``(entries, tail)``: the MLP; ``tail`` the trailing entries remat
+        does not run again (``torch.utils.checkpoint`` stops its recompute
+        at the last tensor the backward saved: a row-parallel sum added to
+        the residual stream is not one)."""
+        if decode:
+            return ([decode_sum] if split.ff else []), 0
+        if split.ff:
+            return seq_gather() + [to_residual()], 1
+        return seq_gather(), 0
+
+    def moe_ffn():
         e, f = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
         mode = moe.moe_mode(e, m)
-        if mode == "tp" or cfg.n_shared_experts:
-            gather_seq()
+        out = seq_gather() if mode == "tp" or cfg.n_shared_experts else []
         t = n // m if seq and mode != "tp" else n
         cap = moe._capacity(cfg, t, e)
         if mode == "ep":
-            fwd += [("all-to-all", e * cap * d * act)] * 2
+            out += [("all-to-all", e * cap * d * act, "all-to-all", e * cap * d * act)] * 2
         elif mode == "ep_split":
+            use_w = torch.empty((), dtype=fsdp.use_dtype(
+                cfg, flat[("layers", "moe", "w1")][0])).element_size()
             r = m // e
             cap = -(-cap // r) * r
-            fwd += [("all-to-all", e * cap * d * act)] * 2 + [("all-to-all", d * f * use)] * 3
+            out += [("all-to-all", e * cap * d * act, "all-to-all", e * cap * d * act)] * 2
+            out += [("all-to-all", d * f * use_w, "all-to-all", d * f * use_w)] * 3
         else:
-            fwd.append(("all-reduce", e * cap * d * 4))
-        if cfg.n_shared_experts:
-            to_residual(n * d * 4)
-    else:
-        gather_seq()
-        to_residual(n * d * 4)
+            out.append(("all-reduce", e * cap * d * 4, "all-reduce", e * cap * d * act))
+        if split.shared_ff:
+            return out + [to_residual()], 1
+        return out, 0
 
-    def adjoint(kind, nbytes):
-        """The backward's collective of a forward one (the operand in the
-        gradient's dtype: the activations', or the weight's in use)."""
-        if kind == "all-gather":
-            return "reduce-scatter", nbytes * m
-        if kind == "reduce-scatter":  # the f32 partials' gradient is the output's
-            return "all-gather", nbytes // 4 * act // m
-        if kind == "all-reduce":
-            return "all-reduce", nbytes // 4 * act
-        return kind, nbytes
+    def mamba(*at):
+        dims = mamba2.mamba_dims(cfg)
+        out = seq_gather() + weight(*at, "in_proj", size=d * dims["in_dim"])
+        if not split.ssm:
+            return out + weight(*at, "out_proj", size=dims["d_inner"] * d), 0
+        # the gated norm's f32 sums of squares, then out_proj's partials
+        norm = ("all-reduce", n * 4, "all-reduce", n * 4)
+        if decode:
+            return out + [norm, decode_sum], 0
+        return out + [norm, to_residual()], 1
 
-    layers = cfg.n_layers
-    # remat recomputes a layer up to the last tensor its backward saved:
-    # a layer that ends in a row-parallel sum (the MLP's, the shared
-    # experts') does not run that sum again
-    again = fwd[:-1] if cfg.family == "dense" or cfg.n_shared_experts else fwd
+    def cross(*at):
+        if decode:  # over the cached image K/V
+            out = [decode_sum] if heads else attn_weights(*at, keys=("wq", "wo"))
+            return out + mlp()[0], 0
+        out = attn_weights(*at, keys=("wk", "wv")) if not heads or kv_whole else []
+        out += seq_gather()
+        out += [to_residual()] if heads else attn_weights(*at, keys=("wq", "wo"))
+        return out + mlp()[0], 0  # the gates save both sums: remat runs all again
+
+    sc = cache_mod.cache_seq_len(cfg, shape.seq_len)
+    whole_cache = not tp.divides(sc)
+
+    def dense_layer(*at):
+        """A decoder layer's ``(entries, tail)``: attention and the MLP."""
+        if decode:
+            return attn_decode(*at, "attn", whole_cache=whole_cache) + mlp()[0], 0
+        f, tail = mlp()
+        return attn(*at, "attn") + f, tail
+
+    once: list = []  # a pass's entries outside the layers
+    if cfg.family in ("dense", "audio", "moe"):
+        if cfg.family == "moe":
+            f, tail = moe_ffn()
+            a = (attn_decode("layers", "attn", whole_cache=whole_cache) if decode
+                 else attn("layers", "attn"))
+            units = [(a + f, tail)] * cfg.n_layers
+        else:
+            units = [dense_layer("layers")] * cfg.n_layers
+    elif cfg.family == "ssm":
+        units = [mamba("layers", "mamba")] * cfg.n_layers
+    elif cfg.family == "hybrid":
+        g, per = cfg.n_layers // cfg.shared_attn_every, cfg.shared_attn_every
+        once = weight("shared_in", size=2 * d * d)
+        units = [dense_layer("shared_block")] * g + [mamba("mamba_groups", "mamba")] * (g * per)
+        if cfg.n_layers > g * per:
+            units += [mamba("mamba_tail", "mamba")] * (cfg.n_layers - g * per)
+    else:  # vlm
+        g, per = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+        units = [dense_layer("self_layers")] * (g * per) + [cross("cross_layers", "attn")] * g
+        if shape.kind == "prefill" and heads and not kv_whole:  # the cache's image K/V
+            t_img = cfg.n_image_tokens
+            once = [gather(rows * t_img * (kv // m) * hd * act)] * (2 * g)
+
     for _ in range(accum):
         add("reduce-scatter" if seq else "all-reduce", n * d * table)  # the embedding's rows
-        for _ in range(layers):
-            for kind, nbytes in fwd + (again if train and cfg.remat else []):
+        for kind, nbytes, *_ in once:
+            add(kind, nbytes)
+        for entries, tail in units:
+            again = entries[:len(entries) - tail] if train and cfg.remat else []
+            for kind, nbytes, *_ in entries + again:
                 add(kind, nbytes)
         if train:
             if seq:
@@ -550,9 +631,11 @@ def _model_axis(cfg, shape, params, places, rows: int, accum: int, add) -> None:
             add("all-reduce", 2 * rows * (s - 1) * 4)  # ... in the backward
             if seq:
                 add("reduce-scatter", n * d * act)
-            for _ in range(layers):
-                for kind, nbytes in fwd:
-                    add(*adjoint(kind, nbytes))
+            for entries, _ in units:
+                for _, _, kind, nbytes in entries:
+                    add(kind, nbytes)
+            for _, _, kind, nbytes in once:
+                add(kind, nbytes)
             if seq:
                 add("all-gather", n // m * d * table)  # the embedding rows' gradient
             else:
@@ -649,7 +732,7 @@ def _probe_costs(cfg, shape) -> dict:
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, probe: bool = False,
              overrides: dict | None = None, tag: str = "") -> dict:
-    """The record of one cell on its production mesh (:func:`mesh_name`),
+    """The record of one cell on its production mesh (``16x16`` or ``2x16x16``),
     traced inside a fake process group of its ranks, which is gone when
     this returns or raises."""
     cfg = configs.get_config(arch)
@@ -657,9 +740,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, probe: bool = False
         cfg = cfg.replace(**overrides)
     shape = configs.SHAPES[shape_name]
     world = production_world(multi_pod)
-    rec: dict = {"arch": arch, "shape": shape_name, "mesh": mesh_name(cfg, multi_pod),
+    rec: dict = {"arch": arch, "shape": shape_name, "mesh": production_mesh_name(multi_pod),
                  "chips": world, "tag": tag}
-    with fake_mesh(world, production_shape(multi_pod) if on_model_axis(cfg) else None):
+    with fake_mesh(world, production_shape(multi_pod)):
         rec.update(trace_cell(cfg, shape))
         if probe:
             rec["probe"] = _probe_costs(cfg, shape)
@@ -746,7 +829,7 @@ def main(argv: list[str] | None = None) -> None:
     suffix = f"__{args.tag}" if args.tag else ""
 
     def out_path(arch, shape, multi):
-        outdir = RESULTS / mesh_name(configs.get_config(arch), multi)
+        outdir = RESULTS / production_mesh_name(multi)
         outdir.mkdir(parents=True, exist_ok=True)
         return outdir / f"{arch.replace('.', '_')}__{shape}{suffix}.json"
 

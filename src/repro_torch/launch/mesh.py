@@ -1,16 +1,14 @@
-"""The meshes: the production meshes the dry run plans against, the data
-meshes of the families not yet on the model axis, and the one the drivers
-run the distributed engine on.
+"""The meshes: the production meshes the dry run plans every config
+against, the same ranks on one ``"data"`` dimension (FSDP alone), and the
+one the drivers run the distributed engine on.
 
 Counterpart of ``repro.launch.mesh``. The reference's production mesh is
 16 × 16 chips (``("data", "model")``), or 2 × 16 × 16 across two pods
 (``("pod", "data", "model")``): :func:`make_production_mesh`, which records
 and result directories name ``16x16`` and ``2x16x16``
-(:func:`production_mesh_name`, as the reference's dry run names them). The
-audio, ssm, hybrid and vlm families do not run on the model axis yet
-(ROADMAP A19): their cells put the same 256 or 512 ranks on one
-``"data"`` dimension, :func:`make_data_mesh`, named ``data256`` and
-``data512`` (:func:`data_mesh_name`).
+(:func:`production_mesh_name`, as the reference's dry run names them).
+:func:`make_data_mesh` puts the same 256 or 512 ranks on one ``"data"``
+dimension (``dryrun.fake_mesh`` without a shape).
 """
 
 from __future__ import annotations
@@ -23,7 +21,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["data_mesh_name", "make_data_mesh", "make_production_mesh", "make_smoke_mesh",
+__all__ = ["make_data_mesh", "make_production_mesh", "make_smoke_mesh",
            "production_mesh_name", "production_shape", "production_world"]
 
 
@@ -41,11 +39,6 @@ def production_world(multi_pod: bool = False) -> int:
 def production_mesh_name(multi_pod: bool = False) -> str:
     """``16x16`` or ``2x16x16``."""
     return "x".join(map(str, production_shape(multi_pod)))
-
-
-def data_mesh_name(multi_pod: bool = False) -> str:
-    """``data256`` or ``data512``."""
-    return f"data{production_world(multi_pod)}"
 
 
 def _mesh_over_group(shape: tuple[int, ...], names: tuple[str, ...], device, what: str):
@@ -75,8 +68,8 @@ def make_production_mesh(*, multi_pod: bool = False, device: str | torch.device 
 
 def make_data_mesh(*, multi_pod: bool = False, device: str | torch.device = "cuda"):
     """The ``"data"`` ``DeviceMesh`` of :func:`production_world` ranks over
-    the process group this process belongs to (the meshes of the families
-    not yet on the model axis). Raises as :func:`make_production_mesh`."""
+    the process group this process belongs to. Raises as
+    :func:`make_production_mesh`."""
     return _mesh_over_group((production_world(multi_pod),), ("data",), device, "make_data_mesh")
 
 

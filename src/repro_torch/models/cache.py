@@ -4,11 +4,16 @@ KV for Zamba2's shared block, cached cross-attention KV for the VLM.
 Counterpart of ``repro.models.cache``; :func:`cache_specs` is the dry
 run's stand-in, the same tree on the meta device.
 
-On a mesh whose ``"model"`` dimension has M > 1 ranks a dense or moe
-cache holds this rank's ``Sc/M`` slots (``distributed.params``' layout
-puts the slots over ``"model"``; ``transformer.decode`` combines the ranks'
-partial softmaxes), so M must divide ``Sc``. :func:`init_cache` then gives
-the rank's shapes; :func:`cache_specs` the whole tree's, which
+On a mesh whose ``"model"`` dimension has M > 1 ranks a KV cache (every
+family's but ssm's) holds this rank's ``Sc/M`` slots where M divides
+``Sc`` (``distributed.params``' layout puts the slots over ``"model"``;
+``transformer.decode`` combines the ranks' partial softmaxes), and all
+``Sc`` of them on every rank where it does not (the reference's
+``logical_to_spec`` drops the axis there; decode then attends over the
+whole cache on each rank). A Mamba layer's ``ssm`` state holds the rank's
+H/M heads where M divides H, its ``conv`` state stays whole, and a vlm's
+image K/V stay whole. :func:`init_cache` then gives the rank's shapes;
+:func:`cache_specs` the whole tree's, which
 ``distributed.params.cache_shardings`` lays out.
 """
 
@@ -23,7 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import tp
 from repro_torch.models import mamba2
 
-__all__ = ["init_cache", "cache_seq_len", "cache_specs"]
+__all__ = ["init_cache", "cache_seq_len", "cache_slots", "cache_specs", "held_slots"]
 
 
 def cache_seq_len(cfg: ArchConfig, seq_len: int) -> int:
@@ -38,26 +43,43 @@ def _kv(l, b, s, kv, hd, dtype, device):
     }
 
 
-def _mamba_state(cfg, l, b, device):
+def _mamba_state(cfg, l, b, device, local):
     dims = mamba2.mamba_dims(cfg)
+    h = dims["nheads"]
+    if local and tp.splits(cfg).ssm:
+        h //= tp.model_size()
     return {
         "conv": torch.zeros((l, b, cfg.ssm_conv - 1, dims["conv_dim"]), dtype=cfg.dtype,
                             device=device),
-        "ssm": torch.zeros((l, b, dims["nheads"], cfg.ssm_headdim, dims["n"]),
+        "ssm": torch.zeros((l, b, h, cfg.ssm_headdim, dims["n"]),
                            dtype=torch.float32, device=device),
     }
 
 
-def _held_slots(cfg: ArchConfig, sc: int) -> int:
-    """The slots of ``sc`` this rank holds: ``sc/M`` on a model axis of M
-    ranks (raising where M does not divide them), else all."""
+def held_slots(sc: int) -> int:
+    """The slots of a cache of ``sc`` this model rank holds: ``sc/M`` where
+    the M ranks of the model axis divide them, else all of them."""
+    return sc // tp.model_size() if tp.divides(sc) else sc
+
+
+def cache_slots(cfg: ArchConfig, held: int, seq_len: int | None = None) -> int:
+    """The slots ``Sc`` of a KV cache over all model ranks, of which this
+    rank holds ``held``; ``seq_len`` the session's length that sized it
+    (:func:`init_cache`'s). Without ``seq_len`` the rank's count tells the
+    layout only where M divides it (the rank's ``Sc/M``: a whole cache's
+    ``Sc`` is one M does not divide); elsewhere it is a whole cache or
+    1/M of one M times larger, and this raises rather than guess."""
     m = tp.model_size()
-    if m == 1 or cfg.family not in ("dense", "moe"):
+    if seq_len is not None:
+        sc = cache_seq_len(cfg, seq_len)
+        if held != held_slots(sc):
+            raise ValueError(f"{cfg.name}: a cache of {held} slots a rank is not the rank's part "
+                             f"of {sc} slots over {m} model ranks")
         return sc
-    if sc % m:
-        raise ValueError(f"{cfg.name}: a cache of {sc} slots does not split over the {m} ranks "
-                         "of 'model'; size it (max_seq_len, or the window) to a multiple of them")
-    return sc // m
+    if held % m:
+        raise ValueError(f"{cfg.name}: a cache of {held} slots a rank on {m} model ranks is "
+                         f"whole or 1/{m} of {held * m}: give decode the session's max_seq_len")
+    return held * m
 
 
 def init_cache(
@@ -77,27 +99,28 @@ def init_cache(
       ``xk``/``xv [G, B, T_img, kv, hd]``.
 
     On the model axis (``local``, the module docstring) ``Sc`` is the
-    rank's ``Sc/M``; ``batch`` is the caller's rows throughout.
+    rank's (:func:`held_slots`) and ``ssm``'s H the rank's heads; ``batch``
+    is the caller's rows throughout.
     """
     device = resolve_device(device)
     b = batch
     sc = cache_seq_len(cfg, seq_len)
     if local:
-        sc = _held_slots(cfg, sc)
+        sc = held_slots(sc)
     kv, hd = cfg.n_kv_heads, cfg.hd
     if cfg.family == "ssm":
-        return _mamba_state(cfg, cfg.n_layers, b, device)
+        return _mamba_state(cfg, cfg.n_layers, b, device, local)
     if cfg.family == "hybrid":
         g = cfg.n_layers // cfg.shared_attn_every
         per = cfg.shared_attn_every
         tail = cfg.n_layers - g * per
         cache: dict[str, Any] = {
-            "mamba": _mamba_state(cfg, g * per, b, device),
+            "mamba": _mamba_state(cfg, g * per, b, device, local),
             "shared": _kv(g, b, sc, kv, hd, cfg.dtype, device),
             "slot_pos": torch.full((b, sc), -1, dtype=torch.int32, device=device),
         }
         if tail:
-            cache["mamba_tail"] = _mamba_state(cfg, tail, b, device)
+            cache["mamba_tail"] = _mamba_state(cfg, tail, b, device, local)
         return cache
     n_self = cfg.n_layers
     if cfg.family == "vlm":

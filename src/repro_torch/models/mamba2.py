@@ -14,11 +14,28 @@ and x inside the chunk are f32; y returns to the compute dtype before the
 gated norm; the conv state stays in the compute dtype. The conv's taps are
 summed in f32 and rounded once, the same arithmetic in both paths (the
 reference leaves that accumulation to its compiler's fusion).
+
+On a mesh whose ``"model"`` dimension has M > 1 ranks (``model_axis``, the
+transformer's model axis) the layer's heads split over the ranks where M
+divides H (``tp.splits``), as the reference's layouts put them
+(``in_proj`` ``("batch", "tensor")``, ``out_proj`` ``("tensor", "batch")``,
+the ``ssm`` cache's H axis): ``in_proj``, split contiguously over
+``[z | x | B | C | dt]`` and so not along heads, is gathered whole and each
+rank takes the columns of its H/M heads' z, x and dt, with B and C whole
+(one group); the depthwise conv runs over its own channels and the SSD over
+its own heads (both exact: per channel, per head); the gated RMSNorm adds
+each row's f32 sum of squares over the ranks before the scale; and
+``out_proj`` is row-parallel, returning the rank's f32 partial for the
+caller to add over the ranks. The conv state stays whole and equal on every
+rank: a decode step computes the whole new (x, B, C) row on each rank (no
+collective), a prefill the whole tail. Where M does not divide H the layer
+runs whole on every rank, its split weights gathered (the reference's
+``logical_to_spec`` drops the axis there).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +43,7 @@ import torch.nn.functional as F
 from repro_torch import random as rnd
 from repro_torch.configs import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp
 from repro_torch.models.layers import matmul, rmsnorm
 
 __all__ = ["init_mamba_params", "mamba_forward", "mamba_decode", "mamba_dims"]
@@ -146,18 +164,77 @@ def _chunk_step(state, xc, dtc, dac, bc, cc, d_skip):
     return state, y
 
 
-def mamba_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, *, return_state: bool = False):
-    """Full-sequence SSD. x [B, S, D] → [B, S, D] (and, with
-    ``return_state``, the final ``(conv [B, W-1, conv_dim], ssm [B, H, P, N])``
-    state). S must be a whole number of ``cfg.ssm_chunk`` chunks."""
+def _gated_norm(g: torch.Tensor, w: torch.Tensor, d_inner: int) -> torch.Tensor:
+    """The gated RMSNorm of the rank's ``g = y·silu(z)`` columns: each row's
+    f32 sum of squares added over the model ranks, then ``rmsnorm``'s
+    arithmetic over all ``d_inner`` columns."""
+    x = g.float()
+    ss = tp.all_sum((x * x).sum(-1, keepdim=True))
+    return (x * torch.rsqrt(ss / d_inner + 1e-6) * w.float()).to(g.dtype)
+
+
+class _View(NamedTuple):
+    """A layer's parameters for use (:func:`_view`)."""
+
+    p: dict  # the parameters the layer's heads use, ``in_proj`` aside
+    dims: dict  # their widths
+    in_proj: torch.Tensor  # the whole in_proj, in the compute dtype
+    cols: tuple | None  # the rank's slices of the whole projection: z, x, (B, C), dt
+    conv: tuple | None  # the rank's slices of the whole (x, B, C) channels
+
+
+def _view(cfg: ArchConfig, p: dict, dtype, model_axis: bool) -> _View:
+    """The layer for use. On the model axis ``p`` holds the rank's model
+    shards: ``in_proj`` is gathered whole, and where the heads split each
+    rank keeps its heads' parameters and the slices of the projection and
+    the conv channels they use (``cols``/``conv``); where they do not,
+    ``out_proj`` is gathered whole too and the layer runs whole."""
     dims = mamba_dims(cfg)
+    if not model_axis:
+        return _View(p, dims, p["in_proj"].to(dtype), None, None)
+    d_inner, n, h, hd = dims["d_inner"], dims["n"], dims["nheads"], cfg.ssm_headdim
+    w_in = tp.whole(p["in_proj"].to(dtype), 1, dims["in_dim"])
+    if not tp.splits(cfg).ssm:
+        return _View(dict(p, out_proj=tp.whole(p["out_proj"].to(dtype), 0, d_inner)), dims, w_in,
+                     None, None)
+    hl = h // tp.model_size()
+    dl, r = hl * hd, tp.model_rank()
+    heads = slice(r * hl, (r + 1) * hl)
+    chans = slice(r * dl, (r + 1) * dl)
+    cols = (chans,  # z
+            slice(d_inner + r * dl, d_inner + (r + 1) * dl),  # x
+            slice(2 * d_inner, 2 * d_inner + 2 * n),  # B, C
+            slice(2 * d_inner + 2 * n + r * hl, 2 * d_inner + 2 * n + (r + 1) * hl))  # dt
+    conv = (chans, slice(d_inner, d_inner + 2 * n))
+    local = {
+        "conv_w": torch.cat([p["conv_w"][:, c] for c in conv], dim=1),
+        "conv_b": torch.cat([p["conv_b"][c] for c in conv]),
+        "a_log": p["a_log"][heads], "dt_bias": p["dt_bias"][heads], "d_skip": p["d_skip"][heads],
+        "norm_w": p["norm_w"][chans], "out_proj": p["out_proj"],
+    }
+    dl_dims = dict(d_inner=dl, nheads=hl, n=n, conv_dim=dl + 2 * n, in_dim=2 * dl + 2 * n + hl)
+    return _View(local, dl_dims, w_in, cols, conv)
+
+
+def _norm_out(cfg: ArchConfig, v: _View, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The gated norm of ``y·silu(z)`` and ``out_proj``: where the heads
+    split, the norm over all ranks' columns and the rank's f32 partial."""
+    if v.cols is None:
+        return matmul(rmsnorm(y * F.silu(z), v.p["norm_w"]), v.p["out_proj"].to(y.dtype))
+    g = _gated_norm(y * F.silu(z), v.p["norm_w"], mamba_dims(cfg)["d_inner"])
+    return g.float() @ v.p["out_proj"].to(y.dtype).float()
+
+
+def _mixer(cfg: ArchConfig, v: _View, x: torch.Tensor, proj: torch.Tensor):
+    """The SSD mixer over a whole sequence from its projection ``proj``
+    ``[B, S, in_dim]`` (``v.dims``' layout); returns ``(y [B, S, d_inner]``
+    before the gated norm, the gate z, the final ``[B, H, P, N]`` state)."""
+    p, dims = v.p, v.dims
     b, s, _ = x.shape
     h, pd, n = dims["nheads"], cfg.ssm_headdim, dims["n"]
     q = cfg.ssm_chunk
     if s % q:
         raise ValueError(f"sequence {s} is not a multiple of the SSD chunk {q}")
-
-    proj = matmul(x, p["in_proj"].to(x.dtype))
     z, xbc, dt = _split_proj(proj, dims)
     xbc = _causal_conv(xbc, p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype))
     xs, bmat, cmat = _split_xbc(xbc, dims)
@@ -176,52 +253,74 @@ def mamba_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, *, return_state: bo
         c = slice(i * q, (i + 1) * q)
         state, ys[:, c] = _chunk_step(state, xs[:, c].float(), dt[:, c], da[:, c], bmat[:, c],
                                       cmat[:, c], d_skip)
-    y = ys.reshape(b, s, dims["d_inner"]).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_w"])  # gated norm
-    out = matmul(y, p["out_proj"].to(x.dtype))
+    return ys.reshape(b, s, dims["d_inner"]).to(x.dtype), z, state
+
+
+def mamba_forward(cfg: ArchConfig, p: dict, x: torch.Tensor, *, return_state: bool = False,
+                  model_axis: bool = False):
+    """Full-sequence SSD. x [B, S, D] → [B, S, D] (and, with
+    ``return_state``, the final ``(conv [B, W-1, conv_dim], ssm [B, H, P, N])``
+    state). S must be a whole number of ``cfg.ssm_chunk`` chunks.
+
+    With ``model_axis`` (``p`` the rank's model shards, ``x`` the whole
+    sequence) the output is, where the heads split, the rank's f32 partial of
+    ``out_proj`` and the state its ``[B, H/M, P, N]`` heads' (the conv
+    state whole); elsewhere the whole layer's (the module docstring)."""
+    v = _view(cfg, p, x.dtype, model_axis)
+    w = v.in_proj if v.cols is None else torch.cat([v.in_proj[:, c] for c in v.cols], dim=1)
+    y, z, state = _mixer(cfg, v, x, matmul(x, w))
+    out = _norm_out(cfg, v, y, z)
     if not return_state:
         return out
-    return out, (_conv_tail(cfg, x, p), state)
+    return out, (_conv_tail(cfg, x, v.in_proj), state)
 
 
-def _conv_tail(cfg, x, p):
+def _conv_tail(cfg, x, in_proj):
     """The last W-1 *pre-conv* (x, B, C) features, recomputed from the
-    normed inputs: the window a decode step continues."""
+    normed inputs with the whole ``in_proj``: the window a decode step
+    continues."""
     dims = mamba_dims(cfg)
-    proj = matmul(x[:, -(cfg.ssm_conv - 1) :, :], p["in_proj"].to(x.dtype))
+    proj = matmul(x[:, -(cfg.ssm_conv - 1) :, :], in_proj.to(x.dtype))
     _, xbc, _ = _split_proj(proj, dims)
     return xbc.contiguous()  # [B, W-1, conv_dim]
 
 
 def mamba_decode(
-    cfg: ArchConfig, p: dict, x: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.Tensor
+    cfg: ArchConfig, p: dict, x: torch.Tensor, conv_state: torch.Tensor, ssm_state: torch.Tensor,
+    *, model_axis: bool = False,
 ):
     """One-token recurrent step. x [B, D]; returns (y [B, D], (new conv
-    state, new ssm state)); the states given stay as they were."""
-    dims = mamba_dims(cfg)
+    state, new ssm state)); the states given stay as they were. With
+    ``model_axis``, as :func:`mamba_forward`'s: ``ssm_state`` the rank's
+    heads' where they split, ``y`` then the rank's f32 partial; the whole
+    new (x, B, C) row is computed on every rank for the conv state, and the
+    rank's heads take their columns of it."""
+    v = _view(cfg, p, x.dtype, model_axis)
+    dims = v.dims
     b = x.shape[0]
     h, pd = dims["nheads"], cfg.ssm_headdim
 
-    proj = matmul(x, p["in_proj"].to(x.dtype))
-    z, xbc, dt = _split_proj(proj, dims)
-
+    proj = matmul(x, v.in_proj)  # [B, in_dim]: the whole row
+    z, xbc, dt = _split_proj(proj, mamba_dims(cfg))
     # causal conv over (stored W-1 tail, current)
     window = torch.cat([conv_state, xbc[:, None, :]], dim=1)  # [B, W, C]
-    w = p["conv_w"].to(x.dtype)
-    conv_out = _conv([window[:, i] for i in range(w.shape[0])], w, p["conv_b"].to(x.dtype))
+    taps = window
+    if v.cols is not None:  # the rank's heads' columns
+        z, dt = proj[:, v.cols[0]], proj[:, v.cols[3]]
+        taps = torch.cat([window[..., c] for c in v.conv], dim=-1)
+    w = v.p["conv_w"].to(x.dtype)
+    conv_out = _conv([taps[:, i] for i in range(w.shape[0])], w, v.p["conv_b"].to(x.dtype))
     xs, bvec, cvec = _split_xbc(conv_out, dims)
     xs = xs.reshape(b, h, pd).float()
 
-    dt = _softplus(dt.float() + p["dt_bias"].float())  # [B, H]
-    a = -torch.exp(p["a_log"].float())
+    dt = _softplus(dt.float() + v.p["dt_bias"].float())  # [B, H]
+    a = -torch.exp(v.p["a_log"].float())
     da = torch.exp(dt * a)  # [B, H]
     bvec = bvec.float()
     cvec = cvec.float()
 
     new_state = ssm_state * da[:, :, None, None] + (dt[..., None] * xs)[..., None] * bvec[:, None, None, :]
     y = torch.matmul(new_state, cvec[:, None, :, None])[..., 0]  # [B, H, P]
-    y = y + xs * p["d_skip"].float()[None, :, None]
+    y = y + xs * v.p["d_skip"].float()[None, :, None]
     y = y.reshape(b, dims["d_inner"]).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["norm_w"])
-    out = matmul(y, p["out_proj"].to(x.dtype))
-    return out, (window[:, 1:, :], new_state)
+    return _norm_out(cfg, v, y, z), (window[:, 1:, :], new_state)

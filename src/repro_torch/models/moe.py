@@ -262,8 +262,13 @@ def _moe_model_axis(cfg, params, x, w1, w3, w2, par):
     if cfg.n_shared_experts:
         sp = params["shared"]
         a = F.silu(whole @ sp["w1"].to(x.dtype)) * (whole @ sp["w3"].to(x.dtype))
-        partial = a.float() @ sp["w2"].to(x.dtype).float()
-        y = y + (tp.scatter_sum(partial, 1, x.dtype) if par.seq else tp.all_sum(partial, x.dtype))
+        if not par.shared_ff:  # stored whole, run whole on every rank
+            shared = a @ sp["w2"].to(x.dtype)
+            y = y + (tp._part(shared, 1) if par.seq else shared)
+        else:
+            partial = a.float() @ sp["w2"].to(x.dtype).float()
+            y = y + (tp.scatter_sum(partial, 1, x.dtype) if par.seq
+                     else tp.all_sum(partial, x.dtype))
     return y, aux
 
 

@@ -34,26 +34,37 @@ once a pass. A MoE layer sizes its capacity from the rank's tokens and its
 ``aux`` is the rank's; the train step averages the loss, aux included,
 over the ranks (the reference's ``"ep"`` island at one model rank).
 
-On a mesh whose ``"model"`` dimension has M > 1 ranks the dense and moe
-families run the reference's model axis, Megatron-style
-(``distributed.tp``); the other families raise ``NotImplementedError``
-(ROADMAP A19). Between blocks the residual stream is ``[B/Dp, S/M, D]`` a
-rank where M divides S > 1, else whole on the model ranks (the reference's
-``shard(x, "batch", "seq", None)``). Attention and the MLP gather the
-sequence before their column-parallel products (``wq``/``wk``/``wv``,
-``w1``/``w3``: H/M heads, F/M columns a rank) and add the row-parallel
-``wo``/``w2`` partials over the ranks in f32, each rank keeping its part of
-the sequence. GQA is expanded as the reference's ``_should_expand_gqa``
-decides (``n_kv_heads`` not dividing M): ``wk``/``wv`` are gathered whole
-and each rank takes its heads' repeats. The embedding is vocab-parallel
-(each rank looks up the ids in its rows, the ranks' rows added), the head
-too: :func:`forward` returns the rank's ``Vp/M`` columns of the logits and
-``train_step.cross_entropy`` reduces its row max, sum and label logit over
-the ranks. A KV cache holds ``Sc/M`` slots a rank (``cache.init_cache``);
-decode writes the new token's K/V into its slot on the rank that owns it,
-and each rank's partial softmax over its slots is combined over the ranks
-in rank order (flash decoding). The MoE runs the reference's ``ep``,
-``ep_split`` or ``tp`` island (``moe.moe_ffn``).
+On a mesh whose ``"model"`` dimension has M > 1 ranks every family runs
+the reference's model axis, Megatron-style (``distributed.tp``). Between
+blocks the residual stream is ``[B/Dp, S/M, D]`` a rank where M divides
+S > 1, else whole on the model ranks (the reference's ``shard(x, "batch",
+"seq", None)``). Attention and the MLP gather the sequence before their
+column-parallel products (``wq``/``wk``/``wv``, ``w1``/``w3``: H/M heads,
+F/M columns a rank) and add the row-parallel ``wo``/``w2`` partials over
+the ranks in f32, each rank keeping its part of the sequence. Where KV
+heads do not divide M (the reference's ``_should_expand_gqa``)
+``wk``/``wv`` are gathered whole and each rank takes its heads' repeats.
+Where M does not divide a dimension (the heads, ``d_ff``, a Mamba layer's
+heads), the reference's ``logical_to_spec`` drops the axis and keeps the
+dimension whole: the block runs whole on every rank, its weights gathered
+where they are stored split along another width (musicgen-medium's
+``wq``: 1,536 columns over 16 ranks, 1.5 heads a rank), and its output is
+whole, with no partials to add. A Mamba layer (``mamba2``) splits its
+heads, its gated norm adding the rows' sums of squares over the ranks and
+``out_proj`` row-parallel; the hybrid's shared block projects
+``concat(h, x0)`` with ``shared_in`` gathered whole once a pass, then runs
+as a dense block; the vlm's cross layers split their query heads over the
+image K/V (GQA expanded as in self-attention) with ``wo`` row-parallel.
+The embedding is vocab-parallel (each rank looks up the ids in its rows,
+the ranks' rows added), the head too: :func:`forward` returns the rank's
+``Vp/M`` columns of the logits and ``train_step.cross_entropy`` reduces
+its row max, sum and label logit over the ranks. A KV cache holds ``Sc/M``
+slots a rank where M divides ``Sc``, else all of them on every rank
+(``cache.init_cache``); decode writes the new token's K/V into its slot on
+the rank that holds it and combines the ranks' partial softmaxes over
+their slots in rank order (flash decoding), or attends over a whole cache
+on every rank. A vlm's image K/V stay whole. The MoE runs the reference's
+``ep``, ``ep_split`` or ``tp`` island (``moe.moe_ffn``).
 
 Caches are functional for callers: :func:`prefill`, :func:`decode` and
 :func:`dense_block_decode` return new caches and leave the ones they were
@@ -94,47 +105,38 @@ __all__ = ["init_params", "forward", "prefill", "decode", "dense_block_decode"]
 
 
 class _Par(NamedTuple):
-    """The model axis of a step: its ``m`` ranks, and whether the residual
-    stream is split on the sequence over them."""
+    """The model axis of a step: its ``m`` ranks, whether the residual
+    stream is split on the sequence over them, and which of the config's
+    widths split over them (``tp.Splits``: a width that does not runs
+    whole on every rank)."""
 
     m: int
     seq: bool
-
-
-#: the families on the model axis; the others wait for ROADMAP A19
-_MODEL_AXIS_FAMILIES = ("dense", "moe")
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    if tp.active() and cfg.family not in _MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family does not run on a mesh whose 'model' "
-            f"dimension has {tp.model_size()} ranks yet (ROADMAP A19); use a 'data' mesh")
+    heads: bool
+    kv: bool
+    ff: bool
+    ssm: bool
+    shared_ff: bool
 
 
 def _par(cfg: ArchConfig, ps, s: int) -> _Par | None:
     """The model axis of a step over ``s`` positions (``None`` without
-    placements or a model axis). Raises where the config does not split
-    over it."""
-    _check_family(cfg)
+    placements or a model axis). Raises where a width must split and does
+    not: the routed experts' ``moe_d_ff`` in the ``ep_split`` and ``tp``
+    islands (the reference's ``shard_map`` takes it split there, and fails
+    too), and the padded vocabulary, which the port's vocab-parallel
+    embedding and head take split (a multiple of 256: any M dividing 256
+    splits it)."""
     if ps is None or not tp.active():
         return None
     m = tp.model_size()
-    sizes = {"heads": cfg.n_heads, "vocab_padded": cfg.vocab_padded}
-    if not _should_expand_gqa(cfg):
-        sizes["n_kv_heads"] = cfg.n_kv_heads
-    if cfg.family == "dense":
-        sizes["d_ff"] = cfg.d_ff
-    else:
-        f = cfg.moe_d_ff or cfg.d_ff
-        if moe.moe_mode(cfg.n_experts, m) != "ep":
-            sizes["moe_d_ff"] = f
-        if cfg.n_shared_experts:
-            sizes["shared d_ff"] = cfg.n_shared_experts * f
+    sizes = {"vocab_padded": cfg.vocab_padded}
+    if cfg.family == "moe" and moe.moe_mode(cfg.n_experts, m) != "ep":
+        sizes["moe_d_ff"] = cfg.moe_d_ff or cfg.d_ff
     bad = {k: v for k, v in sizes.items() if v % m}
     if bad:
         raise ValueError(f"{cfg.name}: {bad} do not split over the {m} ranks of 'model'")
-    return _Par(m, s % m == 0 and s > 1)
+    return _Par(m, s > 1 and tp.divides(s), *tp.splits(cfg))
 
 
 def _pos_ctx(cfg: ArchConfig, s: int, device, par: _Par | None = None):
@@ -333,13 +335,29 @@ def _to_residual(partial: torch.Tensor, par: _Par, dtype) -> torch.Tensor:
     return tp.all_sum(partial, dtype)
 
 
+def _whole_to_residual(out: torch.Tensor, par: _Par) -> torch.Tensor:
+    """A product computed whole on every model rank, into the residual
+    stream's layout: the rank's part of the sequence where it splits."""
+    return tp._part(out, 1) if par.seq else out
+
+
 def _kv_weights(cfg, p, dtype, expand: bool):
     """``wk``/``wv`` for use: whole (gathered over the model ranks where
     they are split) when GQA is expanded, else the rank's KV heads."""
     wk, wv = _wt(cfg, p["wk"], dtype), _wt(cfg, p["wv"], dtype)
-    if expand and wk.shape[-1] != cfg.n_kv_heads * cfg.hd:
-        wk, wv = tp.gather_seq(wk, 1), tp.gather_seq(wv, 1)
+    if expand:
+        size = cfg.n_kv_heads * cfg.hd
+        wk, wv = tp.whole(wk, 1, size), tp.whole(wv, 1, size)
     return wk, wv
+
+
+def _whole_attn(cfg, p, dtype, keys=("wq", "wk", "wv", "wo")) -> dict:
+    """An attention block's weights ``keys`` whole for use where its heads
+    do not split over the model ranks: each gathered where it is stored
+    split (its width may divide where its heads do not)."""
+    hq, hkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    where = {"wq": (1, hq), "wk": (1, hkv), "wv": (1, hkv), "wo": (0, hq)}
+    return dict(p, **{k: tp.whole(_wt(cfg, p[k], dtype), *where[k]) for k in keys})
 
 
 def _rank_heads(cfg, k, v):
@@ -358,10 +376,19 @@ def _attn_full_tp(cfg: ArchConfig, p: dict, x, pos_ctx, *, return_kv=False):
     with ``return_kv``, every KV head's K/V over the whole sequence."""
     positions, tables, par = pos_ctx
     h = tp.gather_seq(x) if par.seq else x
+    if not par.heads:  # every head on every rank, the output whole
+        out = _attn_full(cfg, _whole_attn(cfg, p, h.dtype), h, (positions, tables, None),
+                         return_kv=return_kv)
+        o, kv_out = out if return_kv else (out, None)
+        o = _whole_to_residual(o, par)
+        return (o, kv_out) if return_kv else o
     b, s, _ = h.shape
     kv, hd = cfg.n_kv_heads, cfg.hd
     hl = cfg.n_heads // par.m
-    expand = _should_expand_gqa(cfg)
+    # every KV head's K/V on each rank, which takes its heads' repeats, where
+    # the KV heads do not split (``cfg.expand_gqa`` moves the reference's
+    # layout only: each rank's heads see the same K/V either way)
+    expand = not par.kv
     wk, wv = _kv_weights(cfg, p, h.dtype, expand)
     kl = kv if expand else kv // par.m
     q = matmul(h, _wt(cfg, p["wq"], h.dtype)).reshape(b, s, hl, hd)
@@ -385,8 +412,11 @@ def _attn_full_tp(cfg: ArchConfig, p: dict, x, pos_ctx, *, return_kv=False):
 
 def _mlp_tp(cfg, p, x, par: _Par):
     """The SwiGLU MLP on the model axis: ``x`` the rank's part of the
-    residual stream (normed)."""
+    residual stream (normed). Whole on every rank where M does not divide
+    ``d_ff`` (the weights are stored whole then)."""
     h = tp.gather_seq(x) if par.seq else x
+    if not par.ff:
+        return _whole_to_residual(_mlp(cfg, p, h), par)
     a = torch.nn.functional.silu(matmul(h, _wt(cfg, p["w1"], h.dtype))) * matmul(
         h, _wt(cfg, p["w3"], h.dtype))
     return _to_residual(_matmul_f32(a, _wt(cfg, p["w2"], h.dtype)), par, x.dtype)
@@ -442,18 +472,45 @@ def _mlp(cfg, p, x):
                   _wt(cfg, p["w2"], x.dtype))
 
 
+def _mlp_on(cfg, p, x, par: _Par | None):
+    """The SwiGLU MLP, on the model axis where ``par`` is given."""
+    return _mlp(cfg, p, x) if par is None else _mlp_tp(cfg, p, x, par)
+
+
 def _ffn(cfg: ArchConfig, block: dict, x, par: _Par | None = None):
     """Post-attention FFN (dense or MoE). Returns (out, aux_loss)."""
     h = rmsnorm(x, block["ln2"])
     if cfg.family == "moe":
         return moe.moe_ffn(cfg, block["moe"], h, par)
-    f = _mlp(cfg, block["mlp"], h) if par is None else _mlp_tp(cfg, block["mlp"], h, par)
-    return f, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _mlp_on(cfg, block["mlp"], h, par), torch.zeros((), dtype=torch.float32,
+                                                           device=x.device)
+
+
+def _mamba_out(cfg, out, par: _Par, dtype):
+    """A Mamba layer's output on the model axis into the residual stream's
+    layout: the ranks' f32 partials added where its heads split, else the
+    whole output."""
+    if par.ssm:
+        return _to_residual(out, par, dtype)
+    return _whole_to_residual(out, par)
+
+
+def _mamba_full(cfg, p, h, par: _Par | None, *, return_state=False):
+    """A Mamba layer over the normed residual stream ``h`` (on the model
+    axis the rank's part: the mixer scans the sequence gathered whole).
+    Returns its output and, with ``return_state``, its final states."""
+    if par is None:
+        return mamba2.mamba_forward(cfg, p, h, return_state=return_state)
+    out = mamba2.mamba_forward(cfg, p, tp.gather_seq(h) if par.seq else h,
+                               return_state=return_state, model_axis=True)
+    if return_state:
+        return _mamba_out(cfg, out[0], par, h.dtype), out[1]
+    return _mamba_out(cfg, out, par, h.dtype)
 
 
 def _decoder_block_full(cfg, block, x, pos_ctx, *, return_kv=False):
     if cfg.family == "ssm":
-        x = x + mamba2.mamba_forward(cfg, block["mamba"], rmsnorm(x, block["ln1"]))
+        x = x + _mamba_full(cfg, block["mamba"], rmsnorm(x, block["ln1"]), pos_ctx[2])
         return shard(x, "batch", "seq", None), None, 0.0
     o = _attn_full(cfg, block["attn"], rmsnorm(x, block["ln1"]), pos_ctx, return_kv=return_kv)
     o, kvs = o if return_kv else (o, None)
@@ -462,8 +519,10 @@ def _decoder_block_full(cfg, block, x, pos_ctx, *, return_kv=False):
     return shard(x + f, "batch", "seq", None), kvs, aux
 
 
-def _cross_block_full(cfg, block, x, image_kv):
+def _cross_block_full(cfg, block, x, image_kv, par: _Par | None = None):
     """Gated cross-attention layer over the image K/V (GQA layout)."""
+    if par is not None:
+        return _cross_block_tp(cfg, block, x, image_kv, par)
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.hd
     p = block["attn"]
@@ -477,14 +536,50 @@ def _cross_block_full(cfg, block, x, image_kv):
     return shard(x, "batch", "seq", None)
 
 
-def _image_kv(cfg, block, image_embeds):
+def _cross_block_tp(cfg, block, x, image_kv, par: _Par):
+    """:func:`_cross_block_full` on the model axis: ``x`` the rank's part of
+    the residual stream, ``image_kv`` the rank's KV heads (every KV head
+    where they do not split, and the cache's in decode). The query heads split over the ranks with
+    ``wo`` row-parallel, or run whole where M does not divide them."""
+    p = block["attn"]
+    hidden = rmsnorm(x, block["ln1"])
+    hidden = tp.gather_seq(hidden) if par.seq else hidden
+    b, s, _ = hidden.shape
+    ik, iv = image_kv
+    if not par.heads:
+        w = _whole_attn(cfg, p, x.dtype, ("wq", "wo"))
+        q = matmul(hidden, w["wq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+        o = _whole_to_residual(matmul(cross_attention(q, ik, iv).reshape(b, s, -1), w["wo"]), par)
+    else:
+        hl = cfg.n_heads // par.m
+        q = matmul(hidden, _wt(cfg, p["wq"], x.dtype)).reshape(b, s, hl, cfg.hd)
+        if ik.shape[2] == cfg.n_kv_heads:  # every KV head (the cache's): the rank's heads' repeats
+            ik, iv = _rank_heads(cfg, ik, iv)
+        o = cross_attention(q, ik, iv).reshape(b, s, hl * cfg.hd)
+        o = _to_residual(_matmul_f32(o, _wt(cfg, p["wo"], x.dtype)), par, x.dtype)
+    x = x + torch.tanh(block["gate_attn"]).to(x.dtype) * o
+    f = _mlp_tp(cfg, block["mlp"], rmsnorm(x, block["ln2"]), par)
+    return x + torch.tanh(block["gate_mlp"]).to(x.dtype) * f
+
+
+def _image_kv(cfg, block, image_embeds, par: _Par | None = None):
     """Project the (stubbed) image embeddings to this cross layer's K/V, in
-    the GQA (cache) layout: ``[B, T_img, kv, hd]`` each."""
+    the GQA (cache) layout: ``[B, T_img, kv, hd]`` each. On the model axis,
+    the rank's KV heads where its query heads and the KV heads split, else
+    every KV head (the weights gathered whole)."""
     b, t, _ = image_embeds.shape
     kv, hd = cfg.n_kv_heads, cfg.hd
     p = block["attn"]
-    ik = matmul(image_embeds, _wt(cfg, p["wk"], image_embeds.dtype)).reshape(b, t, kv, hd)
-    iv = matmul(image_embeds, _wt(cfg, p["wv"], image_embeds.dtype)).reshape(b, t, kv, hd)
+    dtype = image_embeds.dtype
+    if par is None:
+        wk, wv = _wt(cfg, p["wk"], dtype), _wt(cfg, p["wv"], dtype)
+    elif not par.heads:
+        w = _whole_attn(cfg, p, dtype, ("wk", "wv"))
+        wk, wv = w["wk"], w["wv"]
+    else:
+        wk, wv = _kv_weights(cfg, p, dtype, not par.kv)
+    ik = matmul(image_embeds, wk).reshape(b, t, -1, hd)
+    iv = matmul(image_embeds, wv).reshape(b, t, -1, hd)
     return ik, iv
 
 
@@ -497,14 +592,16 @@ def _expand_kv(cfg, k, v):
 
 
 def _shared_block_full(cfg, params, x, x0, pos_ctx, *, return_kv=False):
-    """Zamba2's shared attention block on concat(h, embeddings)."""
+    """Zamba2's shared attention block on concat(h, embeddings). On the
+    model axis ``x``, ``x0`` and the block's stream are the rank's part of
+    the sequence, ``params["shared_in"]`` whole (:func:`_shared`)."""
     block = params["shared_block"]
     cat = torch.cat([x, x0], dim=-1)
     h = matmul(cat, _wt(cfg, params["shared_in"], x.dtype))
     o = _attn_full(cfg, block["attn"], rmsnorm(h, block["ln1"]), pos_ctx, return_kv=return_kv)
     o, kvs = o if return_kv else (o, None)
     h = h + o
-    h = h + _mlp(cfg, block["mlp"], rmsnorm(h, block["ln2"]))
+    h = h + _mlp_on(cfg, block["mlp"], rmsnorm(h, block["ln2"]), pos_ctx[2])
     return shard(x + h, "batch", "seq", None), kvs
 
 
@@ -583,17 +680,20 @@ def _use(cfg, tree: dict, places):
 
 def _at_use(fn, places):
     """``fn(cfg, block, ...)`` that first gathers ``block`` under
-    ``places``: passed to ``run``, the gather is inside the checkpoint. It
-    runs on the current mesh wherever it is called: the backward recomputes
-    a checkpointed block on the autograd engine's thread, and a CUDA
-    backward's thread does not see the caller's (thread-local) mesh."""
-    if places is None:
-        return fn
+    ``places`` (``None``: takes it as it is): passed to ``run``, the gather
+    is inside the checkpoint. It runs on the current mesh wherever it is
+    called: the backward recomputes a checkpointed block on the autograd
+    engine's thread, and a CUDA backward's thread does not see the
+    caller's (thread-local) mesh, which the block's gathers and the model
+    axis's collectives need."""
     mesh = current_mesh()
+    if mesh is None:
+        return fn
 
     def gathered(cfg, block, *args, **kw):
         with use_mesh(mesh):
-            return fn(cfg, fsdp.gather_tree(cfg, block, places), *args, **kw)
+            return fn(cfg, block if places is None else fsdp.gather_tree(cfg, block, places),
+                      *args, **kw)
 
     return gathered
 
@@ -611,6 +711,16 @@ def _use_keys(cfg, params: dict, ps, keys: tuple[str, ...]) -> dict:
 
 #: the hybrid's shared block and its input projection, gathered once a pass
 _SHARED = ("shared_in", "shared_block")
+
+
+def _shared(cfg, params: dict, ps, par: _Par | None) -> dict:
+    """The hybrid's shared block and input projection for use, gathered
+    once a pass: over the batch axes, and on the model axis ``shared_in``
+    whole (its columns are stored split over the model ranks)."""
+    sp = _use_keys(cfg, params, ps, _SHARED)
+    if par is not None:
+        sp["shared_in"] = tp.whole(_wt(cfg, sp["shared_in"], cfg.dtype), 1, cfg.d_model)
+    return sp
 
 
 # ------------------------------------------------------------------ forward
@@ -636,8 +746,10 @@ def forward(
     (prefill never needs [B, S, V] logits). With ``param_shardings``,
     ``params`` are this rank's shards (the module docstring); on the model
     axis the logits are the rank's vocabulary columns. ``_sink(i, k, v)``
-    (dense and moe) takes each layer's K/V, every KV head over the whole
-    sequence, in place of ``kv_stacks``."""
+    (dense, moe and audio, and a vlm's self layers, ``i`` counted over
+    them) takes each attention layer's K/V, every KV head over the whole
+    sequence, in place of ``kv_stacks``; a vlm's cross layer ``g`` gives
+    its image K/V, every KV head, to ``_sink(("image", g), ik, iv)``."""
     ps = _shardings(params, param_shardings)
     b, s = tokens.shape
     par = _par(cfg, ps, s)
@@ -658,7 +770,8 @@ def forward(
             raise ValueError(f"{cfg.name}: a vlm forward needs image_embeds [B, T_img, D]")
         g = cfg.n_layers // cfg.cross_attn_every
         per = cfg.cross_attn_every - 1
-        if collect_cache:
+        collect = collect_cache or _sink is not None
+        if collect and _sink is None:
             t = image_embeds.shape[1]
             self_kv = _kv_stacks((g, per), b, s, cfg, x.dtype, x.device)
             image_kv = _kv_stacks((g,), b, t, cfg, image_embeds.dtype, x.device)
@@ -668,22 +781,27 @@ def forward(
         cross_places = _layer_places(ps, "cross_layers")
 
         def cross_full(cfg, cb, x):
-            return _cross_block_full(cfg, cb, x, _image_kv(cfg, cb, image_embeds))
+            return _cross_block_full(cfg, cb, x, _image_kv(cfg, cb, image_embeds, par), par)
 
         cross = _at_use(cross_full, cross_places)
 
         cross_layers = _unstack(params["cross_layers"], g)
         for gi, self_stack in enumerate(_unstack(params["self_layers"], g)):
             for i, blk in enumerate(_unstack(self_stack, per)):
-                x, kv_i, a = run(self_block, cfg, blk, x, pos_ctx, return_kv=collect_cache)
+                x, kv_i, a = run(self_block, cfg, blk, x, pos_ctx, return_kv=collect)
                 aux_total = aux_total + a
-                if collect_cache:
+                if _sink is not None:
+                    _sink(gi * per + i, *kv_i)
+                elif collect:
                     self_kv[0][gi, i], self_kv[1][gi, i] = kv_i
-            if collect_cache:
+            if collect:
                 cb = _use(cfg, cross_layers[gi], cross_places)
-                ikv = _image_kv(cfg, cb, image_embeds)
-                x = _cross_block_full(cfg, cb, x, ikv)
-                image_kv[0][gi], image_kv[1][gi] = ikv
+                ikv = _image_kv(cfg, cb, image_embeds, par)
+                x = _cross_block_full(cfg, cb, x, ikv, par)
+                if _sink is not None:  # every KV head: gathered where they are the rank's
+                    _sink(("image", gi), *(tp.whole(t, 2, cfg.n_kv_heads) for t in ikv))
+                else:
+                    image_kv[0][gi], image_kv[1][gi] = ikv
             else:
                 x = run(cross, cfg, cross_layers[gi], x)
     elif cfg.family == "hybrid":
@@ -693,11 +811,11 @@ def forward(
         x0 = x
         if collect_cache:
             kvs = _kv_stacks((g,), b, s, cfg, x.dtype, x.device)
-        shared = _use_keys(cfg, params, ps, _SHARED)
+        shared = _shared(cfg, params, ps, par)
+        shared_block = _at_use(_shared_block_full, None)
         group_block = _at_use(_decoder_block_full, _layer_places(ps, "mamba_groups", 2))
         for gi, group in enumerate(_unstack(params["mamba_groups"], g)):
-            x, kv_g = run(_shared_block_full, cfg, shared, x, x0, pos_ctx,
-                          return_kv=collect_cache)
+            x, kv_g = run(shared_block, cfg, shared, x, x0, pos_ctx, return_kv=collect_cache)
             if collect_cache:
                 kvs[0][gi], kvs[1][gi] = kv_g
             for blk in _unstack(group, per):
@@ -744,12 +862,13 @@ def prefill(
     holds those rows (``distributed.params.cache_shardings``' layout)."""
     b, s = tokens.shape
     max_seq_len = max_seq_len or s
+    ps = _shardings(params, param_shardings)
+    par = _par(cfg, ps, s)
     if cfg.family in ("ssm", "hybrid"):
-        _check_family(cfg)
-        return _prefill_recurrent(cfg, params, tokens, max_seq_len,
-                                  _shardings(params, param_shardings))
-    if _par(cfg, _shardings(params, param_shardings), s) is not None:
-        return _prefill_model_axis(cfg, params, tokens, max_seq_len, param_shardings)
+        return _prefill_recurrent(cfg, params, tokens, max_seq_len, ps, par)
+    if par is not None:
+        return _prefill_model_axis(cfg, params, tokens, image_embeds, max_seq_len,
+                                   param_shardings)
     logits, _, kvs = forward(cfg, params, tokens, image_embeds, collect_cache=True,
                              head_last_only=True, param_shardings=param_shardings)
     image = {}
@@ -773,24 +892,34 @@ def prefill(
     return logits[:, 0], cache
 
 
-def _prefill_model_axis(cfg, params, tokens, max_seq_len, param_shardings):
-    """Prefill on the model axis: each layer's K/V go straight to the
-    cache's slots this rank holds (``Sc/M`` of them), the logits are the
-    rank's vocabulary columns."""
+def _held_positions(sc: int, s: int, device):
+    """``(positions, slots)``: the last ``min(s, sc)`` prompt positions
+    whose ring slots (of ``sc``) this model rank holds
+    (``cache.held_slots``), and those slots in its part of the cache."""
+    held = cache_mod.held_slots(sc)
+    positions = torch.arange(s - min(s, sc), s)  # on the host: the meta device has no mask
+    slots = positions % sc - (tp.model_rank() * held if held < sc else 0)
+    mine = (slots >= 0) & (slots < held)
+    return positions[mine].to(device), slots[mine].to(device)
+
+
+def _prefill_model_axis(cfg, params, tokens, image_embeds, max_seq_len, param_shardings):
+    """Prefill on the model axis: each attention layer's K/V go straight to
+    the cache's slots this rank holds, a vlm's image K/V whole; the logits
+    are the rank's vocabulary columns."""
     b, s = tokens.shape
     cache = cache_mod.init_cache(cfg, b, max_seq_len, device=tokens.device)
-    held = cache["slot_pos"].shape[1]
-    sc = held * tp.model_size()
-    positions = torch.arange(s - min(s, sc), s)  # on the host: the meta device has no mask
-    slots = positions % sc - tp.model_rank() * held
-    mine = (slots >= 0) & (slots < held)
-    positions, slots = positions[mine].to(tokens.device), slots[mine].to(tokens.device)
+    positions, slots = _held_positions(cache_mod.cache_seq_len(cfg, max_seq_len), s,
+                                       tokens.device)
 
     def sink(i, k, v):
+        if isinstance(i, tuple):  # a vlm cross layer's image K/V
+            cache["xk"][i[1]], cache["xv"][i[1]] = k, v
+            return
         cache["k"][i][:, slots] = k[:, positions]
         cache["v"][i][:, slots] = v[:, positions]
 
-    logits, _, _ = forward(cfg, params, tokens, head_last_only=True,
+    logits, _, _ = forward(cfg, params, tokens, image_embeds, head_last_only=True,
                            param_shardings=param_shardings, _sink=sink)
     cache["slot_pos"][:, slots] = positions.to(torch.int32)[None, :]
     return logits[:, 0], cache
@@ -809,108 +938,147 @@ def _place(cache, k_stack, v_stack, s, sc):
     cache["slot_pos"][:, slots] = positions.to(torch.int32)[None, :]
 
 
-def _mamba_prefill(cfg, blk, x, conv, ssm):
+def _mamba_prefill(cfg, blk, x, conv, ssm, par: _Par | None = None):
     """One ssm layer over the prompt, its final states written into
     ``conv``/``ssm`` (the layer's cache rows); returns the layer's output."""
-    out, (c, st) = mamba2.mamba_forward(cfg, blk["mamba"], rmsnorm(x, blk["ln1"]),
-                                        return_state=True)
+    out, (c, st) = _mamba_full(cfg, blk["mamba"], rmsnorm(x, blk["ln1"]), par, return_state=True)
     conv.copy_(c)
     ssm.copy_(st)
     return x + out
 
 
+def _last_logits(cfg, params, x, ps, par: _Par | None):
+    """The last position's logits ``[B, Vp]`` of the residual stream ``x``
+    (on the model axis, the rank's vocabulary columns)."""
+    if par is None:
+        return _head(cfg, params, x[:, -1], ps)
+    return _head(cfg, params, _last_position(x, par)[:, 0], ps, par._replace(seq=False))
+
+
 def _prefill_recurrent(cfg: ArchConfig, params: dict, tokens: torch.Tensor, max_seq_len: int,
-                       ps=None):
+                       ps=None, par: _Par | None = None):
     """ssm/hybrid prefill: the full-sequence forward, collecting final
-    states (and the hybrid's shared-block K/V)."""
+    states (and the hybrid's shared-block K/V: on the model axis straight
+    into the slots this rank holds)."""
     b, s = tokens.shape
-    pos_ctx = _pos_ctx(cfg, s, tokens.device)
-    x = _embed(cfg, params, tokens, ps)
+    pos_ctx = _pos_ctx(cfg, s, tokens.device, par)
+    x = _embed(cfg, params, tokens, ps, par)
     cache = cache_mod.init_cache(cfg, b, max_seq_len, device=tokens.device)
     if cfg.family == "ssm":
         lp = _layer_places(ps, "layers")
         for i in range(cfg.n_layers):
             x = _mamba_prefill(cfg, _use(cfg, layer(params["layers"], i), lp), x,
-                               cache["conv"][i], cache["ssm"][i])
-        return _head(cfg, params, x[:, -1], ps), cache
+                               cache["conv"][i], cache["ssm"][i], par)
+        return _last_logits(cfg, params, x, ps, par), cache
 
     g = cfg.n_layers // cfg.shared_attn_every
     per = cfg.shared_attn_every
     sc = cache_mod.cache_seq_len(cfg, max_seq_len)
     x0 = x
-    k_g, v_g = _kv_stacks((g,), b, s, cfg, x.dtype, x.device)
+    if par is None:
+        k_g, v_g = _kv_stacks((g,), b, s, cfg, x.dtype, x.device)
+    else:
+        positions, slots = _held_positions(sc, s, tokens.device)
     mcache = cache["mamba"]
-    shared = _use_keys(cfg, params, ps, _SHARED)
+    shared = _shared(cfg, params, ps, par)
     gp, tail_p = _layer_places(ps, "mamba_groups", 2), _layer_places(ps, "mamba_tail")
     for gi in range(g):
-        x, (k_g[gi], v_g[gi]) = _shared_block_full(cfg, shared, x, x0, pos_ctx, return_kv=True)
+        x, (k, v) = _shared_block_full(cfg, shared, x, x0, pos_ctx, return_kv=True)
+        if par is None:
+            k_g[gi], v_g[gi] = k, v
+        else:
+            cache["shared"]["k"][gi][:, slots] = k[:, positions]
+            cache["shared"]["v"][gi][:, slots] = v[:, positions]
         group = layer(params["mamba_groups"], gi)
         for i in range(per):
             l = gi * per + i
             x = _mamba_prefill(cfg, _use(cfg, layer(group, i), gp), x, mcache["conv"][l],
-                               mcache["ssm"][l])
+                               mcache["ssm"][l], par)
     if "mamba_tail" in params:
         tcache = cache["mamba_tail"]
         for i in range(cfg.n_layers - g * per):
             x = _mamba_prefill(cfg, _use(cfg, layer(params["mamba_tail"], i), tail_p), x,
-                               tcache["conv"][i], tcache["ssm"][i])
-    kv = dict(cache["shared"], slot_pos=cache["slot_pos"])
-    _place(kv, k_g, v_g, s, sc)
-    return _head(cfg, params, x[:, -1], ps), cache
+                               tcache["conv"][i], tcache["ssm"][i], par)
+    if par is None:
+        kv = dict(cache["shared"], slot_pos=cache["slot_pos"])
+        _place(kv, k_g, v_g, s, sc)
+    else:
+        cache["slot_pos"][:, slots] = positions.to(torch.int32)[None, :]
+    return _last_logits(cfg, params, x, ps, par), cache
 
 
 # ------------------------------------------------------------------ decode
 def _attn_decode_tp_(cfg: ArchConfig, p: dict, x, k_cache, v_cache, slot_pos, pos: int,
-                     par: _Par):
-    """:func:`_attn_decode_` on the model axis, over the rank's ``Sc/M``
-    slots: the new token's K/V (every KV head) go into its slot on the rank
-    that holds it, each rank's partial softmax over its slots is combined
-    over the ranks, and the rank's heads go through ``wo``."""
+                     par: _Par, slot: int | None, whole_cache: bool):
+    """:func:`_attn_decode_` on the model axis. The new token's K/V (every
+    KV head) go into ``slot`` of the rank's cache (``None`` where another
+    rank holds it). Over a cache split on its slots each rank's partial
+    softmax over its slots is combined over the ranks; over a whole cache
+    each rank attends to all of it. The rank's heads go through ``wo``, the
+    partials added over the ranks, or every head where M does not divide
+    them (the weights gathered whole, the output whole)."""
     b, d = x.shape
     kv, hd = cfg.n_kv_heads, cfg.hd
-    hl = cfg.n_heads // par.m
-    expand = _should_expand_gqa(cfg)
-    wk, wv = _kv_weights(cfg, p, x.dtype, expand)
-    kl = kv if expand else kv // par.m
-    q = matmul(x, _wt(cfg, p["wq"], x.dtype)).reshape(b, 1, hl, hd)
+    heads = par.heads
+    if heads:
+        hl = cfg.n_heads // par.m
+        expand = not par.kv
+        wq = _wt(cfg, p["wq"], x.dtype)
+        wk, wv = _kv_weights(cfg, p, x.dtype, expand)
+        kl = kv if expand else kv // par.m
+    else:
+        w = _whole_attn(cfg, p, x.dtype)
+        wq, wk, wv = w["wq"], w["wk"], w["wv"]
+        hl, kl = cfg.n_heads, kv
+    q = matmul(x, wq).reshape(b, 1, hl, hd)
     k = matmul(x, wk).reshape(b, 1, kl, hd)
     v = matmul(x, wv).reshape(b, 1, kl, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
     posv = torch.tensor([pos], device=x.device)
-    q = tp.gather_seq(rope(q, posv, cfg.rope_theta), 2)
+    q = rope(q, posv, cfg.rope_theta)
     k = rope(k, posv, cfg.rope_theta)
-    if not expand:
-        k, v = tp.gather_seq(k, 2), tp.gather_seq(v, 2)
-    held = k_cache.shape[1]
-    slot = pos % (held * par.m) - tp.model_rank() * held
-    if 0 <= slot < held:
+    if heads:
+        q = tp.gather_seq(q, 2)
+        if not expand:
+            k, v = tp.gather_seq(k, 2), tp.gather_seq(v, 2)
+    if slot is not None:
         k_cache[:, slot] = k[:, 0]
         v_cache[:, slot] = v[:, 0]
-    part = decode_attention_partial(q[:, 0], k_cache, v_cache, slot_pos, pos, window=cfg.window)
-    o = decode_combine(tp.gather_seq(part[None], 0)).to(x.dtype)  # [B, H, hd]
+    if whole_cache:
+        o = decode_attention(q[:, 0], k_cache, v_cache, slot_pos, pos, window=cfg.window)
+    else:
+        part = decode_attention_partial(q[:, 0], k_cache, v_cache, slot_pos, pos,
+                                        window=cfg.window)
+        o = decode_combine(tp.gather_seq(part[None], 0)).to(x.dtype)  # [B, H, hd]
+    if not heads:
+        return matmul(o.reshape(b, cfg.n_heads * hd), w["wo"])
     lo = tp.model_rank() * hl
     partial = _matmul_f32(o[:, lo:lo + hl].reshape(b, hl * hd), _wt(cfg, p["wo"], x.dtype))
     return tp.all_sum(partial, x.dtype)
 
 
+def _attn_decode_on(cfg, p, x, kc, vc, slot_pos, pos: int, par: _Par | None, at):
+    """The single-token attention sub-block, on the model axis where
+    ``par`` is given (``at``: the rank's slot for the token and whether its
+    cache is whole)."""
+    if par is None:
+        return _attn_decode_(cfg, p, x, kc, vc, slot_pos, pos)
+    return _attn_decode_tp_(cfg, p, x, kc, vc, slot_pos, pos, par, *at)
+
+
 def _block_decode_(cfg: ArchConfig, blk: dict, x, kc, vc, slot_pos, pos: int,
-                   par: _Par | None = None):
+                   par: _Par | None = None, at=None):
     """:func:`dense_block_decode` writing the new K/V into ``kc``/``vc`` in
     place; returns the layer's output."""
-    h = rmsnorm(x, blk["ln1"])
-    if par is None:
-        x = x + _attn_decode_(cfg, blk["attn"], h, kc, vc, slot_pos, pos)
-    else:
-        x = x + _attn_decode_tp_(cfg, blk["attn"], h, kc, vc, slot_pos, pos, par)
+    x = x + _attn_decode_on(cfg, blk["attn"], rmsnorm(x, blk["ln1"]), kc, vc, slot_pos, pos, par,
+                            at)
     if cfg.family == "moe":
         f, _ = moe.moe_ffn(cfg, blk["moe"], rmsnorm(x, blk["ln2"])[:, None, :], par)
         f = f[:, 0]
-    elif par is None:
-        f = _mlp(cfg, blk["mlp"], rmsnorm(x, blk["ln2"]))
     else:
-        f = _mlp_tp(cfg, blk["mlp"], rmsnorm(x, blk["ln2"]), par)
+        f = _mlp_on(cfg, blk["mlp"], rmsnorm(x, blk["ln2"]), par)
     return x + f
 
 
@@ -929,17 +1097,24 @@ def dense_block_decode(cfg: ArchConfig, blk: dict, x, kc, vc, slot_pos, pos):
     return x, kc, vc
 
 
-def _mamba_block_decode_(cfg, blk, x, conv, ssm):
+def _mamba_block_decode_(cfg, blk, x, conv, ssm, par: _Par | None = None):
     """One ssm layer for a single token, its states updated in place in
     ``conv``/``ssm``; returns the layer's output."""
-    out, (c, st) = mamba2.mamba_decode(cfg, blk["mamba"], rmsnorm(x, blk["ln1"]), conv, ssm)
+    h = rmsnorm(x, blk["ln1"])
+    if par is None:
+        out, (c, st) = mamba2.mamba_decode(cfg, blk["mamba"], h, conv, ssm)
+    else:
+        out, (c, st) = mamba2.mamba_decode(cfg, blk["mamba"], h, conv, ssm, model_axis=True)
+        out = _mamba_out(cfg, out, par, x.dtype)
     conv.copy_(c)
     ssm.copy_(st)
     return x + out
 
 
-def _cross_block_decode(cfg, blk, x, xk, xv):
+def _cross_block_decode(cfg, blk, x, xk, xv, par: _Par | None = None):
     """The gated cross layer for a single token over the cached image K/V."""
+    if par is not None:
+        return _cross_block_tp(cfg, blk, x[:, None], (xk, xv), par)[:, 0]
     p = blk["attn"]
     h = rmsnorm(x, blk["ln1"])
     q = matmul(h, _wt(cfg, p["wq"], x.dtype)).reshape(x.shape[0], 1, cfg.n_heads, cfg.hd)
@@ -949,51 +1124,59 @@ def _cross_block_decode(cfg, blk, x, xk, xv):
     return x + torch.tanh(blk["gate_mlp"]).to(x.dtype) * f
 
 
-def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos: int, ps=None):
+def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos: int, ps=None,
+            max_seq_len: int | None = None):
     """One decode step writing the token's K/V, slot position and recurrent
     states into ``cache``'s own tensors; returns the logits. The generation
     loops' step (the reference donates the cache there). ``ps``: the
-    placements of ``params``' shards (``_shardings``), or ``None``."""
+    placements of ``params``' shards (``_shardings``), or ``None``;
+    ``max_seq_len``: :func:`decode`'s."""
     par = _par(cfg, ps, 1)
     x = _embed(cfg, params, token, ps, par)  # [B, D]
     if cfg.family == "ssm":
         lp = _layer_places(ps, "layers")
         for i in range(cfg.n_layers):
             x = _mamba_block_decode_(cfg, _use(cfg, layer(params["layers"], i), lp), x,
-                                     cache["conv"][i], cache["ssm"][i])
-        return _head(cfg, params, x, ps)
-    sc = cache["slot_pos"].shape[1]
+                                     cache["conv"][i], cache["ssm"][i], par)
+        return _head(cfg, params, x, ps, par)
+    held = cache["slot_pos"].shape[1]
     slot_pos = cache["slot_pos"]
+    at = None
     if par is None:
-        slot_pos[:, pos % sc] = pos  # the token sees itself
-    elif 0 <= pos % (sc * par.m) - tp.model_rank() * sc < sc:  # on the rank holding its slot
-        slot_pos[:, pos % (sc * par.m) - tp.model_rank() * sc] = pos
+        slot_pos[:, pos % held] = pos  # the token sees itself
+    else:  # on the rank holding its slot
+        sc = cache_mod.cache_slots(cfg, held, max_seq_len)
+        whole = held == sc
+        slot = pos % sc - (0 if whole else tp.model_rank() * held)
+        at = (slot if 0 <= slot < held else None, whole)
+        if at[0] is not None:
+            slot_pos[:, slot] = pos
     if cfg.family == "hybrid":
         g = cfg.n_layers // cfg.shared_attn_every
         per = cfg.shared_attn_every
         x0 = x
-        sp = _use_keys(cfg, params, ps, _SHARED)
+        sp = _shared(cfg, params, ps, par)
         blk = sp["shared_block"]
         gp, tail_p = _layer_places(ps, "mamba_groups", 2), _layer_places(ps, "mamba_tail")
         mcache, shared = cache["mamba"], cache["shared"]
         for gi in range(g):
             # the shared block (single token)
             h = matmul(torch.cat([x, x0], dim=-1), _wt(cfg, sp["shared_in"], x.dtype))
-            h = h + _attn_decode_(cfg, blk["attn"], rmsnorm(h, blk["ln1"]), shared["k"][gi],
-                                  shared["v"][gi], slot_pos, pos)
-            h = h + _mlp(cfg, blk["mlp"], rmsnorm(h, blk["ln2"]))
+            h = h + _attn_decode_on(cfg, blk["attn"], rmsnorm(h, blk["ln1"]), shared["k"][gi],
+                                    shared["v"][gi], slot_pos, pos, par, at)
+            h = h + _mlp_on(cfg, blk["mlp"], rmsnorm(h, blk["ln2"]), par)
             x = x + h
             group = layer(params["mamba_groups"], gi)
             for i in range(per):
                 l = gi * per + i
                 x = _mamba_block_decode_(cfg, _use(cfg, layer(group, i), gp), x,
-                                         mcache["conv"][l], mcache["ssm"][l])
+                                         mcache["conv"][l], mcache["ssm"][l], par)
         if "mamba_tail" in params:
             tcache = cache["mamba_tail"]
             for i in range(cfg.n_layers - g * per):
                 x = _mamba_block_decode_(cfg, _use(cfg, layer(params["mamba_tail"], i), tail_p), x,
-                                         tcache["conv"][i], tcache["ssm"][i])
-        return _head(cfg, params, x, ps)
+                                         tcache["conv"][i], tcache["ssm"][i], par)
+        return _head(cfg, params, x, ps, par)
     k_all, v_all = cache["k"], cache["v"]
     if cfg.family == "vlm":
         g = cfg.n_layers // cfg.cross_attn_every
@@ -1004,14 +1187,14 @@ def _decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos
             for i in range(per):
                 l = gi * per + i
                 x = _block_decode_(cfg, _use(cfg, layer(self_stack, i), sp), x, k_all[l],
-                                   v_all[l], slot_pos, pos)
+                                   v_all[l], slot_pos, pos, par, at)
             x = _cross_block_decode(cfg, _use(cfg, layer(params["cross_layers"], gi), cp), x,
-                                    cache["xk"][gi], cache["xv"][gi])
-        return _head(cfg, params, x, ps)
+                                    cache["xk"][gi], cache["xv"][gi], par)
+        return _head(cfg, params, x, ps, par)
     lp = _layer_places(ps, "layers")
     for i in range(cfg.n_layers):
         x = _block_decode_(cfg, _use(cfg, layer(params["layers"], i), lp), x, k_all[i], v_all[i],
-                           slot_pos, pos, par)
+                           slot_pos, pos, par, at)
     return _head(cfg, params, x, ps, par)
 
 
@@ -1020,12 +1203,19 @@ def _clone_tree(tree: dict) -> dict:
 
 
 def decode(cfg: ArchConfig, params: dict, cache: dict, token: torch.Tensor, pos, *,
-           param_shardings=None):
+           param_shardings=None, max_seq_len: int | None = None):
     """One decode step. token [B], pos an int or a 0-d tensor →
     (logits [B,V], new cache); ``cache`` stays as it was. With
     ``param_shardings``, ``params`` are this rank's shards, and ``cache``
-    and ``token`` its rows (on the model axis, the cache its ``Sc/M`` slots
-    and the logits its vocabulary columns)."""
+    and ``token`` its rows (on the model axis, the cache its slots and the
+    logits its vocabulary columns).
+
+    ``max_seq_len`` is the session's length that sized the cache
+    (``prefill``'s, ``init_cache``'s). On the model axis a cache of ``Sc``
+    slots is held ``Sc/M`` a rank where M divides ``Sc`` and whole on
+    every rank where it does not; where M does not divide a rank's count of
+    slots, that count cannot tell the two apart, and decode raises unless
+    ``max_seq_len`` is given (``cache.cache_slots``)."""
     ps = _shardings(params, param_shardings)
     new = _clone_tree(cache)
-    return _decode(cfg, params, new, token, int(pos), ps), new
+    return _decode(cfg, params, new, token, int(pos), ps, max_seq_len), new

@@ -2,10 +2,10 @@
 ``repro_torch.launch.dryrun`` writes.
 
 Counterpart of ``repro.roofline.report``. The numbers are analytic: each
-record is a trace on the meta device, per device of its mesh (the dense and
-moe families on the reference's ``16x16`` and ``2x16x16`` ``("data",
-"model")`` meshes, the others on ``data256`` and ``data512``; each table
-cell names its record's mesh), and the roofline terms divide it by the
+record is a trace on the meta device, per device of its mesh (every config
+on the reference's ``16x16`` and ``2x16x16`` ``("data", "model")``
+meshes; each table cell names its record's mesh), and the roofline terms
+divide it by the
 H100 data-sheet rates of ``roofline.analysis`` (``PEAK_FLOPS`` bf16 dense,
 ``HBM_BW``, ``NVLINK_BW``)::
 
@@ -24,8 +24,8 @@ from repro_torch.roofline import analysis
 __all__ = ["build_tables", "main", "roofline_row"]
 
 #: the meshes of the two table columns (one pod, two pods), as the dry run
-#: names them: the model-axis mesh where a config has one, else the data mesh
-MESHES = (("16x16", "data256"), ("2x16x16", "data512"))
+#: names them
+MESHES = ("16x16", "2x16x16")
 
 
 def _load(results: pathlib.Path, mesh: str) -> dict[tuple[str, str], dict]:
@@ -114,15 +114,14 @@ def _dry_cells(rec: dict | None) -> tuple[str, str, str, str]:
             split)
 
 
-def _record(loaded: dict, column: tuple[str, ...], cell) -> dict | None:
-    """A cell's record in a table column: on its model-axis mesh, else on
-    its data mesh."""
-    return next((loaded[m][cell] for m in column if cell in loaded[m]), None)
+def _record(loaded: dict, mesh: str, cell) -> dict | None:
+    """A cell's record on ``mesh``, or ``None``."""
+    return loaded[mesh].get(cell)
 
 
 def build_tables(results: pathlib.Path) -> tuple[str, str, list[dict]]:
     """(the dry-run table, the roofline table of one pod, its rows)."""
-    loaded = {m: _load(results, m) for column in MESHES for m in column}
+    loaded = {m: _load(results, m) for m in MESHES}
     head = " | ".join(f"{p} mesh | peak GiB | trace s | batch" for p in ("pod", "2 pods"))
     dry = [f"| arch | shape | {head} |", "|---|---|" + "---|" * (4 * len(MESHES))]
     runnable = set(configs.runnable_cells())

@@ -142,6 +142,7 @@ def fit_kv_codebook(
     init: str = "kmeans||",
     max_iters: int = 8,
     engine: str = "streaming",
+    layers=None,
     **config_overrides: Any,
 ) -> KVCodebook:
     """Fit one BWKM codebook per (layer, K/V) over prefill cache dumps.
@@ -149,7 +150,8 @@ def fit_kv_codebook(
     Every fit goes through ``repro_torch.BWKM`` on the parameters' device,
     the streaming engine consuming a :class:`CacheDumpSource`: the dump is
     never one array. ``meta["layers"]`` records the audit per fit (engine,
-    distance ops, iterations, stop reason, rows)."""
+    distance ops, iterations, stop reason, rows). ``layers`` fits those KV
+    layers only (default: every one); the others' centroids stay zero."""
     from repro_torch.api.estimator import BWKM
 
     code_dtype_for(k)
@@ -159,7 +161,7 @@ def fit_kv_codebook(
     config_overrides.setdefault("capacity", 8 * config_overrides["m"])
     config_overrides.setdefault("lloyd_max_iters", 20)
     sources = kv_dump_sources(cfg, params, prompts, chunk_size=chunk_size,
-                              prompt_batch=prompt_batch)
+                              prompt_batch=prompt_batch, layers=layers)
     stacks = _stacks(n_kv_layers(cfg), k, cfg.hd)
     audit: list[dict[str, Any]] = []
     for (kind, layer), src in sorted(sources.items()):

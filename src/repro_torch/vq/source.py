@@ -184,15 +184,16 @@ def kv_dump_sources(
     kinds: tuple[str, ...] = _KINDS,
     chunk_size: int = 4096,
     prompt_batch: int = 8,
+    layers=None,
 ) -> dict[tuple[str, int], CacheDumpSource]:
-    """One source per ``(kind, layer)``: the full fitting plan of a
-    :func:`repro_torch.vq.fit_kv_codebook` run. Sources share nothing;
-    each keeps its own per-batch memo."""
+    """One source per ``(kind, layer)``, over ``layers`` (default: every KV
+    layer): the fitting plan of a :func:`repro_torch.vq.fit_kv_codebook`
+    run. Sources share nothing; each keeps its own per-batch memo."""
     return {
         (kind, layer): CacheDumpSource(
             cfg, params, prompts, layer=layer, kind=kind,
             chunk_size=chunk_size, prompt_batch=prompt_batch,
         )
         for kind in kinds
-        for layer in range(n_kv_layers(cfg))
+        for layer in (range(n_kv_layers(cfg)) if layers is None else layers)
     }

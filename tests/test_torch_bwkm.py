@@ -37,6 +37,17 @@ GOLDEN = pathlib.Path(__file__).parent / "golden" / "bwkm_fitresult.json"
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops on one thread: with several test workers on the
+    cores, each worker's intra-op pool spinning on every core slowed this
+    file several times over (the tolerances hold at any thread count)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 class JaxKey:
     """The port's key protocol over ``jax.random`` (test-only)."""
 

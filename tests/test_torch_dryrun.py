@@ -423,8 +423,8 @@ def test_run_cell_leaves_no_process_group(monkeypatch):
     rec = dryrun.run_cell("mamba2-130m", "decode_32k", multi_pod=False,
                           overrides={"n_layers": 1})
     assert seen == [256] and not dist.is_initialized()  # the control: a group while tracing
-    # 128 sequences do not split over 256 ranks: each rank decodes all of them
-    assert rec["mesh"] == "data256" and rec["per_rank_batch"] == 128 and not rec["batch_split"]
+    # on the 16 × 16 mesh the 128 sequences split over the 16 data ranks
+    assert rec["mesh"] == "16x16" and rec["per_rank_batch"] == 8 and rec["batch_split"]
 
     def boom(cfg, shape):
         seen.append(dist.get_world_size())

@@ -44,6 +44,17 @@ MODELS = {"mamba2-130m": ("mamba2-130m", None), "zamba2-1.2b": ("zamba2-1.2b", N
           "zamba2-tail": ("zamba2-1.2b", 5), "llama-3.2-vision-90b": ("llama-3.2-vision-90b", None)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops on one thread: with several test workers on the
+    cores, each worker's intra-op pool spinning on every core slowed this
+    file several times over (the tolerances hold at any thread count)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 

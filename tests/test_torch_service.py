@@ -101,6 +101,18 @@ def uninterrupted(stream):
     return session, metrics
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops on one thread: with several test workers on the
+    cores, each worker's intra-op pool spinning on every core slowed this
+    file several times over (the tolerances hold at any thread count)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+
 def _state_arrays(state) -> dict[str, np.ndarray]:
     """Every array of a session state of either package, under the
     checkpoint's key names; a key as its two stored words."""

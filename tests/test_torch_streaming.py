@@ -49,6 +49,17 @@ from repro_torch.testing.faults import (
 GOLDEN = pathlib.Path(__file__).parent / "golden" / "bwkm_fitresult.json"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops on one thread: with several test workers on the
+    cores, each worker's intra-op pool spinning on every core slowed this
+    file several times over (the tolerances hold at any thread count)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _points(seed=0, n=3000, d=4, k=5, spread=8.0, noise=1.5):
     rng = np.random.RandomState(seed)
     centers = rng.randn(k, d) * spread

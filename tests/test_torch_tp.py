@@ -48,8 +48,8 @@ import pytest
 import torch
 from _torch_fsdp_ranks import B, OPT, S, config, initial_params, inputs
 from _torch_tp_ranks import (
-    AGAIN_CASE, CASES, CE_VOCAB, CONTROL_CASES, DECODE_STEPS, MAX_SEQ, ce_inputs,
-    collect, serve_tokens, spawn,
+    AGAIN_CASE, CASES, CE_VOCAB, CONTROL_CASES, DECODE_STEPS, FAMILY_CASES, MAX_SEQ, SERVE_ONLY,
+    case_params, ce_inputs, collect, max_seq, serve_tokens, spawn,
 )
 
 from repro_torch import configs, convert
@@ -73,10 +73,10 @@ REFERENCE_SECONDS = 240.0
 TESTS = pathlib.Path(__file__).parent
 
 
-def _reference_main(out: str) -> None:
+def _reference_main(out: str, families: bool = False) -> None:
     """The reference's side (in a subprocess with four forced devices):
-    every case's jitted train step, prefill and decode on its mesh,
-    written to ``out``."""
+    every case's jitted train step, prefill and decode on its mesh (of
+    ``FAMILY_CASES`` with ``families``), written to ``out``."""
     import jax
     from jax.sharding import NamedSharding
     from jax.sharding import PartitionSpec as P
@@ -91,32 +91,38 @@ def _reference_main(out: str) -> None:
     from repro.train import train_step as jts
 
     res: dict[str, np.ndarray] = {}
-    for name, (arch, shape, overrides) in CASES.items():
+    for name, (arch, shape, overrides) in (FAMILY_CASES if families else CASES).items():
         jcfg = jconfigs.reduced_config(jconfigs.get_config(arch)).replace(**overrides)
         cfg = config(arch, overrides)
-        params = initial_params(cfg)
-        toks, _ = inputs(cfg, B)
+        params = case_params(name)
+        toks, img = inputs(cfg, B)
         mesh = _mesh(shape, ("data", "model"))
         with jsh.use_mesh(mesh):
             psh = jlayouts.param_shardings(jcfg, params)
-            in_sh = jlayouts.input_shardings(jcfg, {"tokens": toks, "labels": toks})
-            osh = {"m": psh, "v": psh, "step": NamedSharding(mesh, P())}
-            step = jax.jit(jts.make_train_step(jcfg, jopt.AdamWConfig(**OPT),
-                                               param_shardings=psh),
-                           in_shardings=(psh, osh, in_sh["tokens"], in_sh["labels"]))
-            p, st, m = step(params, jopt.adamw_init(params), toks, toks)
-            res[f"{name}/loss"] = np.asarray(m["loss"])
-            res[f"{name}/grad_norm"] = np.asarray(m["grad_norm"])
-            for i, a in enumerate(jax.tree.leaves(p)):
-                res[f"{name}/p{i}"] = np.asarray(a)
-            for i, a in enumerate(jax.tree.leaves(st["m"])):
-                res[f"{name}/m{i}"] = np.asarray(a)
+            batch = {"tokens": toks, "labels": toks}
+            if img is not None:
+                batch["image_embeds"] = img
+            in_sh = jlayouts.input_shardings(jcfg, batch)
+            if name not in SERVE_ONLY:
+                osh = {"m": psh, "v": psh, "step": NamedSharding(mesh, P())}
+                step = jax.jit(jts.make_train_step(jcfg, jopt.AdamWConfig(**OPT),
+                                                   param_shardings=psh),
+                               in_shardings=(psh, osh, in_sh["tokens"], in_sh["labels"],
+                                             in_sh.get("image_embeds")))
+                p, st, m = step(params, jopt.adamw_init(params), toks, toks, img)
+                res[f"{name}/loss"] = np.asarray(m["loss"])
+                res[f"{name}/grad_norm"] = np.asarray(m["grad_norm"])
+                for i, a in enumerate(jax.tree.leaves(p)):
+                    res[f"{name}/p{i}"] = np.asarray(a)
+                for i, a in enumerate(jax.tree.leaves(st["m"])):
+                    res[f"{name}/m{i}"] = np.asarray(a)
             prompt, forced = serve_tokens(cfg)
             rows = NamedSharding(mesh, P("data"))
-            prefill = jax.jit(lambda p, t: jtf.prefill(jcfg, p, t, max_seq_len=MAX_SEQ),
-                              in_shardings=(psh, NamedSharding(mesh, P("data", None))))
+            prefill = jax.jit(
+                lambda p, t, i: jtf.prefill(jcfg, p, t, i, max_seq_len=max_seq(name)),
+                in_shardings=(psh, NamedSharding(mesh, P("data", None)), in_sh.get("image_embeds")))
             decode = jax.jit(lambda p, c, t, pos: jtf.decode(jcfg, p, c, t, pos))
-            logits, cache = prefill(params, prompt)
+            logits, cache = prefill(params, prompt, img)
             res[f"serve_{name}/0"] = np.asarray(logits)
             for i, tok in enumerate(forced):
                 logits, cache = decode(params, cache, jax.device_put(tok, rows), np.int32(S + i))
@@ -166,10 +172,11 @@ def _one_rank_loss(name) -> float:
 
 
 # ------------------------------------------------------------- train steps
-@pytest.mark.parametrize("name", list(CASES))
-def test_train_step_matches_the_reference_sharded_step(runs, name):
-    ref = runs["ref"]
-    recs = [r["train"][name] for r in runs["ranks"][_world(name)]]
+def check_train(ref: dict, recs: list[dict], name: str) -> None:
+    """The ranks' records of a case's train step against the reference's:
+    the same loss and norm on every rank and within the tolerances, each
+    leaf's first moment and updated parameters, the same whole state on
+    every rank."""
     got = recs[0]
     assert all(r["loss"] == got["loss"] and r["grad_norm"] == got["grad_norm"] for r in recs)
     assert abs(got["loss"] - float(ref[f"{name}/loss"])) <= LOSS_ATOL
@@ -185,6 +192,11 @@ def test_train_step_matches_the_reference_sharded_step(runs, name):
     for r in recs[1:]:  # every rank holds the same whole state
         for a, b in zip(opt.leaves(r["params"]), opt.leaves(got["params"]), strict=True):
             assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_train_step_matches_the_reference_sharded_step(runs, name):
+    check_train(runs["ref"], [r["train"][name] for r in runs["ranks"][_world(name)]], name)
 
 
 @pytest.mark.parametrize("name", CONTROL_CASES)
@@ -301,20 +313,26 @@ def test_decode_combine_is_whole_cache_attention():
 @pytest.mark.parametrize("arch", ["musicgen-medium", "mamba2-130m", "zamba2-1.2b",
                                   "llama-3.2-vision-90b"])
 def test_the_other_families_raise_on_the_model_axis(arch):
+    """The audio, ssm, hybrid and vlm families no longer raise on the model
+    axis (``tests/test_torch_tp_families.py`` holds them against the
+    reference): on a (2, 2) mesh forward and prefill run on the rank's
+    shards and return its vocabulary columns; a control on a "data" mesh
+    returns every column."""
     cfg = configs.reduced_config(configs.get_config(arch))
     whole = tf.init_params(cfg, rnd.key(0), device="meta")
-    toks = torch.zeros((2, S), dtype=torch.int32, device="meta")
-    img = torch.zeros((2, cfg.n_image_tokens or 1, cfg.d_model), device="meta")
+    toks = torch.zeros((1, S), dtype=torch.int32, device="meta")
+    img = torch.zeros((1, cfg.n_image_tokens or 1, cfg.d_model), device="meta")
     with dryrun.fake_mesh(4, (2, 2)):
         psh = layouts.param_shardings(cfg, whole)
-        with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-            tf.forward(cfg, whole, toks, img, param_shardings=psh)
-        with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-            tf.prefill(cfg, whole, toks, img, param_shardings=psh)
-    with dryrun.fake_mesh(4):  # control: a "data" mesh runs them
+        shards = fsdp.shard_tree(whole, psh)
+        logits = tf.forward(cfg, shards, toks, img, param_shardings=psh)[0]
+        assert logits.shape == (1, S, cfg.vocab_padded // 2)
+        last, _ = tf.prefill(cfg, shards, toks, img, param_shardings=psh)
+        assert last.shape == (1, cfg.vocab_padded // 2)
+    with dryrun.fake_mesh(4):  # control: a "data" mesh runs them on every column
         psh = layouts.param_shardings(cfg, whole)
         logits = tf.forward(cfg, fsdp.shard_tree(whole, psh), toks, img, param_shardings=psh)[0]
-        assert logits.shape == (2, S, cfg.vocab_padded)
+        assert logits.shape == (1, S, cfg.vocab_padded)
 
 
 # ------------------------------------------------------------- layouts, meshes
@@ -406,7 +424,6 @@ def test_the_meshes():
 
     assert (meshes.production_mesh_name(), meshes.production_mesh_name(True)) == ("16x16",
                                                                                    "2x16x16")
-    assert (meshes.data_mesh_name(), meshes.data_mesh_name(True)) == ("data256", "data512")
     with dryrun.fake_group(512):
         m = meshes.make_production_mesh(multi_pod=True, device="cpu")
         assert m.mesh_dim_names == ("pod", "data", "model") and tuple(m.shape) == (2, 16, 16)
