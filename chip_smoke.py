@@ -162,9 +162,21 @@ Phases, one line each (and a few detail lines), any failure exits non-zero:
    on every rank, ``dist_kmeans_parallel`` twice bit-equal and equal on
    every rank, ``shard_faults={1: [2]}`` completing with one lost shard, one
    degraded round and a lost mass of 0.25, and ``max_shard_loss_frac=0.2``
-   raising ``ShardLossError`` on all four. The ranks are joined under a
-   deadline; each prints its wall and peak memory, and their launches join
-   the JSON line's. Four ranks on one card check correctness, not scaling.
+   raising ``ShardLossError`` on all four. 9c, the same four ranks after
+   9b's work, build further meshes in turn: (a) ``("pod", "data",
+   "model")`` (2, 2, 1) on 9b's rows: ``n_data_shards() == 4``, the fit
+   bit-equal to 9a's and ``shard_faults={1: [2]}`` as in 9b; (b) ``("data",
+   "model")`` (2, 2) on SUSY (d = 19 is odd, so every model rank holds its
+   batch rank's 2,500,000 rows whole): the fit bit-equal to 9a's; (c) the
+   same mesh on ``gmm_dataset(0, 1_048_576, 128, 27)`` (written by this
+   process beside 9a), each rank holding 524,288 × 64 of it (a
+   ``FeatureSlice``): the fit bit-equal to the same ranks' fit on a
+   ``("data",)`` (4,) mesh and on every rank with B1–B3 launched,
+   ``dist_lloyd`` pruned ≡ dense, ``dist_kmeans_parallel`` at K = 27
+   launching B5 and equal on every rank. The ranks are joined under a
+   deadline; each prints its walls and peak memory (9c: its resident
+   ``x`` and the fit's collective bytes too), and their launches join the
+   JSON line's. Four ranks on one card check correctness, not scaling.
 
 10. (after phase 9) the measured autotune (``repro_torch.kernels.autotune``)
    from a fresh cache at the main path's shapes: B1 at the predict chunk
@@ -2372,9 +2384,11 @@ def phase_tradeoff(torch, repro_torch, rnd, ref, da, fau, cu, counters, x, smi):
 
 
 # ---------------------------------------------------------------- phase 9
-DIST_WORLD = 4  # ranks of 9b, all on the one card
+DIST_WORLD = 4  # ranks of 9b and 9c, all on the one card
 DIST_LLOYD_ITERS = 20
-DIST_RANK_SECONDS = 240  # the parent's deadline for 9b's ranks: a hang fails the phase
+DIST_RANK_SECONDS = 480  # the parent's deadline for 9b's and 9c's ranks: a hang fails the phase
+#: 9c(c)'s set: ``gmm_dataset(seed, n, d, modes)`` at the KV width the vq codebooks cluster
+DIST_GMM = (0, 1_048_576, 128, 27)
 
 
 def _kernel_counters():
@@ -2469,11 +2483,83 @@ def _dist_lloyd_pair(torch, dist_bwkm, counters, x, c):
     return runs, launches
 
 
-def _dist_rank(rank: int, world: int, init: str, shard_dir: str, out_dir: str) -> None:
-    """One rank of 9b: a gloo group on the one card, rank ``rank`` loading
-    shards ``5·rank`` to ``5·rank + 4`` (its contiguous 1,250,000 rows) and
-    running the distributed engine's paths; what it saw goes to
-    ``out_dir/rank<r>.pt``."""
+def _dist_9c(torch, counters, x, rank: int, world: int, paths, gmm_path: str) -> dict:
+    """9c on one rank, after 9b's work in the same gloo group: the further
+    meshes, built in turn and in the same order on every rank. (a) a
+    ``("pod", "data", "model")`` (2, 2, 1) mesh on 9b's rows ``x`` (batch
+    rank = rank); (b) a ``("data", "model")`` (2, 2) mesh on SUSY, batch
+    rank ``rank // 2`` loading shards ``10·b`` to ``10·b + 9`` whole (d = 19
+    is odd); (c) the same mesh on :data:`DIST_GMM`, each rank holding
+    524,288 × 64 of it, then the same set on a ``("data",)`` (4,) mesh."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import random as rnd
+    from repro_torch.core.bwkm import BWKMConfig
+    from repro_torch.distributed import dist_bwkm, dist_kmeans_ll
+    from repro_torch.distributed import sharding as sh
+
+    cfg = BWKMConfig(k=SUSY_K)
+    out = {"launches": dict.fromkeys(counters, 0)}
+
+    def fit(xs, **kw):
+        res, wall, launches = _timed_path(
+            torch, counters, lambda: dist_bwkm.fit_distributed(rnd.key(0), xs, cfg, **kw))
+        for b in launches:
+            out["launches"][b] += launches[b]
+        return res, (res.centroids.cpu(), res.stop_reason, res.iterations, res.n_blocks,
+                     res.distances), wall, launches
+
+    t0 = time.perf_counter()
+    with sh.use_mesh(init_device_mesh("cuda", (2, 2, 1), mesh_dim_names=("pod", "data", "model"))):
+        out["a_shards"] = dist_bwkm.n_data_shards()
+        _, out["a_fit"], out["a_s"], _ = fit(x)
+        res, *_ = fit(x, shard_faults={1: [2]})
+        out["a_fault"] = (res.health.as_dict(), bool(torch.isfinite(res.centroids).all()))
+    per, b = len(paths) // 2, rank // 2
+    xb = torch.from_numpy(np.concatenate([np.load(p) for p in paths[b * per:(b + 1) * per]]))
+    mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+    with sh.use_mesh(mesh):
+        _, out["b_fit"], out["b_s"], _ = fit(xb.to(x.device))
+    del xb
+    data = np.load(gmm_path, mmap_mode="r")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_c = time.perf_counter()
+    with sh.use_mesh(mesh):
+        xs = dist_bwkm.shard_points(data, device=x.device)
+        out["c_resident"] = (type(xs).__name__, tuple(xs.shape), xs.numel() * xs.element_size())
+        before = {k: v["bytes"] for k, v in sh.COLLECTIVE_COUNTS.items()}
+        res, out["c_fit"], out["c_s"], out["c_fit_launches"] = fit(xs)
+        out["c_moved"] = {k: v["bytes"] - before[k] for k, v in sh.COLLECTIVE_COUNTS.items()}
+        runs, launches = _dist_lloyd_pair(torch, dist_bwkm, counters, xs, res.centroids)
+        for k in launches:
+            out["launches"][k] += launches[k]
+        out["c_lloyd"] = {p: (r.centroids.cpu(), r.iters, r.distances, wall)
+                          for p, (r, wall) in runs.items()}
+        out["c_ll"], out["c_ll_s"], out["c_ll_launches"] = _timed_path(
+            torch, counters, lambda: dist_kmeans_ll.dist_kmeans_parallel(rnd.key(0), xs, SUSY_K).cpu())
+        for k in launches:
+            out["launches"][k] += out["c_ll_launches"][k]
+        del xs
+    with sh.use_mesh(init_device_mesh("cuda", (world,), mesh_dim_names=("data",))):
+        xs = dist_bwkm.shard_points(data, device=x.device)
+        out["c_rows_resident"] = xs.numel() * xs.element_size()
+        _, out["c_rows_fit"], out["c_rows_s"], _ = fit(xs)
+        del xs
+    out["c_peak"] = torch.cuda.max_memory_allocated()
+    out["c_wall_s"] = time.perf_counter() - t_c
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _dist_rank(rank: int, world: int, init: str, shard_dir: str, out_dir: str,
+               gmm_path: str) -> None:
+    """One rank of 9b and 9c: a gloo group on the one card, rank ``rank``
+    loading shards ``5·rank`` to ``5·rank + 4`` (its contiguous 1,250,000
+    rows) and running the distributed engine's paths on a ``("data",)``
+    mesh (9b), then on the further meshes (:func:`_dist_9c`); what it saw
+    goes to ``out_dir/rank<r>.pt``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2531,31 +2617,33 @@ def _dist_rank(rank: int, world: int, init: str, shard_dir: str, out_dir: str) -
                 out["abort"] = str(e)
             out["peak"] = torch.cuda.max_memory_allocated()
         out["wall_s"] = time.perf_counter() - t_start
+        out["c"] = _dist_9c(torch, counters, x, rank, world, paths, gmm_path)
         torch.save(out, pathlib.Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(torch, shard_dir: str, tmp: str) -> list[dict]:
-    """9b's four ranks, joined under :data:`DIST_RANK_SECONDS`: a hang or a
-    rank's failure fails the phase, and every rank is stopped."""
+def _spawn_ranks(torch, shard_dir: str, tmp: str, gmm_path: str) -> list[dict]:
+    """9b's and 9c's four ranks, joined under :data:`DIST_RANK_SECONDS`: a
+    hang or a rank's failure fails the phase, and every rank is stopped."""
     import torch.multiprocessing as mp
 
     out_dir = pathlib.Path(tmp) / "ranks"
     out_dir.mkdir()
     ctx = mp.start_processes(
-        _dist_rank, args=(DIST_WORLD, f"file://{tmp}/rendezvous_gloo", shard_dir, str(out_dir)),
+        _dist_rank,
+        args=(DIST_WORLD, f"file://{tmp}/rendezvous_gloo", shard_dir, str(out_dir), gmm_path),
         nprocs=DIST_WORLD, join=False, start_method="spawn",
     )
     deadline = time.monotonic() + DIST_RANK_SECONDS
     try:
         while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
             check(time.monotonic() < deadline,
-                  f"9b: the {DIST_WORLD} ranks did not finish in {DIST_RANK_SECONDS} s")
+                  f"9b/9c: the {DIST_WORLD} ranks did not finish in {DIST_RANK_SECONDS} s")
     except mp.ProcessRaisedException as e:
-        raise SmokeFailure(f"9b: a rank failed:\n{e}") from e
+        raise SmokeFailure(f"9b/9c: a rank failed:\n{e}") from e
     except mp.ProcessExitedException as e:
-        raise SmokeFailure(f"9b: a rank exited: {e}") from e
+        raise SmokeFailure(f"9b/9c: a rank exited: {e}") from e
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -2564,12 +2652,67 @@ def _spawn_ranks(torch, shard_dir: str, tmp: str) -> list[dict]:
     return [torch.load(out_dir / f"rank{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
 
 
+def _write_gmm(path: str) -> None:
+    """9c(c)'s set (:data:`DIST_GMM`) to ``path`` as one ``.npy``."""
+    import numpy as np
+
+    from repro_torch.data.synthetic import gmm_dataset
+
+    np.save(path, gmm_dataset(*DIST_GMM))
+
+
+def _check_9c(torch, ranks, want, smi) -> None:
+    """9c's gates on the ranks' records, against 9a's fit ``want``
+    (centroids, stop reason, iterations, blocks, distances)."""
+
+    def same(a, b):
+        return torch.equal(a[0], b[0]) and a[1:] == b[1:]
+
+    first = ranks[0]["c"]
+    for r in ranks:
+        c, who = r["c"], f"9c rank {r['rank']}"
+        check(c["a_shards"] == 4, f"{who}: n_data_shards() = {c['a_shards']} on (2, 2, 1)")
+        check(same(c["a_fit"], want), f"{who}: the (2, 2, 1) fit differs from 9a's")
+        health, finite = c["a_fault"]
+        check(finite and (health["lost_shards"], health["degraded_rounds"],
+                          health["lost_mass_frac"]) == (1, 1, 0.25),
+              f"{who}: shard_faults={{1: [2]}} on (2, 2, 1) gave {health}")
+        check(same(c["b_fit"], want), f"{who}: the (2, 2) SUSY fit differs from 9a's")
+        kind, shape, nbytes = c["c_resident"]
+        check(kind == "FeatureSlice" and shape == (DIST_GMM[1] // 2, DIST_GMM[2] // 2),
+              f"{who}: (2, 2) holds {kind} {shape}")
+        check(same(c["c_fit"], c["c_rows_fit"]), f"{who}: the (2, 2) GMM fit differs from (4,)'s")
+        check(same(c["c_fit"], first["c_fit"]), f"{who}: the GMM fit differs from rank 0's")
+        for b in ("B1", "B2", "B3"):
+            check(c["c_fit_launches"][b] > 0, f"{who}: {b} not launched by the GMM fit")
+        check(c["c_ll_launches"]["B5"] > 0, f"{who}: B5 not launched by k-means||")
+        check(torch.equal(c["c_ll"], first["c_ll"]), f"{who}: k-means|| differs from rank 0's")
+        pr, de = c["c_lloyd"][True], c["c_lloyd"][False]
+        check(torch.equal(pr[0], de[0]) and pr[1] == de[1] and pr[2] < de[2],
+              f"{who}: dist_lloyd pruned != dense on (2, 2)")
+        print(f"[dist] {who}/{DIST_WORLD} (gloo): (2, 2, 1) SUSY fit_s={c['a_s']:.3f}; (2, 2) "
+              f"SUSY fit_s={c['b_s']:.3f}; GMM {DIST_GMM[1]:,} × {DIST_GMM[2]} on (2, 2): resident "
+              f"x {shape[0]:,} × {shape[1]} = {nbytes / 2**20:.1f} MiB (on (4,): "
+              f"{c['c_rows_resident'] / 2**20:.1f} MiB), fit_s={c['c_s']:.3f} (on (4,): "
+              f"{c['c_rows_s']:.3f}), the fit's collectives (bytes) {c['c_moved']}, dist_lloyd_s "
+              f"{pr[3]:.3f} / {de[3]:.3f} ({pr[1]} iterations), k-means||_s={c['c_ll_s']:.3f}; "
+              f"(c) wall_s={c['c_wall_s']:.1f} peak_mem_GiB={c['c_peak'] / 2**30:.3f}; 9c wall_s="
+              f"{c['wall_s']:.1f} launches={c['launches']} ({smi})")
+    print(f"[dist] 9c: {DIST_WORLD} gloo ranks on one card ({smi}; correctness, not scaling): "
+          f"(2, 2, 1) 4 shards, fit bit-equal to 9a, one lost shard of 4 reweighted; (2, 2) SUSY "
+          f"(features whole) bit-equal to 9a; GMM on (2, 2) (features split) bit-equal to (4,) "
+          f"and on every rank ({first['c_fit'][1]}, {first['c_fit'][2]} iterations), B1-B3 in "
+          f"the fit, B5 in k-means|| (equal on every rank), dist_lloyd pruned == dense")
+
+
 def phase_distributed(torch, repro_torch, rnd, partition, counters, x, shard_dir, incore, smi):
     """Phase 9: the distributed engine on SUSY. 9a in this process, one
-    rank over NCCL; 9b four ranks spawned on the same card over gloo.
-    ``incore`` is phase 4's ``(fit seconds, peak bytes)``. Returns the
-    launches of both."""
+    rank over NCCL; 9b four ranks spawned on the same card over gloo, and
+    9c the same ranks on the further meshes (:func:`_dist_9c`). ``incore``
+    is phase 4's ``(fit seconds, peak bytes)``. Returns the launches of
+    all three."""
     import tempfile
+    import threading
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -2587,6 +2730,9 @@ def phase_distributed(torch, repro_torch, rnd, partition, counters, x, shard_dir
             total[b] += launches[b]
 
     with tempfile.TemporaryDirectory(prefix="bwkm_dist_") as tmp:
+        gmm_path = f"{tmp}/gmm.npy"
+        gmm = threading.Thread(target=_write_gmm, args=(gmm_path,))
+        gmm.start()  # on the host, beside 9a
         # 9a: one rank over NCCL, in this process
         dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous_nccl", rank=0,
                                 world_size=1)
@@ -2672,9 +2818,10 @@ def phase_distributed(torch, repro_torch, rnd, partition, counters, x, shard_dir
                       f"{(phi - phi64) / phi64:+.3e}) launches={launches}")
         finally:
             dist.destroy_process_group()
-        # 9b: four ranks on the one card over gloo
+        # 9b and 9c: four ranks on the one card over gloo
+        gmm.join()
         t0 = time.perf_counter()
-        ranks = _spawn_ranks(torch, shard_dir, tmp)
+        ranks = _spawn_ranks(torch, shard_dir, tmp, gmm_path)
         t_9b = time.perf_counter() - t0
     for r in ranks:
         rc, stop, iters, blocks, distances = r["fit"]
@@ -2700,6 +2847,7 @@ def phase_distributed(torch, repro_torch, rnd, partition, counters, x, shard_dir
             check(r["fit_launches"][b] > 0, f"9b rank {r['rank']}: kernel {b} not launched by the fit")
         check(r["launches"]["B5"] > 0, f"9b rank {r['rank']}: B5 not launched")
         add(r["launches"])
+        add(r["c"]["launches"])
         print(f"[dist] 9b rank {r['rank']}/{DIST_WORLD} (gloo, {r['rows']:,} rows): wall_s="
               f"{r['wall_s']:.1f} (fit_s={r['fit_s']:.3f}, dist_lloyd_s "
               f"{r['lloyd'][True][3]:.3f} / {r['lloyd'][False][3]:.3f}, k-means||×2_s="
@@ -2710,7 +2858,11 @@ def phase_distributed(torch, repro_torch, rnd, partition, counters, x, shard_dir
           f"iterations, {n_blocks[-1]} blocks), dist_lloyd pruned == dense, k-means|| twice "
           f"bit-equal, shard_faults={{1: [2]}} -> lost_shards 1, degraded_rounds 1, "
           f"lost_mass_frac 0.25; max_shard_loss_frac=0.2 raised ShardLossError on all "
-          f"{DIST_WORLD} ranks; 9b took {t_9b:.1f} s")
+          f"{DIST_WORLD} ranks")
+    _check_9c(torch, ranks, (c.cpu(), res.stop_reason, res.iterations, n_blocks, res.distances),
+              smi)
+    print(f"[dist] 9b and 9c took {t_9b:.1f} s (9c {max(r['c']['wall_s'] for r in ranks):.1f} s "
+          f"of it on the slowest rank)")
     print(f"[dist] phase 9 took {time.perf_counter() - t_phase:.1f} s")
     return total
 

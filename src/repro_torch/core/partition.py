@@ -351,11 +351,15 @@ def split_plan(part: Partition, chosen: torch.Tensor) -> SplitPlan:
     return SplitPlan(fits, axis, mid, right_row, fits.sum(dtype=torch.int32))
 
 
-def route_split(x: torch.Tensor, bid: torch.Tensor, plan: SplitPlan) -> torch.Tensor:
+def route_split(
+    x: torch.Tensor | None, bid: torch.Tensor, plan: SplitPlan, values: torch.Tensor | None = None
+) -> torch.Tensor:
     """New memberships: a member of a split block goes right iff
-    ``x[axis] > mid``."""
+    ``x[axis] > mid``. ``values [n]``, each row's coordinate on its
+    block's split axis, stands for ``x`` where the caller has it already
+    (the sharded plane's feature split)."""
     b = bid.long()
-    p_val = x.gather(1, plan.axis[b][:, None])[:, 0]
+    p_val = x.gather(1, plan.axis[b][:, None])[:, 0] if values is None else values
     goes_right = plan.fits[b] & (p_val > plan.mid[b])
     return torch.where(goes_right, plan.right_row[b], bid.to(torch.int32))
 

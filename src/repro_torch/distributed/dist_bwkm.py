@@ -1,4 +1,5 @@
-"""Distributed BWKM: the paper's algorithm over the rows of a mesh.
+"""Distributed BWKM: the paper's algorithm over the rows, and the features,
+of a mesh.
 
 Counterpart of ``repro.distributed.dist_bwkm``. The outer loop is the shared
 :func:`repro_torch.engine.driver.fit_plane` over
@@ -6,8 +7,10 @@ Counterpart of ``repro.distributed.dist_bwkm``. The outer loop is the shared
 passes (exact cross-rank block statistics, drop-and-reweight, the sample →
 build → route initialisation) lives in :mod:`repro_torch.engine.sharded`
 and is re-exported here for callers that reach for the distributed layer
-directly. Every rank calls these functions with its own rows
-(:func:`shard_points`) and gets the same result.
+directly. Every rank calls these functions with its own part of the data
+(:func:`shard_points`: its batch rank's rows, and its model rank's columns
+of them where the ``"model"`` dimension divides d) and gets the same
+result.
 """
 
 from __future__ import annotations
@@ -44,8 +47,9 @@ def dist_lloyd(
     epsilon: float = 1e-4,
     prune: bool | None = None,
 ) -> DistLloydResult:
-    """Full-data Lloyd over the ranks' rows with drift-bound pruning
-    (``prune=None`` means on), from ``c [K, d]`` on every rank: the shared
+    """Full-data Lloyd over the ranks' rows (``x`` from :func:`shard_points`)
+    with drift-bound pruning (``prune=None`` means on), from ``c [K, d]``
+    on every rank: the shared
     :func:`repro_torch.engine.driver.plane_lloyd` loop over
     :class:`~repro_torch.engine.sharded.ShardedLloydSession`. Pruned and
     dense reach the same centroids bit for bit; ``distances`` counts the
@@ -64,10 +68,10 @@ def fit_distributed(
     shard_faults: "dict[int, Sequence[int]] | None" = None,
     max_shard_loss_frac: float = 0.5,
 ) -> core_bwkm.BWKMResult:
-    """Distributed Algorithm 5 over this rank's rows ``x``
+    """Distributed Algorithm 5 over this rank's part ``x`` of the data
     (:func:`shard_points`), every rank with the same ``key``. The engine
     behind ``BWKM(engine="distributed")``; its statistics, and so its
-    result, are bit-equal at every number of ranks.
+    result, are bit-equal on every mesh.
 
     ``shard_faults`` maps a statistics round (0 = the initial routing
     round, ``i`` = the split round of outer iteration ``i``) to data shards

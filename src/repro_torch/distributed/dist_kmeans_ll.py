@@ -3,7 +3,8 @@
 Counterpart of ``repro.distributed.dist_kmeans_ll``: the shared
 :func:`repro_torch.engine.driver.plane_kmeans_parallel` over
 :class:`~repro_torch.engine.sharded.ShardedLLSession`. Each rank keeps the
-min-d² of its own rows and folds every candidate batch with B5; the cost
+min-d² of its own rows (gathered whole over ``"model"`` on a feature
+split) and folds every candidate batch with B5; the cost
 ``φ`` and the weighting counts are added over the ranks in rank order; the
 draws and the final weighted K-means++ run on replicated values, so every
 rank gets the same seeds. Without a mesh this is exactly
@@ -31,10 +32,10 @@ def dist_kmeans_parallel(
     oversampling: int | None = None,
     rounds: int | None = None,
 ) -> torch.Tensor:
-    """k-means|| seeding of ``k`` centroids from this rank's rows ``x``
-    (:func:`~repro_torch.engine.sharded.shard_points`; ``w`` split with
-    them), every rank with the same ``key``. The seeds are the same on
-    every rank and from run to run at a given number of ranks."""
+    """k-means|| seeding of ``k`` centroids from this rank's part ``x`` of
+    the data (:func:`~repro_torch.engine.sharded.shard_points`; ``w``
+    split with its rows), every rank with the same ``key``. The seeds are
+    the same on every rank and from run to run on a given mesh."""
     if sh.current_mesh() is None:
         return core_ll.kmeans_parallel(key, x, w, k, oversampling=oversampling, rounds=rounds)
     w = torch.ones(x.shape[0], device=x.device) if w is None else w

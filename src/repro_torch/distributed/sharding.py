@@ -199,8 +199,15 @@ def shard(x: torch.Tensor, *logical) -> torch.Tensor:
 
 # ------------------------------------------------------------ the collectives
 def _mesh_rank() -> int:
-    """This process's rank over the batch axes; 0 without a mesh."""
+    """This process's rank over the batch axes; 0 without a mesh. Every
+    model rank of a batch group reads the same."""
     return group_rank(batch_axes())
+
+
+def _process_rank() -> int:
+    """This process's rank over every dimension of the mesh, row-major (0
+    only at coordinate 0 on every dimension); 0 without a mesh."""
+    return group_rank(_names())
 
 
 _OPS = {"sum": "SUM", "min": "MIN", "max": "MAX"}

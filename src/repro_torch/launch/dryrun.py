@@ -69,7 +69,8 @@ What a record holds (the reference's keys where their meaning holds):
   with n the tokens of the rank's rows in a pass (whole sequence), the
   residual split on the sequence where M divides S > 1: the embedding's
   rows added over the ranks (a reduce-scatter of n × D in the table's
-  dtype where the sequence splits, else an all-reduce); in each layer
+  dtype where the sequence splits, else an all-reduce; none where M does
+  not divide the padded vocabulary, which stays whole); in each layer
   the sequence gathered before attention, the MLP, a Mamba layer and a
   cross layer (n/M × D), the f32 row-parallel partials reduce-scattered
   after them (n × D × 4; all-reduced where the sequence is whole),
@@ -88,7 +89,7 @@ What a record holds (the reference's keys where their meaning holds):
   all-reduce of the f32 [E, C, D] partials; the shared experts as the
   MLP); the head's sequence gather (train) or the last position's
   all-reduce (prefill); the loss's row max and (sum-exp, label logit)
-  all-reduces. Decode gathers q (and K/V where GQA is not expanded) over
+  all-reduces where the vocabulary splits. Decode gathers q (and K/V where GQA is not expanded) over
   the heads, the partial softmaxes of the ranks' slots where M divides
   the cache's slots (none over a whole cache), and all-reduces the
   ``wo``/``w2``/``out_proj`` partials and the gated norm's sums. A train
@@ -470,6 +471,7 @@ def _model_axis(cfg, shape, params, places, rows: int, accum: int, add) -> None:
     flat = {names: (t, p) for names, t, p in _walk(params, places)}
     table = flat[("embed",)][0].element_size()
     split = tp.splits(cfg)  # the widths that split; the others run whole
+    vocab = tp.divides(cfg.vocab_padded)  # else the embedding and head run whole
     heads = split.heads
     kv_whole = heads and not split.kv
 
@@ -616,7 +618,8 @@ def _model_axis(cfg, shape, params, places, rows: int, accum: int, add) -> None:
             once = [gather(rows * t_img * (kv // m) * hd * act)] * (2 * g)
 
     for _ in range(accum):
-        add("reduce-scatter" if seq else "all-reduce", n * d * table)  # the embedding's rows
+        if vocab:
+            add("reduce-scatter" if seq else "all-reduce", n * d * table)  # the embedding's rows
         for kind, nbytes, *_ in once:
             add(kind, nbytes)
         for entries, tail in units:
@@ -626,9 +629,10 @@ def _model_axis(cfg, shape, params, places, rows: int, accum: int, add) -> None:
         if train:
             if seq:
                 add("all-gather", n // m * d * act)  # the head's sequence
-            add("all-reduce", rows * (s - 1) * 4)  # the row max
-            add("all-reduce", 2 * rows * (s - 1) * 4)  # sum-exp and the label logit
-            add("all-reduce", 2 * rows * (s - 1) * 4)  # ... in the backward
+            if vocab:
+                add("all-reduce", rows * (s - 1) * 4)  # the row max
+                add("all-reduce", 2 * rows * (s - 1) * 4)  # sum-exp and the label logit
+                add("all-reduce", 2 * rows * (s - 1) * 4)  # ... in the backward
             if seq:
                 add("reduce-scatter", n * d * act)
             for entries, _ in units:
@@ -636,9 +640,9 @@ def _model_axis(cfg, shape, params, places, rows: int, accum: int, add) -> None:
                     add(kind, nbytes)
             for _, _, kind, nbytes in once:
                 add(kind, nbytes)
-            if seq:
+            if vocab and seq:
                 add("all-gather", n // m * d * table)  # the embedding rows' gradient
-            else:
+            elif vocab:
                 add("all-reduce", n * d * table)
         elif shape.kind == "prefill" and seq:
             add("all-reduce", rows * d * act)  # the last position

@@ -7,11 +7,14 @@ automatic resume from the newest step in ``--ckpt-dir``
 (``train.checkpoint``, the reference's format). A vlm trains on zero image
 embeddings, as the reference's driver does.
 
-It runs on one device and builds no mesh: the port's mesh has only the
-``"data"`` dimension, so one card needs no process group (the reference
-enters a one-device smoke mesh here, and computes parameter shardings it
-does not use). ``--device`` defaults to ``cuda`` and raises without a
-card; the CPU runs only when asked::
+It runs on one device and builds no mesh: on one card every mesh
+dimension (``"data"``, ``"model"``, ``"pod"``) has one rank, and the step
+is the unsharded one, so it needs no process group (the reference enters
+a one-device smoke mesh here, and computes parameter shardings it does not
+use). A sharded step runs inside ``sharding.use_mesh`` on ranks the caller
+starts (``train_step.make_train_step(param_shardings=...)``).
+``--device`` defaults to ``cuda`` and raises without a card; the CPU runs
+only when asked::
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-4b --reduced \\
       --steps 200 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt --ckpt-every 50 --device cpu

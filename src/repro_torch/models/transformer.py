@@ -58,7 +58,10 @@ image K/V (GQA expanded as in self-attention) with ``wo`` row-parallel.
 The embedding is vocab-parallel (each rank looks up the ids in its rows,
 the ranks' rows added), the head too: :func:`forward` returns the rank's
 ``Vp/M`` columns of the logits and ``train_step.cross_entropy`` reduces
-its row max, sum and label logit over the ranks. A KV cache holds ``Sc/M``
+its row max, sum and label logit over the ranks. Where M does not divide
+the padded vocabulary both stay whole on every rank, as the reference
+keeps them: each rank looks up all the ids and keeps its part of the
+sequence, and computes every column of the logits. A KV cache holds ``Sc/M``
 slots a rank where M divides ``Sc``, else all of them on every rank
 (``cache.init_cache``); decode writes the new token's K/V into its slot on
 the rank that holds it and combines the ranks' partial softmaxes over
@@ -112,6 +115,7 @@ class _Par(NamedTuple):
 
     m: int
     seq: bool
+    vocab: bool
     heads: bool
     kv: bool
     ff: bool
@@ -124,19 +128,17 @@ def _par(cfg: ArchConfig, ps, s: int) -> _Par | None:
     placements or a model axis). Raises where a width must split and does
     not: the routed experts' ``moe_d_ff`` in the ``ep_split`` and ``tp``
     islands (the reference's ``shard_map`` takes it split there, and fails
-    too), and the padded vocabulary, which the port's vocab-parallel
-    embedding and head take split (a multiple of 256: any M dividing 256
-    splits it)."""
+    too). The padded vocabulary splits where M divides it and stays whole
+    elsewhere."""
     if ps is None or not tp.active():
         return None
     m = tp.model_size()
-    sizes = {"vocab_padded": cfg.vocab_padded}
     if cfg.family == "moe" and moe.moe_mode(cfg.n_experts, m) != "ep":
-        sizes["moe_d_ff"] = cfg.moe_d_ff or cfg.d_ff
-    bad = {k: v for k, v in sizes.items() if v % m}
-    if bad:
-        raise ValueError(f"{cfg.name}: {bad} do not split over the {m} ranks of 'model'")
-    return _Par(m, s > 1 and tp.divides(s), *tp.splits(cfg))
+        ff = cfg.moe_d_ff or cfg.d_ff
+        if ff % m:
+            raise ValueError(f"{cfg.name}: {{'moe_d_ff': {ff}}} do not split over the {m} ranks "
+                             "of 'model'")
+    return _Par(m, s > 1 and tp.divides(s), tp.divides(cfg.vocab_padded), *tp.splits(cfg))
 
 
 def _pos_ctx(cfg: ArchConfig, s: int, device, par: _Par | None = None):
@@ -611,11 +613,14 @@ def _embed(cfg, params, tokens, ps=None, par: _Par | None = None):
     come through ``fsdp.lookup`` as stored, so the gradient adds in that
     dtype too. On the model axis each rank looks the ids up in its
     ``Vp/M`` rows (zero rows for the others' ids) and the ranks' rows are
-    added (exact: one non-zero term), into the residual stream's layout."""
+    added (exact: one non-zero term), into the residual stream's layout;
+    over a whole vocabulary each rank looks up every id and keeps its part
+    of the sequence."""
     if ps is None:
         return _wt(cfg, params["embed"][tokens.long()], cfg.dtype)
-    if par is None:
-        return _wt(cfg, fsdp.lookup(cfg, params["embed"], ps["embed"], tokens), cfg.dtype)
+    if par is None or not par.vocab:
+        found = fsdp.lookup(cfg, params["embed"], ps["embed"], tokens)
+        return _wt(cfg, found if par is None else _whole_to_residual(found, par), cfg.dtype)
     table = params["embed"]
     rows = table.shape[0]
     local = tokens.long() - tp.model_rank() * rows
@@ -637,7 +642,8 @@ def _last_position(x: torch.Tensor, par: _Par | None) -> torch.Tensor:
 def _head(cfg, params, x, ps=None, par: _Par | None = None):
     """f32 logits ``[..., vocab_padded]``, padding columns at −1e30. On the
     model axis, this rank's ``Vp/M`` columns of every position's logits
-    (``x`` the rank's part of the sequence where ``par.seq``)."""
+    (``x`` the rank's part of the sequence where ``par.seq``), or all of
+    them where the vocabulary stays whole."""
     params = _use_keys(cfg, params, ps, ("final_norm", "out_head"))
     x = rmsnorm(x, params["final_norm"])
     if par is not None and par.seq:
@@ -646,7 +652,7 @@ def _head(cfg, params, x, ps=None, par: _Par | None = None):
     logits = x.float() @ w.float()
     if cfg.vocab_padded > cfg.vocab:  # mask the padding columns
         cols = torch.arange(w.shape[-1], device=x.device)
-        if par is not None:
+        if par is not None and par.vocab:
             cols = cols + tp.model_rank() * w.shape[-1]
         logits = logits.masked_fill(cols >= cfg.vocab, -1e30)
     return logits

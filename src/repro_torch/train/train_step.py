@@ -96,7 +96,8 @@ def loss_fn(cfg: ArchConfig, params, tokens, labels, image_embeds=None, *, param
     logits, aux, _ = transformer.forward(cfg, params, tokens, image_embeds,
                                          param_shardings=param_shardings)
     m = tp.model_size() if param_shardings is not None else 1
-    ce = cross_entropy(logits, labels, vocab=cfg.vocab, vocab_parallel=m > 1)
+    ce = cross_entropy(logits, labels, vocab=cfg.vocab,
+                       vocab_parallel=m > 1 and tp.divides(cfg.vocab_padded))
     loss = ce + 0.01 * aux  # MoE load-balance coefficient (GShard-style)
     if m > 1:
         loss = loss / m
